@@ -1,10 +1,12 @@
-"""Core algorithms of the port: LC-RWMD, top-k, WMD rerank, WCD, cascade."""
+"""Core algorithms of the port: LC-RWMD plus the baselines the paper compares
+to (quadratic RWMD, WMD), top-k, WCD and the cascade."""
 
 from repro_torch.core.distances import dists, safe_sqrt, sq_dists
 from repro_torch.core.lc_rwmd import (
     LCRWMDEngine,
     SegmentTensors,
     lc_rwmd_one_sided,
+    lc_rwmd_streaming,
     lc_rwmd_symmetric,
     phase1_z,
     phase1_z_from_t,
@@ -18,6 +20,12 @@ from repro_torch.core.pipeline import (
     cascade_topk,
     knn_classify,
     pruned_wmd_topk,
+)
+from repro_torch.core.rwmd import (
+    rwmd_many_vs_many,
+    rwmd_one_vs_many,
+    rwmd_pair,
+    rwmd_pairs_from_t,
 )
 from repro_torch.core.topk import (
     EMPTY_IDX,
@@ -35,16 +43,31 @@ from repro_torch.core.wcd import (
     wcd_many_vs_many,
     wcd_one_vs_many,
 )
-from repro_torch.core.wmd import wmd_batched_dispatch, wmd_candidate_values
+from repro_torch.core.wmd import (
+    SinkhornResult,
+    emd_exact_lp,
+    sinkhorn_log,
+    sinkhorn_log_batched,
+    wmd_batched,
+    wmd_batched_dispatch,
+    wmd_batched_from_t,
+    wmd_candidate_values,
+    wmd_one_vs_many,
+    wmd_pair,
+)
 
 __all__ = [
     "dists", "safe_sqrt", "sq_dists",
-    "LCRWMDEngine", "SegmentTensors", "lc_rwmd_one_sided", "lc_rwmd_symmetric",
+    "LCRWMDEngine", "SegmentTensors", "lc_rwmd_one_sided", "lc_rwmd_streaming",
+    "lc_rwmd_symmetric",
     "phase1_z", "phase1_z_from_t", "phase2_spmm", "restrict_vocab",
     "AdaptiveRefineBudget", "PrunedWMDResult", "QualityTier", "cascade_topk",
     "knn_classify", "pruned_wmd_topk",
+    "rwmd_many_vs_many", "rwmd_one_vs_many", "rwmd_pair", "rwmd_pairs_from_t",
     "EMPTY_IDX", "StreamingTopK", "TopK", "lex_smallest", "merge_topk",
     "topk_from_candidates", "topk_smallest", "topk_smallest_cols",
     "centroids", "centroids_from_t", "wcd_many_vs_many", "wcd_one_vs_many",
-    "wmd_batched_dispatch", "wmd_candidate_values",
+    "SinkhornResult", "emd_exact_lp", "sinkhorn_log", "sinkhorn_log_batched",
+    "wmd_batched", "wmd_batched_dispatch", "wmd_batched_from_t",
+    "wmd_candidate_values", "wmd_one_vs_many", "wmd_pair",
 ]

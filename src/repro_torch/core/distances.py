@@ -42,6 +42,25 @@ def sq_dists(a: torch.Tensor, b: torch.Tensor, *,
     return torch.clamp(a2 + b2 - 2.0 * ab, min=0.0)
 
 
+def pair_dists(a: torch.Tensor, b: torch.Tensor, *,
+               bf16_matmul: bool = False) -> torch.Tensor:
+    """Euclidean distances per pair: a (P, p, m), b (P, q, m) → (P, p, q).
+
+    The batched form of :func:`dists` (the reference maps ``dists`` over
+    the pairs axis); safe sqrt.
+    """
+    _require_ieee_f32()
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    a2 = (a * a).sum(dim=-1)[:, :, None]
+    b2 = (b * b).sum(dim=-1)[:, None, :]
+    if bf16_matmul:
+        ab = torch.bmm(bf16_round(a), bf16_round(b).transpose(1, 2))
+    else:
+        ab = torch.bmm(a, b.transpose(1, 2))
+    return safe_sqrt(torch.clamp(a2 + b2 - 2.0 * ab, min=0.0))
+
+
 def dists(a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
     """Euclidean distances between rows of ``a`` and ``b``; safe sqrt."""
     return safe_sqrt(sq_dists(a, b, **kw))

@@ -108,6 +108,26 @@ def lc_rwmd_one_sided(resident: DocSet, queries: DocSet, emb, *,
     return ops.spmm_ell(resident.ids, resident.weights, z)
 
 
+def lc_rwmd_streaming(resident: DocSet, queries: DocSet, emb, *,
+                      vocab_chunk: int = 512, fuse: str = "jnp",
+                      bf16_matmul: bool = False) -> torch.Tensor:
+    """One-sided LC-RWMD with the fused phase-1→phase-2 streaming engine.
+
+    The same value as :func:`lc_rwmd_one_sided`, but Z is never made at full
+    (v, B): the vocabulary is scanned in ``vocab_chunk`` rows, each chunk's Z
+    made and consumed into the running D at once.  ``fuse``: "jnp" (the
+    plain chunk fold), "scan" (phase-1 kernel + blocked SpMM kernel per
+    chunk) or "kernel" (the fused chunk kernel; Z lives only in shared
+    memory).  Runs on the resident's device.
+    """
+    dev = resident.device
+    queries = queries.to(dev)
+    return ops.lc_rwmd_fused(
+        as_f32(emb, dev), queries.ids, queries.weights, resident.ids,
+        resident.weights, vocab_chunk=vocab_chunk, fuse=fuse,
+        bf16_matmul=bf16_matmul)
+
+
 def lc_rwmd_symmetric(set1: DocSet, set2: DocSet, emb, *,
                       bf16_matmul: bool = False) -> torch.Tensor:
     """Tight symmetric LC-RWMD: D = max(D1, D2ᵀ), shape (n1, n2) f32."""
@@ -319,5 +339,6 @@ class LCRWMDEngine:
             self._t_r.reshape(n, h1, -1).index_select(0, flat),
             self.resident.weights.index_select(0, flat),
             self.gather_queries(queries.ids), queries.weights,
-            bf16_matmul=self.bf16_matmul, **(sinkhorn_kw or {}))
+            use_kernel=True, bf16_matmul=self.bf16_matmul,
+            **(sinkhorn_kw or {}))
         return topk_lib.topk_from_candidates(vals, cand_indices, k)

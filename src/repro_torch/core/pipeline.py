@@ -97,6 +97,7 @@ def pruned_wmd_topk(
     refine_budget: int | None = None,
     sinkhorn_kw: dict | None = None,
     engine: LCRWMDEngine | None = None,
+    use_kernel: bool | None = None,
 ) -> PrunedWMDResult:
     """Top-k WMD per query via the RWMD pruning cascade.
 
@@ -107,12 +108,18 @@ def pruned_wmd_topk(
     then streams the symmetric bound through it (the (n, B) matrix is never
     built) and the work runs on the engine's device.  Without an engine,
     stage 1 materializes the symmetric matrix on the resident's device.
+    ``use_kernel`` routes the WMD refine through the Sinkhorn-WMD kernel
+    (True) or the batched solver ``sinkhorn_log_batched`` (False); unset,
+    it follows the reference: the kernel with an engine (the port's engine
+    is the reference's ``use_kernel=True`` engine), the solver without.
     The cluster-index stage (``index=``) is not ported yet.
     """
     sinkhorn_kw = sinkhorn_kw or {}
     n = resident.n_docs
     budget = refine_budget or min(4 * k, n)
     budget = min(max(budget, k), n)  # bootstrap needs k candidates
+    if use_kernel is None:
+        use_kernel = engine is not None
 
     if engine is not None:
         dev = engine.device
@@ -132,7 +139,7 @@ def pruned_wmd_topk(
     wmd_vals = wmd_candidate_values(
         emb_t[resident.ids[flat].long()], resident.weights[flat],
         emb_t[queries.ids.long()], queries.weights,
-        bf16_matmul=bf16, **sinkhorn_kw,
+        use_kernel=use_kernel, bf16_matmul=bf16, **sinkhorn_kw,
     )  # (B, budget)
     wmd_vals = torch.where(cand.indices >= 0, wmd_vals,
                            torch.full_like(wmd_vals, float("inf")))

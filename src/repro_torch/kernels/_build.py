@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` is compiled at first use, by ``nvcc`` for
 ``sm_90a``, into its own shared library with a plain C interface under
 ``build/repro_torch_kernels/`` at the checkout's root, and loaded with
-``ctypes``.  All sources are compiled at once, one ``nvcc`` process each,
-started together.  A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a stale library is never loaded.
+``ctypes``.  The device functions that several kernels share live in
+``csrc/tiles.cuh``.  All sources are compiled at once, one ``nvcc``
+process each, started together.  A library's file name carries a hash of
+its source, the shared headers and the flags, so an edited source is
+rebuilt and a stale library is never loaded.
 
 Every exported launcher returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a non-zero code, so a refused launch (too many
@@ -31,9 +33,16 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("lc_rwmd_phase1", "spmm_ell", "fused_topk", "sinkhorn_wmd")
+SOURCES = ("lc_rwmd_phase1", "spmm_ell", "fused_topk", "sinkhorn_wmd",
+           "fused_chunk", "rwmd_pairwise")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+
+SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on the H100
+# Tile constants of csrc/tiles.cuh (TC, KC, TR, QS_LD), for the wrappers'
+# shared-memory sums.
+GRAM_TC, GRAM_KC, GRAM_TR = 128, 16, 32
+GRAM_QS_LD = GRAM_TC + 4
 
 #: Kernel launches by kernel name (reset with :func:`reset_launches`).
 LAUNCHES: collections.Counter = collections.Counter()
@@ -54,6 +63,10 @@ SIGNATURES = {
     "spmm_ell": {
         # ids, w, z, out, n, h, b, stream
         "launch_spmm_ell": [P, P, P, P, I, I, I, P],
+        # ids, w, z, out, n, h, v, b, stream
+        "launch_spmm_ell_dense": [P, P, P, P, I, I, I, I, P],
+        # ids, w, z, out, n, h, b, stream
+        "launch_spmm_ell_naive": [P, P, P, P, I, I, I, P],
     },
     "fused_topk": {
         # ids, w, z, part_vals, part_idx, n, n_real, h, b, k, rows_per_cta, stream
@@ -66,6 +79,16 @@ SIGNATURES = {
         # n_levels, max_iters, tol, bf16, stream
         "launch_sinkhorn_wmd": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I,
                                 P],
+    },
+    "fused_chunk": {
+        # emb_chunk, t, valid, ids, w, d, cv, lo, m, b, h, n, h1,
+        # n_clusters, bf16, stream
+        "launch_fused_chunk": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+    },
+    "rwmd_pairwise": {
+        # emb, r_ids, r_w, q_ids, q_w, out, n, b, h1, h2, m, docs_per_cta,
+        # queries_per_group, bf16, stream
+        "launch_rwmd_pairwise": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     },
 }
 
@@ -87,7 +110,9 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(
+        src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{tag}.so"
 
 

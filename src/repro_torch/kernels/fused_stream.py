@@ -1,4 +1,13 @@
-"""LC-RWMD phase 2 folded into a streaming per-query top-k.
+"""The fused LC-RWMD kernels: phase 2 folded into a streaming per-query
+top-k, and one vocab chunk's phase 1 → phase 2.
+
+Vocab chunk: the CUDA kernel is ``csrc/fused_chunk.cu`` (it replaces the
+TPU kernel ``repro.kernels.fused_stream.fused_lc_rwmd_chunk_pallas``): a
+thread-block cluster makes the chunk's Z in shared memory and every doc
+row adds its in-chunk slots into D, in place.  :func:`fused_chunk_plain`
+is the same function in plain PyTorch.
+
+Top-k:
 
 The CUDA kernels are ``csrc/fused_topk.cu`` (they replace the TPU kernel
 ``repro.kernels.fused_stream.fused_lc_rwmd_topk_pallas``, whose phase 1 is
@@ -18,11 +27,16 @@ import torch
 
 from repro_torch.core.topk import StreamingTopK
 from repro_torch.kernels import _build
+from repro_torch.kernels.lc_rwmd_phase1 import phase1_sq_plain
 from repro_torch.kernels.spmm_ell import spmm_ell_plain
 
 NAME = "fused_topk"
 K_MAX = 128  # largest k the kernel's shared-memory carry takes
 _CTAS_PER_SM = 2
+CHUNK_NAME = "fused_chunk"
+CLUSTER = 8           # CTAs per cluster in csrc/fused_chunk.cu
+_CHUNK_ROWS_MAX = 128  # vocab rows one CTA of the cluster makes
+_PLAIN_ROWS = 65536    # doc rows per (rows, h1, B) gather of the plain version
 
 
 def phase2_topk_plain(ids: torch.Tensor, w: torch.Tensor, z: torch.Tensor,
@@ -103,3 +117,109 @@ def phase2_topk(ids: torch.Tensor, w: torch.Tensor, z: torch.Tensor, k: int,
         return phase2_topk_plain(ids, w, z, k, n_real=n_real,
                                  row_block=row_block)
     raise ValueError(f"unsupported device {z.device}")
+
+
+# ---------------------------------------------------------------------------
+# One vocab chunk: phase 1 → phase 2, accumulated into D in place
+# ---------------------------------------------------------------------------
+def chunk_relative(r_ids: torch.Tensor, r_w: torch.Tensor, lo: int,
+                   cv: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's chunk view of the resident docs: ids made relative to
+    the chunk ``[lo, lo + cv)`` and clipped into it, and the weights of the
+    slots outside it zeroed."""
+    rel = r_ids - lo
+    inb = (rel >= 0) & (rel < cv)
+    return rel.clamp_(0, cv - 1), r_w * inb
+
+
+def fused_chunk_plain(emb_c: torch.Tensor, t: torch.Tensor,
+                      valid: torch.Tensor, r_ids: torch.Tensor,
+                      r_w: torch.Tensor, lo: int, d: torch.Tensor, *,
+                      bf16_matmul: bool = False) -> torch.Tensor:
+    """Plain PyTorch version: ``d += Σ_p w_masked · Z_chunk[ids_rel]``.
+
+    emb_c (cv, m) holds the vocab rows ``[lo, lo + cv)``, t (B, h, m),
+    valid (B, h) 0/1, r_ids/r_w (n, h1) the resident docs (vocab ids),
+    d (n, B) updated in place and returned.  ``ids_rel``/``w_masked`` are
+    :func:`chunk_relative`'s; the (rows, h1, B) gather is taken
+    ``_PLAIN_ROWS`` rows at a time.
+    """
+    cv = emb_c.shape[0]
+    z = torch.sqrt(torch.clamp(
+        phase1_sq_plain(emb_c, t, valid, bf16_matmul=bf16_matmul), min=0.0))
+    n = r_ids.shape[0]
+    for r0 in range(0, n, _PLAIN_ROWS):
+        r1 = min(r0 + _PLAIN_ROWS, n)
+        ids_rel, w_m = chunk_relative(r_ids[r0:r1], r_w[r0:r1], lo, cv)
+        d[r0:r1] += spmm_ell_plain(ids_rel, w_m, z)
+    return d
+
+
+def chunk_smem_bytes(cv: int, m: int, b: int) -> int:
+    """Shared memory of one CTA (the sum ``csrc/fused_chunk.cu`` allocates)."""
+    rpc = -(-cv // CLUSTER)
+    tr = _build.GRAM_TR
+    ldd = -(-rpc // tr) * tr + 4
+    return 4 * (m * ldd + ldd + _build.GRAM_KC * _build.GRAM_QS_LD
+                + 2 * _build.GRAM_TC + rpc * b) + 64  # + the peer table
+
+
+def fused_chunk_cuda(emb_c: torch.Tensor, t: torch.Tensor,
+                     valid: torch.Tensor, r_ids: torch.Tensor,
+                     r_w: torch.Tensor, lo: int, d: torch.Tensor, *,
+                     bf16_matmul: bool = False) -> torch.Tensor:
+    """Launch the CUDA kernel; ``d`` (n, B) f32 is accumulated in place.
+
+    The kernel reads ``r_ids``/``r_w`` as they are and adds only the slots
+    whose id falls in ``[lo, lo + cv)``: the same sum as the reference's
+    chunk-relative ids and zeroed weights.
+    """
+    _build.require(emb_c, torch.float32, 2, "emb_c")
+    _build.require(t, torch.float32, 3, "t")
+    _build.require(valid, torch.float32, 2, "valid")
+    _build.require(r_ids, torch.int32, 2, "r_ids")
+    _build.require(r_w, torch.float32, 2, "r_w")
+    _build.require(d, torch.float32, 2, "d")
+    cv, m = emb_c.shape
+    b, h, m_t = t.shape
+    n, h1 = r_ids.shape
+    if (m_t != m or tuple(valid.shape) != (b, h)
+            or tuple(r_w.shape) != (n, h1) or tuple(d.shape) != (n, b)):
+        raise ValueError(
+            f"shape mismatch: emb_c {tuple(emb_c.shape)}, t {tuple(t.shape)}, "
+            f"valid {tuple(valid.shape)}, r_ids {tuple(r_ids.shape)}, "
+            f"r_w {tuple(r_w.shape)}, d {tuple(d.shape)}")
+    if cv > CLUSTER * _CHUNK_ROWS_MAX:
+        raise ValueError(f"vocab_chunk {cv} exceeds the fused kernel's "
+                         f"{CLUSTER * _CHUNK_ROWS_MAX} rows per chunk")
+    smem = chunk_smem_bytes(cv, m, b)
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(
+            f"the chunk's Z does not fit: the fused kernel needs {smem} bytes "
+            f"of shared memory per CTA (vocab_chunk={cv}, B={b}, m={m}), more "
+            f"than the {_build.SMEM_LIMIT} one CTA may use")
+    dev = emb_c.device
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_clusters = max(1, n_sm // CLUSTER)
+    lib = _build.lib(CHUNK_NAME)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.launch_fused_chunk(
+            emb_c.data_ptr(), t.data_ptr(), valid.data_ptr(),
+            r_ids.data_ptr(), r_w.data_ptr(), d.data_ptr(), cv, lo, m, b,
+            h, n, h1, n_clusters, int(bf16_matmul), stream)
+    _build.check(code, CHUNK_NAME)
+    _build.LAUNCHES[CHUNK_NAME] += 1
+    return d
+
+
+def fused_chunk(emb_c, t, valid, r_ids, r_w, lo, d, *,
+                bf16_matmul: bool = False) -> torch.Tensor:
+    """One vocab chunk into D, in place: the kernel on CUDA, plain on CPU."""
+    if d.is_cuda:
+        return fused_chunk_cuda(emb_c, t, valid, r_ids, r_w, lo, d,
+                                bf16_matmul=bf16_matmul)
+    if d.device.type == "cpu":
+        return fused_chunk_plain(emb_c, t, valid, r_ids, r_w, lo, d,
+                                 bf16_matmul=bf16_matmul)
+    raise ValueError(f"unsupported device {d.device}")

@@ -6,9 +6,9 @@ CUDA tensors launch the hand-written kernels in ``csrc/``; CPU tensors take
 each kernel's plain PyTorch version.  On a CUDA tensor a wrapper launches
 its kernel or raises; nothing falls back.
 
-The TPU wrappers' tile knobs (``block_v``, ``block_h``, ``block_n``) and
-``interpret`` have no counterpart: the kernels choose their own tiles and
-need no alignment padding.
+The TPU wrappers' tile knobs (``block_v``, ``block_h``, ``block_n``,
+``block_p``) and ``interpret`` have no counterpart: the kernels choose their
+own tiles and need no alignment padding.
 """
 
 from __future__ import annotations
@@ -17,8 +17,12 @@ import torch
 
 from repro_torch.kernels import fused_stream as _fs
 from repro_torch.kernels import lc_rwmd_phase1 as _p1
+from repro_torch.kernels import rwmd_pairwise as _rw
 from repro_torch.kernels import sinkhorn_wmd as _sk
 from repro_torch.kernels import spmm_ell as _sp
+
+_SPMM = {"blocked": _sp.spmm_ell, "dense": _sp.spmm_ell_dense,
+         "naive": _sp.spmm_ell_naive}
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -65,12 +69,70 @@ def spmm_ell(
 ) -> torch.Tensor:
     """D (n, B) f32 = ELL-sparse(ids, w) @ z.
 
-    Only ``mode="blocked"`` is ported; the reference's "dense" and "naive"
-    formulations are TPU kernels still to port, and raise here.
+    ``mode``: "blocked" (a warp gathers each doc row's Z rows), "dense" (Z
+    staged one vocab subtile at a time, the TPU's one-hot formulation) or
+    "naive" (the seed kernel, one doc per CTA, kept as the baseline).
     """
-    if mode != "blocked":
-        raise ValueError(f"spmm mode {mode!r} is not ported; use 'blocked'")
-    return _sp.spmm_ell(ids.to(torch.int32).contiguous(), _f32(w), _f32(z))
+    if mode not in _SPMM:
+        raise ValueError(f"unknown spmm mode {mode!r}")
+    return _SPMM[mode](ids.to(torch.int32).contiguous(), _f32(w), _f32(z))
+
+
+def lc_rwmd_fused(
+    emb: torch.Tensor,      # (v, m) float
+    q_ids: torch.Tensor,    # (B, h) int
+    q_w: torch.Tensor,      # (B, h) float (0 = padding)
+    r_ids: torch.Tensor,    # (n, h1) int resident ELL ids
+    r_w: torch.Tensor,      # (n, h1) float resident weights (0 = padding)
+    *,
+    vocab_chunk: int = 512,
+    fuse: str = "scan",
+    bf16_matmul: bool = False,
+) -> torch.Tensor:
+    """Streaming phase-1→phase-2: D (n, B) f32 without a full Z (v, B).
+
+    The vocabulary (padded with zero rows to a multiple of ``vocab_chunk``)
+    is scanned in chunks; each chunk's Z is made and consumed into the
+    running D at once, with the resident ids made chunk-relative and
+    clipped and the weights of out-of-chunk slots zeroed, as in the
+    reference (the fused kernel reads the ids as they are and skips the
+    out-of-chunk slots: the same sum).
+
+    ``fuse``:
+      "kernel": the fused chunk kernel (Z of a chunk lives only in shared
+                memory) on CUDA tensors, its plain version on CPU tensors.
+      "scan":   phase 1 then the blocked SpMM per chunk (Z bounded at
+                (vocab_chunk, B)), kernels on CUDA, plain versions on CPU.
+      "jnp":    the plain chunk fold on any device (the name is the
+                reference's).
+    """
+    if fuse not in ("kernel", "scan", "jnp"):
+        raise ValueError(f"unknown fuse mode {fuse!r}")
+    emb_f = _f32(emb)
+    v, m = emb_f.shape
+    b, h = q_ids.shape
+    n = r_ids.shape[0]
+    vc = vocab_chunk
+    n_chunks = -(-v // vc)
+    if n_chunks * vc > v:
+        emb_f = torch.cat([emb_f, emb_f.new_zeros((n_chunks * vc - v, m))])
+    t = emb_f[q_ids.reshape(-1).long()].reshape(b, h, m)
+    valid = (q_w > 0).to(torch.float32)
+    r_ids = r_ids.to(torch.int32).contiguous()
+    r_w = _f32(r_w)
+    d = torch.zeros((n, b), dtype=torch.float32, device=emb_f.device)
+    for lo in range(0, n_chunks * vc, vc):
+        e_c = emb_f[lo:lo + vc]
+        if fuse == "kernel":
+            _fs.fused_chunk(e_c, t, valid, r_ids, r_w, lo, d,
+                            bf16_matmul=bf16_matmul)
+        elif fuse == "scan":
+            z = _phase1(e_c, t, valid, bf16_matmul)
+            d += _sp.spmm_ell(*_fs.chunk_relative(r_ids, r_w, lo, vc), z)
+        else:
+            _fs.fused_chunk_plain(e_c, t, valid, r_ids, r_w, lo, d,
+                                  bf16_matmul=bf16_matmul)
+    return d
 
 
 def streaming_phase2_topk(
@@ -125,6 +187,25 @@ def lc_rwmd_fused_topk(
         return _fs.phase2_topk_plain(r_ids, _f32(r_w), z, k,
                                      row_block=row_block)
     raise ValueError(f"unknown fuse mode {fuse!r}")
+
+
+def rwmd_pairwise(
+    emb: torch.Tensor,      # (v, m)
+    r_ids: torch.Tensor,    # (n, h1) resident ids
+    r_w: torch.Tensor,      # (n, h1)
+    q_ids: torch.Tensor,    # (B, h2) query ids
+    q_w: torch.Tensor,      # (B, h2)
+    *,
+    bf16_matmul: bool = False,
+) -> torch.Tensor:
+    """Quadratic RWMD distance matrix (n, B) f32, fused per doc tile.
+
+    The kernel reads the embedding rows by id: the (n, h1, m) gather the
+    reference's wrapper hands its kernel is never built.
+    """
+    return _rw.rwmd_pairwise(_f32(emb), r_ids.to(torch.int32).contiguous(),
+                             _f32(r_w), q_ids.to(torch.int32).contiguous(),
+                             _f32(q_w), bf16_matmul=bf16_matmul)
 
 
 def sinkhorn_wmd(

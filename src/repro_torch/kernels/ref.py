@@ -1,4 +1,4 @@
-"""Plain-PyTorch oracles of the phase-1 and phase-2 kernels.
+"""Plain-PyTorch oracles of the phase-1, phase-2 and quadratic-RWMD kernels.
 
 Counterparts of ``repro.kernels.ref``: the semantic ground truth, written
 independently of the kernels' own plain versions (gather from the table,
@@ -34,3 +34,28 @@ def spmm_ell_ref(ids: torch.Tensor, w: torch.Tensor,
     """D[i, j] = Σ_p w[i,p] · Z[ids[i,p], j].  ids/w (n, h); z (v, B) → (n, B)."""
     return torch.einsum("nh,nhb->nb", w.to(torch.float32),
                         z[ids.long()].to(torch.float32))
+
+
+def rwmd_pairwise_ref(t1: torch.Tensor, w1: torch.Tensor, t2: torch.Tensor,
+                      w2: torch.Tensor) -> torch.Tensor:
+    """Symmetric quadratic RWMD of a tile of docs vs ONE query.
+
+    t1: (n, h1, m) resident word embeddings; w1: (n, h1) weights (0 = pad);
+    t2: (h2, m) query embeddings; w2: (h2,).
+    Returns (n,) f32: max(d12, d21) per resident doc.
+    """
+    t1 = t1.to(torch.float32)
+    t2 = t2.to(torch.float32)
+    a2 = (t1 * t1).sum(dim=-1)                       # (n, h1)
+    b2 = (t2 * t2).sum(dim=-1)                       # (h2,)
+    ab = torch.einsum("nhm,qm->nhq", t1, t2)
+    c = torch.sqrt(torch.clamp(a2[..., None] + b2[None, None, :] - 2.0 * ab,
+                               min=0.0))             # (n, h1, h2)
+    m1 = w1 > 0
+    m2 = w2 > 0
+    inf = torch.tensor(float("inf"))
+    row_min = torch.where(m2[None, None, :], c, inf).amin(dim=2)   # (n, h1)
+    d12 = (w1 * torch.where(m1, row_min, 0.0)).sum(dim=1)
+    col_min = torch.where(m1[..., None], c, inf).amin(dim=1)       # (n, h2)
+    d21 = col_min @ torch.where(m2, w2, 0.0)
+    return torch.maximum(d12, d21)

@@ -1,8 +1,15 @@
 """LC-RWMD phase 2: the ELL SpMM ``D[i, j] = Σ_p w[i, p] · Z[ids[i, p], j]``.
 
-The CUDA kernel is ``csrc/spmm_ell.cu`` (it replaces the TPU kernel
-``repro.kernels.spmm_ell.spmm_ell_pallas``); :func:`spmm_ell_plain` is the
-same function in plain PyTorch.
+Three formulations, as in the reference, each a CUDA kernel in
+``csrc/spmm_ell.cu`` beside its plain PyTorch version:
+
+* blocked (:func:`spmm_ell`), replacing ``spmm_ell_pallas``: one warp per
+  doc row gathers its Z rows;
+* dense (:func:`spmm_ell_dense`), replacing ``spmm_ell_dense_pallas``: Z
+  staged one vocab subtile at a time, each row adding the slots whose ids
+  fall in it (the one-hot product of the TPU kernel);
+* naive (:func:`spmm_ell_naive`), replacing ``spmm_ell_naive_pallas``: the
+  seed baseline, one doc per CTA, slots in sequence.
 """
 
 from __future__ import annotations
@@ -12,6 +19,9 @@ import torch
 from repro_torch.kernels import _build
 
 NAME = "spmm_ell"
+DENSE_NAME = "spmm_ell_dense"
+NAIVE_NAME = "spmm_ell_naive"
+DENSE_BV = 512  # vocab rows per subtile, as in the kernel
 
 
 def spmm_ell_plain(ids: torch.Tensor, w: torch.Tensor,
@@ -23,11 +33,7 @@ def spmm_ell_plain(ids: torch.Tensor, w: torch.Tensor,
 def spmm_ell_cuda(ids: torch.Tensor, w: torch.Tensor,
                   z: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel: ids int32 / w f32 (n, h), z f32 (v, B)."""
-    _build.require(ids, torch.int32, 2, "ids")
-    _build.require(w, torch.float32, 2, "w")
-    _build.require(z, torch.float32, 2, "z")
-    if ids.shape != w.shape:
-        raise ValueError(f"ids {tuple(ids.shape)} != w {tuple(w.shape)}")
+    _check(ids, w, z)
     n, h = ids.shape
     b = z.shape[1]
     out = torch.empty((n, b), dtype=torch.float32, device=z.device)
@@ -45,8 +51,102 @@ def spmm_ell_cuda(ids: torch.Tensor, w: torch.Tensor,
 def spmm_ell(ids: torch.Tensor, w: torch.Tensor,
              z: torch.Tensor) -> torch.Tensor:
     """D (n, B): the kernel on CUDA, the plain version on CPU."""
+    return _route(spmm_ell_cuda, spmm_ell_plain, ids, w, z)
+
+
+def _check(ids: torch.Tensor, w: torch.Tensor, z: torch.Tensor) -> None:
+    _build.require(ids, torch.int32, 2, "ids")
+    _build.require(w, torch.float32, 2, "w")
+    _build.require(z, torch.float32, 2, "z")
+    if ids.shape != w.shape:
+        raise ValueError(f"ids {tuple(ids.shape)} != w {tuple(w.shape)}")
+
+
+def _route(cuda_fn, plain_fn, ids, w, z):
     if z.is_cuda:
-        return spmm_ell_cuda(ids, w, z)
+        return cuda_fn(ids, w, z)
     if z.device.type == "cpu":
-        return spmm_ell_plain(ids, w, z)
+        return plain_fn(ids, w, z)
     raise ValueError(f"unsupported device {z.device}")
+
+
+def spmm_ell_dense_plain(ids: torch.Tensor, w: torch.Tensor, z: torch.Tensor,
+                         *, block_v: int = DENSE_BV) -> torch.Tensor:
+    """Plain PyTorch version of the dense formulation: per vocab subtile, the
+    one-hot ``A[i, c] = Σ_p w[i,p]·[ids[i,p] = lo + c]`` times ``Z[lo:lo+bv]``,
+    summed subtile by subtile.  ids/w (n, h), z (v, B) → (n, B)."""
+    n = ids.shape[0]
+    v, b = z.shape
+    ids_l = ids.long()
+    out = torch.zeros((n, b), dtype=torch.float32, device=z.device)
+    for lo in range(0, v, block_v):
+        nv = min(block_v, v - lo)
+        inb = (ids_l >= lo) & (ids_l < lo + nv)
+        a = torch.zeros((n, nv), dtype=torch.float32, device=z.device)
+        a.scatter_add_(1, (ids_l - lo).clamp(0, nv - 1),
+                       torch.where(inb, w, torch.zeros_like(w)))
+        out += a @ z[lo:lo + nv]
+    return out
+
+
+def spmm_ell_dense_cuda(ids: torch.Tensor, w: torch.Tensor,
+                        z: torch.Tensor) -> torch.Tensor:
+    """Launch the dense kernel: ids int32 / w f32 (n, h), z f32 (v, B)."""
+    _check(ids, w, z)
+    n, h = ids.shape
+    v, b = z.shape
+    if b > 65535 * 64:
+        raise ValueError(f"at most {65535 * 64} query columns, got {b}")
+    out = torch.empty((n, b), dtype=torch.float32, device=z.device)
+    lib = _build.lib(NAME)
+    with torch.cuda.device(z.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.launch_spmm_ell_dense(
+            ids.data_ptr(), w.data_ptr(), z.data_ptr(), out.data_ptr(),
+            n, h, v, b, stream)
+    _build.check(code, DENSE_NAME)
+    _build.LAUNCHES[DENSE_NAME] += 1
+    return out
+
+
+def spmm_ell_dense(ids: torch.Tensor, w: torch.Tensor,
+                   z: torch.Tensor) -> torch.Tensor:
+    """Dense-formulation D (n, B): the kernel on CUDA, the plain version on CPU."""
+    return _route(spmm_ell_dense_cuda, spmm_ell_dense_plain, ids, w, z)
+
+
+def spmm_ell_naive_plain(ids: torch.Tensor, w: torch.Tensor,
+                         z: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the seed formulation: the slots added in
+    sequence.  ids/w (n, h), z (v, B) → (n, B)."""
+    ids_l = ids.long()
+    out = w[:, :1] * z[ids_l[:, 0]]
+    for p in range(1, ids.shape[1]):
+        out = out + w[:, p:p + 1] * z[ids_l[:, p]]
+    return out
+
+
+def spmm_ell_naive_cuda(ids: torch.Tensor, w: torch.Tensor,
+                        z: torch.Tensor) -> torch.Tensor:
+    """Launch the naive kernel: ids int32 / w f32 (n, h), z f32 (v, B)."""
+    _check(ids, w, z)
+    n, h = ids.shape
+    b = z.shape[1]
+    if n > 2**31 - 1:
+        raise ValueError(f"at most 2**31 - 1 docs, got {n}")
+    out = torch.empty((n, b), dtype=torch.float32, device=z.device)
+    lib = _build.lib(NAME)
+    with torch.cuda.device(z.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.launch_spmm_ell_naive(
+            ids.data_ptr(), w.data_ptr(), z.data_ptr(), out.data_ptr(),
+            n, h, b, stream)
+    _build.check(code, NAIVE_NAME)
+    _build.LAUNCHES[NAIVE_NAME] += 1
+    return out
+
+
+def spmm_ell_naive(ids: torch.Tensor, w: torch.Tensor,
+                   z: torch.Tensor) -> torch.Tensor:
+    """Seed-formulation D (n, B): the kernel on CUDA, the plain version on CPU."""
+    return _route(spmm_ell_naive_cuda, spmm_ell_naive_plain, ids, w, z)

@@ -127,3 +127,80 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
                                 sinkhorn_kw=dict(eps=0.05, eps_scaling=2,
                                                  max_iters=100))
     assert torch.equal(res.topk.indices[:, 0].cpu(), torch.arange(8, dtype=torch.int32))
+
+
+def test_spmm_dense_and_naive_kernels_match_plain(cuda):
+    from repro_torch.kernels import spmm_ell as sp
+
+    rng = np.random.default_rng(4)
+    for n, h, v, b in ((5000, 48, 1500, 64), (777, 13, 600, 70), (33, 40, 513, 5)):
+        ids, w = (x.to(cuda) for x in _ell(rng, n, h, v))
+        z = torch.tensor(rng.normal(size=(v, b)).astype(np.float32)).to(cuda)
+        plain = sp.spmm_ell_plain(ids, w, z)
+        torch.testing.assert_close(sp.spmm_ell_dense_cuda(ids, w, z),
+                                   sp.spmm_ell_dense_plain(ids, w, z),
+                                   rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(sp.spmm_ell_dense_cuda(ids, w, z), plain,
+                                   rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(sp.spmm_ell_naive_cuda(ids, w, z),
+                                   sp.spmm_ell_naive_plain(ids, w, z),
+                                   rtol=1e-5, atol=1e-5)
+        # the seed kernel takes the blocked kernel's fmaf chain: bit-equal
+        assert torch.equal(sp.spmm_ell_naive_cuda(ids, w, z),
+                           sp.spmm_ell_cuda(ids, w, z))
+
+
+def test_fused_chunk_kernel_matches_plain(cuda):
+    from repro_torch.kernels import fused_stream as fs
+
+    g = torch.Generator().manual_seed(5)
+    for cv, b, h, m, n, h1 in ((512, 64, 48, 300, 3000, 48),
+                               (100, 7, 9, 64, 500, 12)):
+        emb_c = torch.randn(cv, m, generator=g).to(cuda)
+        t = torch.randn(b, h, m, generator=g).to(cuda)
+        valid = (torch.rand(b, h, generator=g) > 0.3).float().to(cuda)
+        lo = 2 * cv  # ids span the chunk [lo, lo + cv) and both sides of it
+        ids = torch.randint(lo - cv, lo + 2 * cv, (n, h1), generator=g)
+        ids = ids.to(torch.int32).to(cuda)
+        w = torch.rand(n, h1, generator=g).to(cuda)
+        d0 = torch.rand(n, b, generator=g).to(cuda)
+        for bf16 in (False, True):
+            got = fs.fused_chunk_cuda(emb_c, t, valid, ids, w, lo, d0.clone(),
+                                      bf16_matmul=bf16)
+            want = fs.fused_chunk_plain(emb_c, t, valid, ids, w, lo,
+                                        d0.clone(), bf16_matmul=bf16)
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-2)
+    with pytest.raises(ValueError, match="exceeds"):
+        fs.fused_chunk_cuda(torch.zeros(2048, m, device=cuda), t, valid,
+                            ids, w, 0, torch.zeros(n, b, device=cuda))
+
+
+def test_rwmd_pairwise_kernel_matches_plain(cuda):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwmd_pairwise as rw
+
+    rng = np.random.default_rng(6)
+    # (.., 160, ..) and (.., 300, ..): docs of more than 128 words, taken in
+    # row tiles; (.., 1100, ..): a query of more than 1,024 words
+    for n, h1, b, h2, m in ((301, 48, 64, 48, 300), (77, 16, 5, 9, 64),
+                            (40, 100, 3, 128, 32), (50, 160, 64, 160, 300),
+                            (23, 300, 5, 7, 64), (30, 12, 3, 1100, 32)):
+        v = 900
+        emb = torch.tensor(rng.normal(size=(v, m)).astype(np.float32)).to(cuda)
+        r_ids, r_w = (x.to(cuda) for x in _ell(rng, n, h1, v))
+        q_ids, q_w = (x.to(cuda) for x in _ell(rng, b, h2, v))
+        r_w[0] = 0.0   # an empty resident doc
+        q_w[-1] = 0.0  # an empty query
+        for bf16 in (True, False):
+            got = rw.rwmd_pairwise_cuda(emb, r_ids, r_w, q_ids, q_w,
+                                        bf16_matmul=bf16)
+            want = rw.rwmd_pairwise_plain(emb, r_ids, r_w, q_ids, q_w,
+                                          bf16_matmul=bf16)
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-2)
+        # the empty doc and the empty query give the 3.4e38 sentinel
+        assert float(got[0, 0]) > 3e38 and float(got[1, -1]) > 3e38
+        oracle = torch.stack([ref.rwmd_pairwise_ref(
+            emb[r_ids.long()], r_w, emb[q_ids[j].long()], q_w[j])
+            for j in range(b - 1)], dim=1)
+        torch.testing.assert_close(got[1:, :b - 1], oracle[1:], rtol=1e-4,
+                                   atol=1e-2)

@@ -136,7 +136,8 @@ def test_pruned_wmd_topk_matches_reference(pair, small_corpus, with_engine):
         sinkhorn_kw=KW, engine=ref if with_engine else None, use_kernel=True,
         interpret=True)
     got = tpipe.pruned_wmd_topk(docs, tq, emb, k=5, sinkhorn_kw=KW,
-                                engine=port if with_engine else None)
+                                engine=port if with_engine else None,
+                                use_kernel=True)
     assert_topk_close(got.topk, want.topk)
     assert_topk_close(got.rwmd_topk, want.rwmd_topk)
     np.testing.assert_allclose(_np(got.cutoff), _np(want.cutoff), rtol=RTOL,

@@ -9,8 +9,10 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
 MODULES = [
     "repro_torch", "repro_torch.convert", "repro_torch.data.docs",
-    "repro_torch.data.synth", "repro_torch.core", "repro_torch.kernels.ops",
-    "repro_torch.kernels.ref",
+    "repro_torch.data.synth", "repro_torch.core", "repro_torch.core.rwmd",
+    "repro_torch.core.wmd", "repro_torch.kernels.ops", "repro_torch.kernels.ref",
+    "repro_torch.kernels.spmm_ell", "repro_torch.kernels.fused_stream",
+    "repro_torch.kernels.rwmd_pairwise",
 ]
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|from\s+repro(\.|\s))",

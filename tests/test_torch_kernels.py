@@ -14,6 +14,7 @@ import torch
 
 from repro.core import distances as jdist
 from repro.core import topk as jtopk
+from repro.kernels import fused_stream as jfs
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import sinkhorn_wmd as jsk
@@ -24,6 +25,7 @@ from repro_torch.kernels import fused_stream as tfs
 from repro_torch.kernels import lc_rwmd_phase1 as tp1
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rwmd_pairwise as trw
 from repro_torch.kernels import sinkhorn_wmd as tsk
 from repro_torch.kernels import spmm_ell as tsp
 
@@ -144,10 +146,81 @@ def test_spmm_plain_matches_pallas(n, h, v, b):
 
 @pytest.mark.parametrize("mode", ["dense", "naive", "bogus"])
 def test_spmm_unported_modes_raise(mode):
-    z = torch.zeros(4, 2)
-    with pytest.raises(ValueError, match="not ported"):
-        tops.spmm_ell(torch.zeros(2, 3, dtype=torch.int32), torch.zeros(2, 3), z,
-                      mode=mode)
+    """Every mode of the reference is ported; only an unknown one raises."""
+    rng = np.random.default_rng(17)
+    ids, w = _mk_ell(rng, 9, 5, 40)
+    z = rng.normal(size=(40, 3)).astype(np.float32)
+    if mode == "bogus":
+        with pytest.raises(ValueError, match="unknown spmm mode"):
+            tops.spmm_ell(_t(ids), _t(w), _t(z), mode=mode)
+        return
+    got = tops.spmm_ell(_t(ids), _t(w), _t(z), mode=mode)
+    want = tops.spmm_ell(_t(ids), _t(w), _t(z), mode="blocked")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,h,v,b,block_v", [
+    (16, 8, 256, 4, 64),
+    (13, 8, 200, 3, 64),    # n AND v padded in the reference
+    (8, 4, 128, 9, 128),
+    (40, 6, 1100, 5, 256),  # more than one of the port's 512-row subtiles
+])
+def test_spmm_dense_plain_matches_pallas(n, h, v, b, block_v):
+    rng = np.random.default_rng(n * 17 + h + v + b)
+    ids, w = _mk_ell(rng, n, h, v)
+    z = rng.normal(size=(v, b)).astype(np.float32)
+    want = np.asarray(jops.spmm_ell(jnp.asarray(ids), jnp.asarray(w),
+                                    jnp.asarray(z), mode="dense",
+                                    block_v=block_v, interpret=True))
+    got = tops.spmm_ell(_t(ids), _t(w), _t(z), mode="dense").numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    small = tsp.spmm_ell_dense_plain(_t(ids), _t(w), _t(z), block_v=block_v)
+    np.testing.assert_allclose(small.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,h,v,b", [(24, 8, 128, 6), (7, 13, 300, 2)])
+def test_spmm_naive_plain_matches_pallas(n, h, v, b):
+    rng = np.random.default_rng(n * 19 + h + v + b)
+    ids, w = _mk_ell(rng, n, h, v)
+    z = rng.normal(size=(v, b)).astype(np.float32)
+    want = np.asarray(jops.spmm_ell(jnp.asarray(ids), jnp.asarray(w),
+                                    jnp.asarray(z), mode="naive",
+                                    interpret=True))
+    got = tops.spmm_ell(_t(ids), _t(w), _t(z), mode="naive").numpy()
+    # the reference's own bar between its naive and blocked kernels
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# B5 fused vocab chunk
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("cv,bf16", [(64, False), (128, False), (64, True)])
+def test_fused_chunk_plain_matches_pallas(cv, bf16):
+    rng = np.random.default_rng(cv + bf16)
+    m, b, h, n, h1 = 32, 3, 5, 16, 6
+    emb_c = rng.normal(size=(cv, m)).astype(np.float32)
+    q_t = rng.normal(size=(b, h, m)).astype(np.float32)
+    valid = (rng.random((b, h)) > 0.3).astype(np.float32)
+    valid[:, 0] = 1.0
+    ids = rng.integers(-cv, 2 * cv, size=(n, h1))
+    w = rng.uniform(0, 1, size=(n, h1)).astype(np.float32)
+    inb = (ids >= 0) & (ids < cv)
+    ids_rel = np.clip(ids, 0, cv - 1).astype(np.int32)
+    w_m = (w * inb).astype(np.float32)
+    want = np.asarray(jfs.fused_lc_rwmd_chunk_pallas(
+        jnp.asarray(emb_c), jnp.asarray(q_t), jnp.asarray(valid),
+        jnp.asarray(ids_rel), jnp.asarray(w_m), block_v=32, bf16_matmul=bf16,
+        interpret=True))[:, :b]
+    d0 = rng.normal(size=(n, b)).astype(np.float32)
+    d = _t(d0)
+    # the port takes the vocab ids as they are, with the chunk's offset
+    lo = 3 * cv
+    out = tfs.fused_chunk(_t(emb_c), _t(q_t), _t(valid),
+                          _t((ids + lo).astype(np.int32)), _t(w), lo, d,
+                          bf16_matmul=bf16)
+    assert out is d  # accumulated in place
+    tol = dict(rtol=5e-2, atol=0.7) if bf16 else dict(rtol=1e-4, atol=1e-2)
+    np.testing.assert_allclose(d.numpy() - d0, want, **tol)
 
 
 # ---------------------------------------------------------------------------
@@ -393,9 +466,21 @@ def test_cpu_tensors_take_the_plain_versions():
                             fuse="kernel")
     w1, w2, t1, t2 = _random_problems(np.random.default_rng(0), p=2)
     tops.sinkhorn_wmd(_t(t1), _t(w1), _t(t2), _t(w2), max_iters=3)
+    for mode in ("dense", "naive"):
+        tops.spmm_ell(_t(r_ids), _t(r_w), torch.zeros(96, 2), mode=mode)
+    tops.lc_rwmd_fused(*map(_t, (emb, q_ids, q_w, r_ids, r_w)), vocab_chunk=32,
+                       fuse="kernel")
+    tops.rwmd_pairwise(*map(_t, (emb, r_ids, r_w, q_ids, q_w)))
     assert sum(_build.LAUNCHES.values()) == 0
+    for fn in (tsp.spmm_ell_cuda, tsp.spmm_ell_dense_cuda,
+               tsp.spmm_ell_naive_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(_t(r_ids), _t(r_w), torch.zeros(96, 2))
     with pytest.raises(ValueError, match="CUDA"):
-        tsp.spmm_ell_cuda(_t(r_ids), _t(r_w), torch.zeros(96, 2))
+        trw.rwmd_pairwise_cuda(*map(_t, (emb, r_ids, r_w, q_ids, q_w)))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfs.fused_chunk_cuda(_t(emb[:32]), _t(emb[q_ids]), _t(q_w > 0).float(),
+                             _t(r_ids), _t(r_w), 0, torch.zeros(40, 5))
 
 
 def test_kernel_sources_and_build_contract():
