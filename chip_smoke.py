@@ -1,9 +1,11 @@
-"""Drive the PyTorch/CUDA port on one GPU and check it: the query cascade and
+"""Drive the PyTorch/CUDA port on one GPU and check it: the query cascade,
 the paper's comparison path (streaming LC-RWMD, the SpMM formulations, the
-quadratic RWMD and the WMD baselines).
+quadratic RWMD and the WMD baselines), flash attention and the GNN
+gather-scale-scatter, and llama3.2-1b prefill and decode.
 
     python3 chip_smoke.py              # Table IV set 2 at scale 0.25: 700,000 docs
     python3 chip_smoke.py --scale 0.01 # a quick rehearsal at 28,000 docs
+                                       # (and shorter sequences and graphs)
 
 Phases, each of which exits non-zero on failure:
 
@@ -35,10 +37,33 @@ Phases, each of which exits non-zero on failure:
    version at 160 words a doc (Table IV set 1's h_max), the batched Sinkhorn
    and ``wmd_one_vs_many`` against the Sinkhorn-WMD kernel (at settings
    where they converge), and the kernel's gap to the exact EMD on 16 pairs;
-   one line compares the quadratic RWMD's time with LC-RWMD's.
+   one line compares the quadratic RWMD's time with LC-RWMD's.  The
+   engine of phases 3-5 is freed before the next phases.
+6. flash attention: the kernel against its plain version at llama3.2-1b's
+   heads (B=4, S=T=4,096, 32 query and 8 KV heads, dh 64), causal in bf16
+   and f32, non-causal, and at a length that is not a tile multiple (bf16
+   within the bars of ``kernels/flash_attention.py``: relative RMS and the
+   largest error over its row's largest output), and on the probe whose
+   output shows that p is rounded to bf16; its time beside
+   ``scaled_dot_product_attention``'s.
+7. gather-scale-scatter: ``ops.segment_spmm`` at the ogb_products cell
+   (2,449,029 nodes, 61,859,140 edges, 100 features) with degree-0 rows and
+   padding edges, against its plain version on the card, bit for bit
+   against the CPU plain version on the first rows, and beside
+   ``torch.sparse.mm`` of the CSR adjacency.
+8. llama3.2-1b at full width (random weights from a seed): one 32,768-token
+   prompt through ``forward_with_cache`` (flash attention in all 16 layers,
+   counted) and 32 greedy ``decode_step``s; prefill and decode times, peak
+   memory, the attention kernel's share of the prefill (``torch.profiler``);
+   the kernel at the prefill's own shape: the last layer's q, k and v of the
+   32,768-token prompt, with three slices of 256 query rows (first, middle,
+   last) against the plain version over all their keys; then, at 4,096
+   tokens, the prefill against the plain attention and a decode step
+   against the prefill of one more token.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+Before the last line come a JSON object with one entry per kernel and the
+card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository beside this script, it exits non-zero and prints no
 result.
 """
@@ -46,6 +71,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import pathlib
@@ -81,6 +107,56 @@ SET1_H, SET1_DOCS, SET1_QUERIES = 160, 1024, 16  # B7 at Table IV set 1's h_max
 # part ways.  At these settings most pairs converge.
 WMD_CHECK_KW = dict(eps=0.5, eps_scaling=3, max_iters=2000)
 WMD_CONVERGED_MIN_SHARE = 0.5
+BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
+# B8 at llama3.2-1b's heads: (B, S = T, Hq, Hkv, dh), and a length that is
+# not a multiple of the kernel's tiles.
+FLASH_SHAPE = (4, 4096, 32, 8, 64)
+FLASH_ODD_LEN = 4000
+FLASH_F32_TOL = 1e-4  # float32: the order of ~64 tiles' rescaled sums
+                      # (bf16: the bars of kernels/flash_attention.py)
+# B9 at the ogb_products cell (src/repro/configs/gnn_archs.py): N, E, D.
+OGB_NODES, OGB_EDGES, OGB_FEAT = 2_449_029, 61_859_140, 100
+OGB_PAD_EDGES = 1024  # padding edges (rad 0) to the sink row N - 1
+OGB_ISOLATED = 0.01   # share of rows that no edge reaches
+SEG_TOL = 1e-4        # the plain version adds with atomics, in no fixed order
+# llama3.2-1b serving: prefill_32k's sequence length at batch 1, then
+# greedy decode steps; the checks run at LM_CHECK_LEN.
+LM_PROMPT = 32768
+LM_DECODE = 32
+LM_CHECK_LEN = 4096
+LM_SLICE_ROWS = 256   # query rows per slice of the kernel check at S = 32,768
+# Relative RMS gap allowed between two bf16 attention paths through the
+# whole model: 3x the reference's own gap between its gqa_attention and its
+# Pallas flash kernel at bf16 on the llama3.2-1b smoke config at depth 16
+# (tests/test_torch_transformer.py::test_chip_bar_covers_the_references_gap).
+LM_REL_RMS_BAR = 0.05
+
+
+# kernel -> (its CUDA source, the TPU kernel's pallas_call it replaces);
+# B1-B4 serve the cascade, B5-B7 the comparison path, B8 the llama3.2-1b
+# prefill, B9 its own entry point (ops.segment_spmm).
+KERNEL_SOURCES = {
+    "lc_rwmd_phase1": ("src/repro_torch/csrc/lc_rwmd_phase1.cu",
+                       "src/repro/kernels/lc_rwmd_phase1.py:85"),
+    "spmm_ell": ("src/repro_torch/csrc/spmm_ell.cu",
+                 "src/repro/kernels/spmm_ell.py:90"),
+    "fused_topk": ("src/repro_torch/csrc/fused_topk.cu",
+                   "src/repro/kernels/fused_stream.py:294"),
+    "sinkhorn_wmd": ("src/repro_torch/csrc/sinkhorn_wmd.cu",
+                     "src/repro/kernels/sinkhorn_wmd.py:177"),
+    "fused_chunk": ("src/repro_torch/csrc/fused_chunk.cu",
+                    "src/repro/kernels/fused_stream.py:128"),
+    "spmm_ell_dense": ("src/repro_torch/csrc/spmm_ell.cu",
+                       "src/repro/kernels/spmm_ell.py:142"),
+    "spmm_ell_naive": ("src/repro_torch/csrc/spmm_ell.cu",
+                       "src/repro/kernels/spmm_ell.py:188"),
+    "rwmd_pairwise": ("src/repro_torch/csrc/rwmd_pairwise.cu",
+                      "src/repro/kernels/rwmd_pairwise.py:80"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:93"),
+    "segment_spmm": ("src/repro_torch/csrc/segment_spmm.cu",
+                     "src/repro/kernels/segment_spmm.py:66"),
+}
 
 
 def fail(msg: str) -> None:
@@ -124,9 +200,10 @@ def wall_ms(fn, reps: int = 3) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             flop_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_FLOP_PER_S * 1e3
+    t_ops = n_ops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -697,42 +774,423 @@ def small_phase():
         "agree with the CPU plain versions")
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--scale", type=float, default=0.25,
-                    help="Table IV set 2 scale (0.25: 700,000 docs)")
-    args = ap.parse_args()
+def flash_phase(frac: float, dev) -> dict:
+    """B8 against its plain version on the card at llama3.2-1b's heads."""
+    import torch
+    import torch.nn.functional as F
 
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s, hq, hkv, dh = FLASH_SHAPE
+    odd = FLASH_ODD_LEN
+    if frac < 1.0:                       # a rehearsal: shorter sequences
+        s, odd = 1024, 1000
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def qkv(length, dtype):
+        return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                     for shape in ((b, length, hq, dh), (b, length, hkv, dh),
+                                   (b, length, hkv, dh)))
+
+    gaps = {}
+
+    def check(label, q, k, v, causal):
+        got = fa.flash_attention_cuda(q, k, v, causal=causal)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        if not bool(torch.isfinite(got).all()):
+            fail(f"flash_attention {label}: non-finite values")
+        err = (got.float() - want.float()).abs().max().item()
+        if q.dtype == torch.float32:   # only the order of the sums differs
+            if not err <= FLASH_F32_TOL:
+                fail(f"flash_attention {label}: |dO| {err} > {FLASH_F32_TOL}")
+            log(f"kernel flash_attention {label} {tuple(q.shape)} kv "
+                f"{tuple(k.shape)}: max |dO| {err:.3e} within {FLASH_F32_TOL}")
+            return err
+        gap = fa.bf16_gap(got, want)
+        gaps[label] = gap
+        if not gap["ok"]:
+            fail(f"flash_attention {label}: {gap} outside the bars (relative "
+                 f"RMS {fa.BF16_REL_RMS_BAR}, row {fa.BF16_ROW_BAR})")
+        log(f"kernel flash_attention {label} {tuple(q.shape)} kv "
+            f"{tuple(k.shape)}: {json.dumps(gap)}")
+        return err
+
+    # p rounded to bf16: the probe's output is 0.99609375, not 1
+    pq, pk, pv, pwant = fa.p_rounding_probe(device=dev)
+    if not torch.equal(fa.flash_attention_cuda(pq, pk, pv, causal=False), pwant):
+        fail("flash_attention: the p-rounding probe's output is not "
+             f"{float(pwant[0, 0, 0, 0])}: p is not rounded to bf16")
+    log("kernel flash_attention: the p-rounding probe gives "
+        f"{float(pwant[0, 0, 0, 0])}, as the plain version")
+
+    q16 = qkv(s, torch.bfloat16)
+    err16 = check("bf16 causal", *q16, True)
+    q32 = tuple(x.float() for x in q16)            # the same values in f32
+    err32 = check("f32 causal", *q32, True)
+    check("bf16 non-causal", *q16, False)
+    check(f"bf16 causal at {odd} (not a tile multiple)", *qkv(odd, torch.bfloat16),
+          True)
+    check(f"f32 non-causal at {odd}", *qkv(odd, torch.float32), False)
+
+    flops = 2.0 * b * hq * s * s * dh                 # causal: the lower half
+    io = 2 * b * s * (hq + hkv) * dh                  # q, k, v read, o written
+    bnd16, by16 = bound_ms(io * 2, flops, BF16_FLOP_PER_S)
+    bnd32, by32 = bound_ms(io * 4, flops)
+    qt, kt, vt = (x.transpose(1, 2) for x in q16)     # SDPA's (B, H, S, dh)
+    ms16 = time_ms(lambda: fa.flash_attention_cuda(*q16, causal=True))
+    ms32 = time_ms(lambda: fa.flash_attention_cuda(*q32, causal=True))
+    info = dict(
+        shape=dict(b=b, s=s, t=s, hq=hq, hkv=hkv, dh=dh),
+        bf16_causal_ms=ms16, f32_causal_ms=ms32,
+        bf16_noncausal_ms=time_ms(lambda: fa.flash_attention_cuda(
+            *q16, causal=False)),
+        f32_plain_ms=time_ms(lambda: fa.flash_attention_plain(*q32, causal=True), 2),
+        f32_bound_ms=bnd32, f32_bound_by=by32, f32_max_abs_err=err32,
+        bf16_gaps=gaps,
+        sdpa_bf16_causal_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        tflops_bf16=flops / ms16 / 1e9, tflops_f32=flops / ms32 / 1e9,
+        cta_bytes=fa.flash_hbm_bytes(b, s, s, hq, hkv, dh))
+    log("flash_attention: " + json.dumps(info))
+    return {"flash_attention": dict(
+        max_abs_err=err16,
+        tol=(f"bf16: relative RMS <= {fa.BF16_REL_RMS_BAR} and |dO| <= "
+             f"{fa.BF16_ROW_BAR} x its row's max |O|; f32: {FLASH_F32_TOL}"),
+        ms=ms16, plain_ms=time_ms(lambda: fa.flash_attention_plain(
+            *q16, causal=True), 2),
+        bound_ms=bnd16, bound_by=by16, library_ms=info["sdpa_bf16_causal_ms"],
+        info=info)}
+
+
+def segment_phase(frac: float, dev) -> dict:
+    """B9 through its entry point at the ogb_products cell's size."""
     import torch
 
-    if not torch.cuda.is_available():
-        fail("no CUDA device")
-    try:
-        from repro_torch.kernels import _build
-    except ImportError as e:
-        fail(f"the repro_torch package is not beside this script: {e}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"cuda {torch.version.cuda}")
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import segment_spmm as sg
 
-    # 1. build
+    n = max(int(OGB_NODES * frac), 4096)
+    e = max(int(OGB_EDGES * frac), 4 * OGB_PAD_EDGES)
+    d = OGB_FEAT
+    g = torch.Generator(device=dev).manual_seed(17)
     t0 = time.perf_counter()
-    _build.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s for {len(_build.SOURCES)} "
-        f"kernel libraries (nvcc, sm_90a)")
-    t_start = time.perf_counter()
+    # Edges as kernels_bench.py makes them (src uniform, dst sorted, rad
+    # uniform in [0.1, 1)), with a share of rows that no edge reaches and
+    # padding edges (rad 0) to the sink row n - 1.
+    isolated = torch.rand(n - 1, generator=g, device=dev) < OGB_ISOLATED
+    cand = (~isolated).nonzero()[:, 0].to(torch.int32)
+    e_real = e - OGB_PAD_EDGES
+    dst = cand[torch.randint(0, cand.numel(), (e_real,), generator=g, device=dev)]
+    dst = torch.cat([torch.sort(dst).values,
+                     torch.full((OGB_PAD_EDGES,), n - 1, dtype=torch.int32,
+                                device=dev)])
+    del cand
+    src = torch.randint(0, n, (e,), generator=g, device=dev, dtype=torch.int32)
+    rad = torch.rand(e, generator=g, device=dev) * 0.9 + 0.1
+    rad[e_real:] = 0.0
+    feat = torch.randn(n, d, generator=g, device=dev)
+    torch.cuda.synchronize()
+    log(f"graph: {n} nodes, {e} edges ({OGB_PAD_EDGES} padding), D={d}, in "
+        f"{time.perf_counter() - t0:.1f} s")
 
+    # the entry point, counts reset just before and read just after
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = ops.segment_spmm(src, dst, feat, rad, n)
+    torch.cuda.synchronize()
+    launches = _build.LAUNCHES["segment_spmm"]
+    if launches < 1:
+        fail("kernel segment_spmm was not launched by ops.segment_spmm")
+    if tuple(out.shape) != (n, d) or not bool(torch.isfinite(out).all()):
+        fail("segment_spmm: bad shape or non-finite values")
+    if not bool((out[:-1][isolated] == 0).all()) or not bool((out[-1] == 0).all()):
+        fail("segment_spmm: a row with no (weighted) edge is not 0")
+    off = sg.row_offsets(dst, n)
+    deg = off[1:] - off[:-1]
+    plain = sg.segment_spmm_plain(src, dst, feat, rad, n)
+    err = (out - plain).abs().max().item()
+    if not err <= SEG_TOL:
+        fail(f"segment_spmm: |dout| {err} > {SEG_TOL} against the plain version")
+    del plain
+    # Bit for bit against the plain version on the CPU, which adds in edge
+    # order as the kernel does, on the first rows.
+    rows = min(CHECK_ROWS, n)
+    e_hi = int(off[rows])
+    cpu = sg.segment_spmm_plain(src[:e_hi].cpu(), dst[:e_hi].cpu(), feat.cpu(),
+                                rad[:e_hi].cpu(), rows)
+    if not torch.equal(out[:rows].cpu(), cpu):
+        fail(f"segment_spmm: the first {rows} rows differ from the CPU plain "
+             f"version (max {(out[:rows].cpu() - cpu).abs().max().item()})")
+    log(f"kernel segment_spmm: max |dout| {err:.3e} within {SEG_TOL} of the "
+        f"plain version (atomics); the first {rows} rows equal the CPU plain "
+        f"version bit for bit; max degree {int(deg.max())}, "
+        f"{int((deg == 0).sum())} rows of degree 0")
+    del cpu
+    order = torch.argsort(dst.long() * n + src.long())
+    with warnings.catch_warnings():  # CSR support is marked beta
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_csr_tensor(off.long(), src[order].long(), rad[order],
+                                      size=(n, n))
+    del order
+    lib_err = (torch.sparse.mm(csr, feat) - out).abs().max().item()
+    bnd, by = bound_ms(12.0 * e + 8.0 * n * d, 2.0 * e * d)
+    rep = dict(
+        max_abs_err=err, tol=f"{SEG_TOL} (plain version's atomics); first "
+                             f"{rows} rows bit-equal to the CPU plain version",
+        ms=time_ms(lambda: ops.segment_spmm(src, dst, feat, rad, n)),
+        plain_ms=time_ms(lambda: sg.segment_spmm_plain(src, dst, feat, rad, n), 1),
+        library_ms=time_ms(lambda: torch.sparse.mm(csr, feat)),
+        bound_ms=bnd, bound_by=by, launches=launches)
+    info = dict(n_nodes=n, n_edges=e, d=d, max_degree=int(deg.max()),
+                degree0_rows=int((deg == 0).sum()),
+                row_offsets_ms=time_ms(lambda: sg.row_offsets(dst, n)),
+                sparse_mm_vs_kernel=lib_err)
+    log("segment_spmm: " + json.dumps(info))
+    rep["info"] = info
+    return {"segment_spmm": rep}
+
+
+def llama_phase(frac: float, dev) -> dict:
+    """llama3.2-1b serving at full width: a 32,768-token prefill through B8,
+    then greedy decode steps; checks against the plain attention."""
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.transformer import model as TM
+    from repro_torch.models.transformer.attention import gqa_attention
+
+    cfg = get_spec("llama3.2-1b").model_cfg
+    s_len = LM_PROMPT if frac >= 1.0 else 2048
+    max_len = s_len + LM_DECODE
+    t0 = time.perf_counter()
+    params = TM.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(x.numel() for x in _leaves(params))
+    log(f"llama3.2-1b: {n_par} parameters (f32, {n_par * 4 / 1e9:.2f} GB) from "
+        f"a seeded generator in {time.perf_counter() - t0:.1f} s; prompt "
+        f"{s_len}, batch 1, {LM_DECODE} decode steps")
+    g = torch.Generator(device=dev).manual_seed(21)
+    tokens = torch.randint(0, cfg.vocab_size, (1, s_len), generator=g, device=dev)
+
+    def decode(cache, nxt):
+        out = []
+        lg = None
+        for _ in range(LM_DECODE):
+            lg, cache = TM.decode_step(params, cache, nxt, cfg)
+            nxt = lg[:, -1].argmax(dim=-1, keepdim=True)
+            out.append(nxt)
+        return lg, torch.cat(out, dim=1), cache
+
+    # --- the main path, counts reset just before and read just after ---
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = TM.forward_with_cache(params, tokens, cfg, max_len)
+    # A row's sum is finite exactly when all its logits are (|logit| << 1e33);
+    # isfinite on the whole (1, S, V) tensor would take 21 GB of temporaries.
+    if tuple(logits.shape) != (1, s_len, cfg.vocab_size) or not bool(
+            torch.isfinite(logits.sum(dim=-1)).all()):
+        fail("forward_with_cache: bad shape or non-finite logits")
+    nxt = logits[:, -1].argmax(dim=-1, keepdim=True)
+    del logits
+    lg, gen, cache = decode(cache, nxt)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"llama3.2-1b main path launches: {launches} ({first_s:.1f} s, "
+        f"peak {peak_gb:.2f} GB)")
+    if launches.get("flash_attention", 0) != cfg.n_layers:
+        fail(f"prefill launched flash_attention "
+             f"{launches.get('flash_attention', 0)} times, not {cfg.n_layers}")
+    if not bool(torch.isfinite(lg).all()) or int(cache.lengths[0]) != max_len:
+        fail("decode_step: non-finite logits or a wrong cache length")
+    del cache, lg
+
+    # --- times: host clock around calls ending in a synchronize ---
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = TM.forward_with_cache(params, tokens, cfg, max_len)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    nxt = logits[:, -1].argmax(dim=-1, keepdim=True)
+    del logits
+    cache_p = TM.KVCache(cache.k.clone(), cache.v.clone(), cache.lengths.clone())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, gen_a, _ = decode(cache, nxt)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / LM_DECODE
+    del cache
+    same = bool(torch.equal(gen_a, gen))
+    log(f"decode: {decode_ms:.2f} ms a token (f32 weights, cast at each "
+        f"product); the same tokens as the first run: {same}")
+
+    # --- B8's share of the prefill (torch.profiler, one call) ---
+    wall_us, dev_us, flash_us, top = profile_one(
+        lambda: TM.forward_with_cache(params, tokens, cfg, max_len), "flash_kernel")
+    if dev_us <= 0.0:
+        fail("torch.profiler saw no device time in the prefill")
+
+    d_wall, d_dev, _, d_top = profile_one(
+        lambda: TM.decode_step(params, cache_p, nxt, cfg), "flash_kernel")
+    del cache_p
+    log(f"decode step profile: wall {d_wall / 1e3:.2f} ms, device busy share "
+        f"{d_dev / d_wall:.3f}; " + ", ".join(
+            f"{k[:40]} {u / 1e3:.3f} ms x{c}" for u, k, c in d_top[:4]))
+
+    # --- B8 at the prefill's own shape: the last layer's q, k, v ---
+    seen = {}
+    flash = TM.flash_attention
+
+    def capture(q, k, v, *, causal=True):   # each layer overwrites the last
+        seen.update(q=q, k=k, v=v, o=flash(q, k, v, causal=causal))
+        return seen["o"]
+
+    with attention_swapped(TM, capture):
+        TM.forward_with_cache(params, tokens, cfg, max_len)
+    torch.cuda.synchronize()
+    slices = {}
+    for lo in (0, s_len // 2, s_len - LM_SLICE_ROWS):
+        hi = lo + LM_SLICE_ROWS
+        want = fa.flash_attention_plain(seen["q"][:, lo:hi], seen["k"][:, :hi],
+                                        seen["v"][:, :hi], q_offset=lo)
+        gap = fa.bf16_gap(seen["o"][:, lo:hi], want)
+        slices[f"rows {lo}-{hi - 1}"] = gap
+        if not gap["ok"]:
+            fail(f"flash_attention at the prefill's shape "
+                 f"{tuple(seen['q'].shape)}, rows {lo}-{hi - 1}: {gap} "
+                 f"outside the bars")
+        del want
+    log(f"kernel flash_attention at the prefill's shape "
+        f"{tuple(seen['q'].shape)} (layer {cfg.n_layers - 1}), rows against "
+        f"the plain version over all their keys: {json.dumps(slices)}")
+    del seen
+
+    # --- checks against the plain attention, at LM_CHECK_LEN ---
+    n4 = min(LM_CHECK_LEN, s_len)
+    t4 = tokens[:, :n4]
+    lf, _ = TM.forward_with_cache(params, t4, cfg, n4)
+
+    def plain(q, k, v, *, causal=True):
+        return gqa_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+
+    with attention_swapped(TM, plain):
+        lp, _ = TM.forward_with_cache(params, t4, cfg, n4)
+    pre = _gap(lf, lp)
+    if not pre["rel_rms"] <= LM_REL_RMS_BAR:
+        fail(f"prefill with B8 vs plain attention at S={n4}: relative RMS gap "
+             f"{pre['rel_rms']:.4f} > {LM_REL_RMS_BAR}")
+    del lp
+    _, c = TM.forward_with_cache(params, t4[:, :n4 - 1], cfg, n4)
+    dec, _ = TM.decode_step(params, c, t4[:, n4 - 1:], cfg)
+    dvp = _gap(dec[:, 0], lf[:, -1])
+    if not dvp["rel_rms"] <= LM_REL_RMS_BAR:
+        fail(f"decode after a prefill of {n4 - 1} vs forward_with_cache of {n4} "
+             f"at the last position: relative RMS gap {dvp['rel_rms']:.4f} > "
+             f"{LM_REL_RMS_BAR}")
+    log(f"llama3.2-1b checks (bar: relative RMS {LM_REL_RMS_BAR}): prefill B8 vs "
+        f"plain attention at S={n4} {json.dumps(pre)}; decode after {n4 - 1} vs "
+        f"forward_with_cache({n4}) {json.dumps(dvp)}")
+    del lf, c, dec
+    torch.cuda.empty_cache()
+    return dict(
+        config=cfg.name, prompt=s_len, batch=1, decode_steps=LM_DECODE,
+        reduced=["prefill batch 32 -> 1: forward_with_cache returns (B, S, V) "
+                 "f32 logits, 16.8 GB a sequence at S = 32,768"],
+        n_params=n_par, prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
+        decode_repeat_tokens_equal=same, main_path_s=first_s,
+        peak_gb=peak_gb, launches=launches,
+        prefill_profile=dict(
+            wall_ms=wall_us / 1e3, device_busy_share=dev_us / wall_us,
+            b8_share_of_device_time=flash_us / dev_us,
+            b8_share_of_wall=flash_us / wall_us, b8_ms=flash_us / 1e3,
+            top=[dict(name=k, device_ms=u / 1e3, count=c) for u, k, c in top[:6]]),
+        decode_profile=dict(
+            wall_ms=d_wall / 1e3, device_busy_share=d_dev / d_wall,
+            top=[dict(name=k, device_ms=u / 1e3, count=c)
+                 for u, k, c in d_top[:6]]),
+        checks=dict(prefill_b8_vs_plain=pre, decode_vs_prefill=dvp,
+                    rel_rms_bar=LM_REL_RMS_BAR, b8_at_prefill_shape=slices),
+        generated=gen[0, :8].tolist())
+
+
+@contextlib.contextmanager
+def attention_swapped(TM, attend):
+    """The model's prefill attention (``TM.flash_attention``) replaced by
+    ``attend`` inside the block."""
+    orig = TM.flash_attention
+    TM.flash_attention = attend
+    try:
+        yield
+    finally:
+        TM.flash_attention = orig
+
+
+def profile_one(fn, match: str):
+    """torch.profiler over one call: (wall us, device us, device us of the
+    kernels whose name holds ``match``, [(us, name, count)] by device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    del out
+    dev_us = hit_us = 0.0
+    top = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue  # operator rows repeat their kernels' device time
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        dev_us += us
+        if match in ev.key:
+            hit_us += us
+        top.append((us, ev.key[:60], ev.count))
+    top.sort(reverse=True)
+    return wall_us, dev_us, hit_us, top
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def _gap(a, b) -> dict:
+    """Relative RMS, max |a - b| and top-1 agreement of two logit tensors."""
+    import torch
+
+    d = (a.float() - b.float())
+    rel = float(torch.sqrt((d * d).mean() / (b.float() ** 2).mean()))
+    top1 = float((a.argmax(dim=-1) == b.argmax(dim=-1)).float().mean())
+    return dict(rel_rms=rel, max_abs=float(d.abs().max()), top1_agree=top1)
+
+
+def lcrwmd_phases(scale: float) -> dict:
+    """Phases 3-5 on one LC-RWMD corpus; returns the kernel report of B1-B7.
+
+    Everything the phases build (the 40 GB engine above all) is freed when
+    this returns.
+    """
+    import torch
+
+    from repro_torch.kernels import _build
     from repro_torch.core.lc_rwmd import LCRWMDEngine
     from repro_torch.core.pipeline import pruned_wmd_topk
     from repro_torch.data.synth import make_corpus, table_iv_spec
 
-    # 2. small-size agreement, card vs CPU (cheap; before the big corpus)
-    small_phase()
-
     # corpus + engine
-    spec = table_iv_spec("set2", scale=args.scale)
+    spec = table_iv_spec("set2", scale=scale)
     t0 = time.perf_counter()
     corpus = make_corpus(spec, device="cuda")
     log(f"corpus: n={spec.n_docs} vocab={spec.vocab_size} m={spec.emb_dim} "
@@ -820,35 +1278,6 @@ def main() -> int:
     log(f"comparison phase: {time.perf_counter() - t0:.1f} s")
     log("comparison: " + json.dumps(comp))
 
-    sources = {
-        "lc_rwmd_phase1": ("src/repro_torch/csrc/lc_rwmd_phase1.cu",
-                           "src/repro/kernels/lc_rwmd_phase1.py:85"),
-        "spmm_ell": ("src/repro_torch/csrc/spmm_ell.cu",
-                     "src/repro/kernels/spmm_ell.py:90"),
-        "fused_topk": ("src/repro_torch/csrc/fused_topk.cu",
-                       "src/repro/kernels/fused_stream.py:294"),
-        "sinkhorn_wmd": ("src/repro_torch/csrc/sinkhorn_wmd.cu",
-                         "src/repro/kernels/sinkhorn_wmd.py:177"),
-        "fused_chunk": ("src/repro_torch/csrc/fused_chunk.cu",
-                        "src/repro/kernels/fused_stream.py:128"),
-        "spmm_ell_dense": ("src/repro_torch/csrc/spmm_ell.cu",
-                           "src/repro/kernels/spmm_ell.py:142"),
-        "spmm_ell_naive": ("src/repro_torch/csrc/spmm_ell.cu",
-                           "src/repro/kernels/spmm_ell.py:188"),
-        "rwmd_pairwise": ("src/repro_torch/csrc/rwmd_pairwise.cu",
-                          "src/repro/kernels/rwmd_pairwise.py:80"),
-    }
-    kernels = []
-    for name, (src, replaces) in sources.items():
-        r = report[name]
-        # B1-B4: the cascade's main path; B5-B7: the comparison path's
-        kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=r.get("launches", launches.get(name, 0)),
-            max_abs_err=r["max_abs_err"],
-            ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"]))
     slice_info = dict(
         n_docs=spec.n_docs, v_e=v_e, batch=B, per_call_ms=times,
         peak_gb=peak_gb, pruned_exact_share=exact_share, profiles=profiles,
@@ -857,6 +1286,66 @@ def main() -> int:
         sinkhorn=dict(iters_mean=report["sinkhorn_wmd"]["iters_mean"],
                       iters_equal_share=report["sinkhorn_wmd"]["iters_equal_share"]))
     log("slice: " + json.dumps(slice_info))
+    for name, r in report.items():
+        r.setdefault("launches", launches.get(name, 0))
+    return report
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--scale", type=float, default=0.25,
+                    help="Table IV set 2 scale (0.25: 700,000 docs)")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    try:
+        from repro_torch.kernels import _build
+    except ImportError as e:
+        fail(f"the repro_torch package is not beside this script: {e}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"cuda {torch.version.cuda}")
+
+    # 1. build
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"build: {time.perf_counter() - t0:.1f} s for {len(_build.SOURCES)} "
+        f"kernel libraries (nvcc, sm_90a)")
+    t_start = time.perf_counter()
+
+    # 2. small-size agreement, card vs CPU (cheap; before the big corpus)
+    small_phase()
+
+    # 3-5. the LC-RWMD slice and comparison path; the engine is freed after
+    report = lcrwmd_phases(args.scale)
+    torch.cuda.empty_cache()
+    log(f"LC-RWMD phases freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        "still allocated")
+
+    # 6-8. attention (B8), gather-scale-scatter (B9), llama3.2-1b serving
+    frac = min(1.0, args.scale / 0.25)
+    dev = torch.device("cuda")
+    report.update(flash_phase(frac, dev))
+    report.update(segment_phase(frac, dev))
+    lm = llama_phase(frac, dev)
+    report["flash_attention"]["launches"] = lm["launches"]["flash_attention"]
+
+    kernels = []
+    for name, (src, replaces) in KERNEL_SOURCES.items():
+        r = report[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=r["launches"], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"]))
+    log("llama3.2-1b: " + json.dumps(lm))
+    log("tolerances: " + json.dumps({k: r["tol"] for k, r in report.items()}))
     log(f"total after the build: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -1,4 +1,4 @@
-"""Carry state across from numpy: the same corpus in both packages.
+"""Carry state across from numpy: the same corpus and weights in both packages.
 
 The tests push the JAX package's ``np.asarray(...)`` arrays through
 :func:`from_numpy`, so the reference and the port compute on bit-identical
@@ -25,3 +25,35 @@ def from_numpy(ids, weights, emb, *, device=None) -> tuple[DocSet, torch.Tensor]
     docs = DocSet(ids=torch.tensor(ids, device=dev),
                   weights=torch.tensor(weights, device=dev))
     return docs, torch.tensor(np.asarray(emb, dtype=np.float32), device=dev)
+
+
+def transformer_params_from_numpy(tree, cfg, *, device=None) -> dict:
+    """The reference's transformer parameters as the port's.
+
+    ``tree`` is the reference's ``init_params`` pytree with numpy (or array)
+    leaves: ``embed``, ``final_ln``, ``layers`` stacked ``(L, ...)`` by
+    ``jax.vmap``, and optionally ``unembed`` and the ``bq``/``bk``/``bv``
+    biases.  The port keeps the same nesting, so both packages compute on
+    the same weights.  bfloat16 leaves stay bfloat16.
+    """
+    from repro_torch.models.transformer.model import require_dense_gqa
+
+    require_dense_gqa(cfg)
+    dev = resolve_device(device)
+
+    def leaf(x):
+        a = np.asarray(x)
+        if a.dtype.name == "bfloat16":   # numpy has no bfloat16 of its own
+            return torch.tensor(a.astype(np.float32), device=dev).to(torch.bfloat16)
+        return torch.tensor(a, device=dev)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return leaf(node)
+
+    params = conv(tree)
+    n = params["layers"]["ln1"].shape[0]
+    if n != cfg.n_layers:
+        raise ValueError(f"{n} stacked layers, the config has {cfg.n_layers}")
+    return params

@@ -34,7 +34,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("lc_rwmd_phase1", "spmm_ell", "fused_topk", "sinkhorn_wmd",
-           "fused_chunk", "rwmd_pairwise")
+           "fused_chunk", "rwmd_pairwise", "flash_attention", "segment_spmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -89,6 +89,14 @@ SIGNATURES = {
         # emb, r_ids, r_w, q_ids, q_w, out, n, b, h1, h2, m, docs_per_cta,
         # queries_per_group, bf16, stream
         "launch_rwmd_pairwise": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    },
+    "flash_attention": {
+        # q, k, v, o, b, s, t, hq, hkv, dh, gc, causal, bf16, scale, stream
+        "launch_flash_attention": [P, P, P, P, I, I, I, I, I, I, I, I, I, F, P],
+    },
+    "segment_spmm": {
+        # src, row offsets, feat, rad, out, n_out, d, stream
+        "launch_segment_spmm": [P, P, P, P, P, I, I, P],
     },
 }
 

@@ -15,9 +15,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_stream as _fs
 from repro_torch.kernels import lc_rwmd_phase1 as _p1
 from repro_torch.kernels import rwmd_pairwise as _rw
+from repro_torch.kernels import segment_spmm as _seg
 from repro_torch.kernels import sinkhorn_wmd as _sk
 from repro_torch.kernels import spmm_ell as _sp
 
@@ -226,3 +228,41 @@ def sinkhorn_wmd(
         _f32(t1), _f32(w1), _f32(t2), _f32(w2), eps=eps,
         eps_scaling=eps_scaling, eps_start=eps_start, max_iters=max_iters,
         tol=tol, bf16_matmul=bf16_matmul)[0]
+
+
+def flash_attention(
+    q: torch.Tensor,   # (B, S, Hq, D)
+    k: torch.Tensor,   # (B, T, Hkv, D)
+    v: torch.Tensor,   # (B, T, Hkv, D)
+    *,
+    causal: bool = True,
+    block_q: int = 512,
+    block_k: int = 512,
+) -> torch.Tensor:
+    """Fused causal GQA attention (flash). q (B,S,Hq,D); k/v (B,T,Hkv,D).
+
+    The reference's signature, with its rule that S and T be multiples of
+    the blocks (each capped at its length).  The kernel chooses its own
+    tiles and takes any length; the model calls it below this check.
+    """
+    s, t = q.shape[1], k.shape[1]
+    if s % min(block_q, s) or t % min(block_k, t):
+        raise ValueError("pad seqs to block multiple")
+    return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=causal)
+
+
+def segment_spmm(
+    src: torch.Tensor,   # (E,) int
+    dst: torch.Tensor,   # (E,) int, sorted ascending (CSR edge order)
+    feat: torch.Tensor,  # (N, D) float
+    rad: torch.Tensor,   # (E,) float (0 at padding edges)
+    n_out: int,
+) -> torch.Tensor:
+    """Fused GNN gather-scale-scatter: out[n] = sum_{dst=n} rad*feat[src].
+
+    (n_out, D) f32; rows with no edge are 0.
+    """
+    return _seg.segment_spmm(src.to(torch.int32).contiguous(),
+                             dst.to(torch.int32).contiguous(), _f32(feat),
+                             _f32(rad), n_out)

@@ -1,4 +1,5 @@
-"""Plain-PyTorch oracles of the phase-1, phase-2 and quadratic-RWMD kernels.
+"""Plain-PyTorch oracles of the phase-1, phase-2, quadratic-RWMD, attention
+and gather-scale-scatter kernels.
 
 Counterparts of ``repro.kernels.ref``: the semantic ground truth, written
 independently of the kernels' own plain versions (gather from the table,
@@ -59,3 +60,34 @@ def rwmd_pairwise_ref(t1: torch.Tensor, w1: torch.Tensor, t2: torch.Tensor,
     col_min = torch.where(m1[..., None], c, inf).amin(dim=1)       # (n, h2)
     d21 = col_min @ torch.where(m2, w2, 0.0)
     return torch.maximum(d12, d21)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True) -> torch.Tensor:
+    """Plain masked-softmax GQA attention oracle.
+
+    q (B, S, Hq, D); k/v (B, T, Hkv, D); query head h reads KV head
+    ``h // (Hq // Hkv)``.  Returns (B, S, Hq, D) in q's dtype.
+    """
+    b, sq, hq, d = q.shape
+    _, t, hkv, _ = k.shape
+    g = hq // hkv
+    qg = q.reshape(b, sq, hkv, g, d).to(torch.float32)
+    s_ = torch.einsum("bshgd,bthd->bhgst", qg, k.to(torch.float32))
+    s_ = s_ / torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
+    if causal:
+        keep = (torch.arange(t, device=q.device)[None, :]
+                <= torch.arange(sq, device=q.device)[:, None])
+        s_ = torch.where(keep, s_, torch.full_like(s_, -1e30))
+    p = torch.softmax(s_, dim=-1)
+    o = torch.einsum("bhgst,bthd->bshgd", p, v.to(torch.float32))
+    return o.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def segment_spmm_ref(src: torch.Tensor, dst: torch.Tensor, feat: torch.Tensor,
+                     rad: torch.Tensor, n_out: int) -> torch.Tensor:
+    """out[n] = Σ_{e: dst[e] = n} rad[e] · feat[src[e]] (any edge order)."""
+    msg = rad.to(torch.float32)[:, None] * feat.to(torch.float32)[src.long()]
+    out = torch.zeros((n_out, feat.shape[1]), dtype=torch.float32,
+                      device=feat.device)
+    return out.index_add_(0, dst.long(), msg)

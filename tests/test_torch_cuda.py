@@ -15,10 +15,16 @@ import torch
 from repro_torch.core import lc_rwmd as tlc
 from repro_torch.core import pipeline as tpipe
 from repro_torch.data.synth import CorpusSpec, make_corpus
+from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_stream as tfs
 from repro_torch.kernels import lc_rwmd_phase1 as tp1
 from repro_torch.kernels import sinkhorn_wmd as tsk
+from repro_torch.kernels import segment_spmm as tseg
 from repro_torch.kernels import spmm_ell as tsp
+from repro_torch.models.transformer import config as tconfig
+from repro_torch.models.transformer import model as TM
+from repro_torch.models.transformer.attention import gqa_attention
 
 pytestmark = pytest.mark.cuda
 
@@ -204,3 +210,88 @@ def test_rwmd_pairwise_kernel_matches_plain(cuda):
             for j in range(b - 1)], dim=1)
         torch.testing.assert_close(got[1:, :b - 1], oracle[1:], rtol=1e-4,
                                    atol=1e-2)
+
+
+FLASH_SHAPES = [
+    (2, 256, 256, 4, 2, 64, True),
+    (1, 512, 512, 8, 8, 32, True),     # MHA
+    (2, 256, 256, 4, 1, 64, True),     # MQA
+    (1, 256, 256, 4, 2, 128, False),   # bidirectional, dh 128
+    (1, 300, 300, 32, 8, 64, True),    # llama3.2-1b heads, not a tile multiple
+    (2, 77, 130, 6, 2, 64, False),     # T != S, group 3
+    (1, 100, 100, 12, 3, 128, True),   # dh 128, group 4
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,hq,hkv,dh,causal", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain(cuda, b, s, t, hq, hkv, dh,
+                                              causal, dtype):
+    g = torch.Generator().manual_seed(s * 7 + dh)
+    q, k, v = (torch.randn(shape, generator=g).to(cuda, dtype)
+               for shape in ((b, s, hq, dh), (b, t, hkv, dh), (b, t, hkv, dh)))
+    got = tfa.flash_attention_cuda(q, k, v, causal=causal)
+    want = tfa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:   # only the order of the sums differs
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4, err
+    else:   # p rounded against the running max here, the row's max there
+        gap = tfa.bf16_gap(got, want)
+        assert gap["ok"], gap
+
+
+def test_flash_attention_kernel_rounds_p_to_bf16(cuda):
+    q, k, v, want = tfa.p_rounding_probe(device=cuda)
+    assert torch.equal(tfa.flash_attention_cuda(q, k, v, causal=False), want)
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 64, 4, 48, device=cuda)
+    k = torch.zeros(1, 64, 2, 48, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention_cuda(q, k, k)
+    q = torch.zeros(1, 64, 4, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tfa.flash_attention_cuda(q, q, q)
+
+
+def test_segment_spmm_kernel_matches_plain(cuda):
+    g = torch.Generator().manual_seed(9)
+    n, e, d = 5000, 60000, 100
+    alive = torch.rand(n - 1, generator=g) >= 0.05     # some degree-0 rows
+    cand = alive.nonzero()[:, 0].to(torch.int32)
+    dst = torch.sort(cand[torch.randint(0, cand.numel(), (e,), generator=g)]).values
+    dst = torch.cat([dst, torch.full((300,), n - 1, dtype=torch.int32)])  # sink
+    src = torch.randint(0, n, (dst.numel(),), generator=g, dtype=torch.int32)
+    rad = torch.rand(dst.numel(), generator=g) * 0.9 + 0.1
+    rad[e:] = 0.0
+    feat = torch.randn(n, d, generator=g)
+    want = tseg.segment_spmm_plain(src, dst, feat, rad, n)   # CPU: edge order
+    got = tseg.segment_spmm_cuda(src.to(cuda), dst.to(cuda), feat.to(cuda),
+                                 rad.to(cuda), n).cpu()
+    # the same products and sums in the same (ascending edge) order
+    assert torch.equal(got, want)
+    assert bool((got[:-1][~alive] == 0).all()) and bool((got[-1] == 0).all())
+
+
+def test_transformer_prefill_runs_b8_and_matches_plain_attention(cuda,
+                                                                monkeypatch):
+    cfg = tconfig.TransformerConfig(
+        name="small", n_layers=2, d_model=256, n_heads=8, n_kv_heads=2,
+        d_ff=512, vocab_size=1000, rope_theta=10_000.0, dtype="float32",
+        max_seq_len=256)
+    params = TM.init_params(cfg, seed=0, device=cuda)
+    tokens = torch.randint(0, 1000, (2, 150), device=cuda)
+    _build.reset_launches()
+    got, cache = TM.forward_with_cache(params, tokens, cfg, 160)
+    assert _build.LAUNCHES["flash_attention"] == cfg.n_layers
+    # the plain attention in B8's place: the reference's route
+    monkeypatch.setattr(TM, "flash_attention", lambda q, k, v, *, causal=True:
+                        gqa_attention(q, k, v, causal=causal))
+    want, cache_p = TM.forward_with_cache(params, tokens, cfg, 160)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(cache.k, cache_p.k, rtol=1e-4, atol=1e-4)
+    lg, _ = TM.decode_step(params, cache, tokens[:, :1], cfg)
+    assert lg.shape == (2, 1, 1000) and bool(torch.isfinite(lg).all())

@@ -12,7 +12,9 @@ MODULES = [
     "repro_torch.data.synth", "repro_torch.core", "repro_torch.core.rwmd",
     "repro_torch.core.wmd", "repro_torch.kernels.ops", "repro_torch.kernels.ref",
     "repro_torch.kernels.spmm_ell", "repro_torch.kernels.fused_stream",
-    "repro_torch.kernels.rwmd_pairwise",
+    "repro_torch.kernels.rwmd_pairwise", "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.segment_spmm", "repro_torch.models.transformer.model",
+    "repro_torch.configs",
 ]
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|from\s+repro(\.|\s))",
@@ -51,3 +53,48 @@ def test_forbidden_pattern_catches_the_usual_forms():
     for line in ("import repro_torch", "from repro_torch.core import topk",
                  "# jax-free", "import jaxlib_free_helper"):
         assert not _FORBIDDEN.search(line), line
+
+
+def _port_modules():
+    out = []
+    for f in sorted(PORT.rglob("*.py")):
+        parts = f.relative_to(PORT.parent).with_suffix("").parts
+        out.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    return out
+
+
+def test_import_guard_covers_every_module():
+    """Importing MODULES loads every module of the port, so the guard above
+    sees all of them."""
+    code = (
+        "import sys, importlib\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"missing = [m for m in {_port_modules()!r} if m not in sys.modules]\n"
+        "assert not missing, missing\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120,
+                       env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"})
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_every_device_parameter_defaults_to_the_card():
+    """A ``device`` parameter with a default defaults to None (the card)."""
+    import importlib
+    import inspect
+
+    checked = 0
+    for name in _port_modules():
+        mod = importlib.import_module(name)
+        for obj in vars(mod).values():
+            if getattr(obj, "__module__", None) != name:
+                continue
+            fns = [obj] if inspect.isfunction(obj) else [
+                f for f in vars(obj).values() if inspect.isfunction(f)
+            ] if inspect.isclass(obj) else []
+            for fn in fns:
+                p = inspect.signature(fn).parameters.get("device")
+                if p is not None and p.default is not inspect.Parameter.empty:
+                    assert p.default is None, f"{name}.{fn.__qualname__}"
+                    checked += 1
+    assert checked >= 8

@@ -21,11 +21,13 @@ from repro.kernels import sinkhorn_wmd as jsk
 from repro_torch.core import distances as tdist
 from repro_torch.core import topk as ttopk
 from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_stream as tfs
 from repro_torch.kernels import lc_rwmd_phase1 as tp1
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rwmd_pairwise as trw
+from repro_torch.kernels import segment_spmm as tseg
 from repro_torch.kernels import sinkhorn_wmd as tsk
 from repro_torch.kernels import spmm_ell as tsp
 
@@ -457,6 +459,213 @@ def test_sq_dists_refuses_tf32(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# B8 flash attention
+# ---------------------------------------------------------------------------
+def _qkv(rng, b, s, t, hq, hkv, dh):
+    return (rng.normal(size=(b, s, hq, dh)).astype(np.float32),
+            rng.normal(size=(b, t, hkv, dh)).astype(np.float32),
+            rng.normal(size=(b, t, hkv, dh)).astype(np.float32))
+
+
+# The cases of the reference's tests/test_kernels.py: GQA, MHA, MQA and
+# bidirectional, in 128-row blocks.
+FLASH_CASES = [
+    (2, 256, 4, 2, 64, True),
+    (1, 512, 8, 8, 32, True),    # MHA
+    (2, 256, 4, 1, 64, True),    # MQA
+    (1, 256, 4, 2, 128, False),  # bidirectional
+]
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,dh,causal", FLASH_CASES)
+def test_flash_attention_plain_matches_pallas(b, s, hq, hkv, dh, causal):
+    q, k, v = _qkv(np.random.default_rng(s + hq + dh), b, s, s, hq, hkv, dh)
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                causal=causal, block_q=128, block_k=128,
+                                interpret=True)
+    got = tops.flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                               block_q=128, block_k=128)
+    # float32 on both sides: only the order of the sums differs
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_bf16_matches_pallas(causal):
+    q, k, v = _qkv(np.random.default_rng(5), 1, 256, 256, 4, 2, 64)
+    bf = [jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)]
+    want = jops.flash_attention(*bf, causal=causal, block_q=128, block_k=128,
+                                interpret=True)
+    got = tops.flash_attention(*(_t(x).to(torch.bfloat16) for x in (q, k, v)),
+                               causal=causal, block_q=128, block_k=128)
+    assert got.dtype == torch.bfloat16
+    # p is rounded to bf16 against the running max of a 128-key block in the
+    # Pallas kernel and against the row's max here, and both outputs are
+    # rounded to bf16: the bars of the CUDA kernel against this version.
+    gap = tfa.bf16_gap(got, _t(want.astype(jnp.float32)))
+    assert gap["ok"], gap
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_matches_oracles(causal):
+    """Lengths that are not tile multiples, T != S, group 3."""
+    q, k, v = _qkv(np.random.default_rng(6), 2, 37, 53, 6, 2, 16)
+    want = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal)
+    got = tfa.flash_attention_plain(_t(q), _t(k), _t(v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    oracle = tref.flash_attention_ref(_t(q), _t(k), _t(v), causal=causal)
+    np.testing.assert_allclose(oracle.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_flash_attention_plain_q_offset_gives_a_slice_of_rows():
+    q, k, v = (_t(x) for x in _qkv(np.random.default_rng(7), 1, 96, 96, 4, 2, 32))
+    full = tfa.flash_attention_plain(q, k, v)
+    part = tfa.flash_attention_plain(q[:, 40:72], k[:, :72], v[:, :72],
+                                     q_offset=40)
+    torch.testing.assert_close(part, full[:, 40:72], rtol=1e-6, atol=1e-6)
+
+
+def _kernel_order(q, k, v, causal, skip=None, round_p=True, bk=64):
+    """B8's numerics in the CUDA kernel's order, on the CPU: 64-key tiles in
+    ascending order, the running max, p rounded to v's dtype against it
+    (unless ``round_p`` is False), float32 sums, O / max(l, 1e-30) cast to
+    q's dtype.  ``skip`` drops one KV tile.  The last two are planted
+    faults."""
+    b, s, hq, dh = q.shape
+    _, t, hkv, _ = k.shape
+    qf = q.float().reshape(b, s, hkv, hq // hkv, dh)
+    m = torch.full((b, hkv, hq // hkv, s, 1), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, hq // hkv, s, dh))
+    for k0 in range(0, t, bk):
+        if k0 // bk == skip:
+            continue
+        sc = torch.einsum("bshgd,bthd->bhgst", qf, k[:, k0:k0 + bk].float())
+        sc = sc * dh ** -0.5
+        if causal:
+            cols = torch.arange(k0, min(k0 + bk, t))[None, :]
+            sc = sc.masked_fill(cols > torch.arange(s)[:, None], -1e30)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        if round_p:
+            p = p.to(v.dtype).float()
+        acc = acc * alpha + torch.einsum("bhgst,bthd->bhgsd", p,
+                                         v[:, k0:k0 + bk].float())
+        m = m_new
+    o = acc / l.clamp(min=1e-30)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, s, hq, dh).to(q.dtype)
+
+
+@pytest.fixture(scope="module")
+def flash_bf16_case():
+    """llama3.2-1b's head dim and group, S = T = 4,096, bf16."""
+    g = torch.Generator().manual_seed(13)
+    q, k, v = (torch.randn(shape, generator=g).to(torch.bfloat16)
+               for shape in ((1, 4096, 4, 64), (1, 4096, 1, 64), (1, 4096, 1, 64)))
+    plain = {c: tfa.flash_attention_plain(q, k, v, causal=c) for c in (True, False)}
+    return q, k, v, plain
+
+
+@pytest.mark.parametrize("skip", [None, 0, 32, 63])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_bars_hold_the_kernel_order_and_fail_a_skipped_tile(
+        flash_bf16_case, causal, skip):
+    """The bars of B8 (bf16) against its plain version pass the kernel's own
+    roundings and fail a kernel that skips any one KV tile."""
+    q, k, v, plain = flash_bf16_case
+    gap = tfa.bf16_gap(_kernel_order(q, k, v, causal, skip=skip), plain[causal])
+    print(f"causal={causal} skip={skip}: {gap}")
+    assert gap["ok"] == (skip is None), gap
+
+
+def test_flash_p_rounding_probe_catches_p_kept_in_float32():
+    """The rounding of p to bf16 is below the bars on random inputs; the
+    probe shows it: the plain version, the Pallas kernel and the kernel's
+    order give its O, and a p kept in float32 gives 1."""
+    q, k, v, want = tfa.p_rounding_probe(device="cpu")
+    assert torch.equal(tfa.flash_attention_plain(q, k, v, causal=False), want)
+    assert torch.equal(_kernel_order(q, k, v, False), want)
+    ref = jops.flash_attention(*(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+                                 for x in (q, k, v)),
+                               causal=False, block_q=64, block_k=256,
+                               interpret=True)
+    assert torch.equal(_t(ref.astype(jnp.float32)).to(torch.bfloat16), want)
+    fault = _kernel_order(q, k, v, False, round_p=False)
+    assert bool((fault == 1.0).all()) and not torch.equal(fault, want)
+
+
+def test_ops_flash_attention_keeps_the_block_rule():
+    q, k, v = (_t(x) for x in _qkv(np.random.default_rng(0), 1, 96, 96, 2, 1, 32))
+    with pytest.raises(ValueError, match="block multiple"):
+        tops.flash_attention(q, k, v, block_q=64)
+    out = tops.flash_attention(q, k, v, block_q=32, block_k=96)
+    assert out.shape == q.shape
+
+
+def test_flash_hbm_bytes_follows_the_port_tiling():
+    assert tfa.tiling(64, 4) == (256, 4, 64)      # llama3.2-1b: 4 heads x 64
+    assert tfa.tiling(32, 1) == (256, 1, 256)
+    assert tfa.tiling(128, 4) == (128, 2, 64)
+    assert tfa.tiling(64, 3) == (256, 1, 256)
+    b, s, hq, hkv, dh = 4, 4096, 32, 8, 64
+    qo = 2 * b * s * hq * dh * 2
+    # non-causal: every CTA reads all T keys of K and V once for 4 heads
+    assert tfa.flash_hbm_bytes(b, s, s, hq, hkv, dh, causal=False) == \
+        qo + 2 * b * hkv * (s // 64) * s * dh * 2
+    causal = tfa.flash_hbm_bytes(b, s, s, hq, hkv, dh)
+    n = s // 64
+    assert causal == qo + 2 * b * hkv * 64 * (n * (n + 1) // 2) * dh * 2
+
+
+# ---------------------------------------------------------------------------
+# B9 segment SpMM (gather-scale-scatter)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n,e,d", [(16, 64, 32), (50, 200, 8), (8, 8, 130)])
+def test_segment_spmm_plain_matches_pallas(n, e, d):
+    rng = np.random.default_rng(n * 1000 + e + d)
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = np.sort(rng.integers(0, n, e)).astype(np.int32)  # CSR order
+    feat = rng.normal(size=(n, d)).astype(np.float32)
+    rad = rng.uniform(0.1, 1, e).astype(np.float32)
+    rad[rng.random(e) < 0.2] = 0.0  # padding edges
+    want = jops.segment_spmm(jnp.asarray(src), jnp.asarray(dst),
+                             jnp.asarray(feat), jnp.asarray(rad), n,
+                             interpret=True)
+    got = tops.segment_spmm(_t(src), _t(dst), _t(feat), _t(rad), n)
+    assert got.shape == (n, d)
+    # both add rad*feat in ascending edge order per row
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(
+        tref.segment_spmm_ref(_t(src), _t(dst), _t(feat), _t(rad), n).numpy(),
+        np.asarray(jref.segment_spmm_ref(jnp.asarray(src), jnp.asarray(dst),
+                                         jnp.asarray(feat), jnp.asarray(rad), n)),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_segment_spmm_zero_degree_rows_and_sink_padding():
+    # nodes 3..6 receive no edges; padding edges (rad 0) go to the sink row 7
+    src = np.array([0, 1, 2, 4, 5], np.int32)
+    dst = np.array([0, 0, 2, 7, 7], np.int32)
+    feat = np.ones((8, 16), np.float32)
+    rad = np.array([1, 1, 1, 0, 0], np.float32)
+    want = np.asarray(jops.segment_spmm(*map(jnp.asarray, (src, dst, feat, rad)),
+                                        8, interpret=True))
+    got = tops.segment_spmm(*map(_t, (src, dst, feat, rad)), 8).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[0].sum() == 32.0 and got[2].sum() == 16.0
+    assert (got[[1, 3, 4, 5, 6, 7]] == 0).all()
+    off = tseg.row_offsets(_t(dst), 8)
+    assert off.dtype == torch.int32
+    assert off.tolist() == [0, 2, 2, 3, 3, 3, 3, 3, 5]
+
+
+# ---------------------------------------------------------------------------
 # Dispatch: CPU tensors take the plain versions and launch nothing
 # ---------------------------------------------------------------------------
 def test_cpu_tensors_take_the_plain_versions():
@@ -471,7 +680,15 @@ def test_cpu_tensors_take_the_plain_versions():
     tops.lc_rwmd_fused(*map(_t, (emb, q_ids, q_w, r_ids, r_w)), vocab_chunk=32,
                        fuse="kernel")
     tops.rwmd_pairwise(*map(_t, (emb, r_ids, r_w, q_ids, q_w)))
+    q, k, v = (_t(x) for x in _qkv(np.random.default_rng(1), 1, 8, 8, 2, 1, 32))
+    tops.flash_attention(q, k, v)
+    src, dst = torch.tensor([0, 1], dtype=torch.int32), torch.tensor([0, 0], dtype=torch.int32)
+    tops.segment_spmm(src, dst, torch.ones(2, 3), torch.ones(2), 2)
     assert sum(_build.LAUNCHES.values()) == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_cuda(q, k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        tseg.segment_spmm_cuda(src, dst, torch.ones(2, 3), torch.ones(2), 2)
     for fn in (tsp.spmm_ell_cuda, tsp.spmm_ell_dense_cuda,
                tsp.spmm_ell_naive_cuda):
         with pytest.raises(ValueError, match="CUDA"):
