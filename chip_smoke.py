@@ -41,11 +41,12 @@ Phases, each of which exits non-zero on failure:
    engine of phases 3-5 is freed before the next phases.
 6. flash attention: the kernel against its plain version at llama3.2-1b's
    heads (B=4, S=T=4,096, 32 query and 8 KV heads, dh 64), causal in bf16
-   and f32, non-causal, and at a length that is not a tile multiple (bf16
+   and f32, non-causal, at a length that is not a tile multiple, and with
+   S=4,000 queries over T=4,096 keys, non-causal (a ragged KV tail; bf16
    within the bars of ``kernels/flash_attention.py``: relative RMS and the
    largest error over its row's largest output), and on the probe whose
-   output shows that p is rounded to bf16; its time beside
-   ``scaled_dot_product_attention``'s.
+   output shows that p is rounded to bf16; its time and TFLOP/s beside
+   ``scaled_dot_product_attention``'s (bf16, and f32 with TF32 off).
 7. gather-scale-scatter: ``ops.segment_spmm`` at the ogb_products cell
    (2,449,029 nodes, 61,859,140 edges, 100 features) with degree-0 rows and
    padding edges, against its plain version on the card, bit for bit
@@ -54,7 +55,9 @@ Phases, each of which exits non-zero on failure:
 8. llama3.2-1b at full width (random weights from a seed): one 32,768-token
    prompt through ``forward_with_cache`` (flash attention in all 16 layers,
    counted) and 32 greedy ``decode_step``s; prefill and decode times, peak
-   memory, the attention kernel's share of the prefill (``torch.profiler``);
+   memory, the attention kernel's share of the prefill and its TFLOP/s
+   (``torch.profiler``, the tensor-core kernel by name: the phase fails if
+   the profile shows none of its time, i.e. bf16 did not run on it);
    the kernel at the prefill's own shape: the last layer's q, k and v of the
    32,768-token prompt, with three slices of 256 query rows (first, middle,
    last) against the plain version over all their keys; then, at 4,096
@@ -787,10 +790,11 @@ def flash_phase(frac: float, dev) -> dict:
         s, odd = 1024, 1000
     g = torch.Generator(device=dev).manual_seed(13)
 
-    def qkv(length, dtype):
+    def qkv(length, dtype, kv_length=None):
+        t = length if kv_length is None else kv_length
         return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
-                     for shape in ((b, length, hq, dh), (b, length, hkv, dh),
-                                   (b, length, hkv, dh)))
+                     for shape in ((b, length, hq, dh), (b, t, hkv, dh),
+                                   (b, t, hkv, dh)))
 
     gaps = {}
 
@@ -830,6 +834,9 @@ def flash_phase(frac: float, dev) -> dict:
     check("bf16 non-causal", *q16, False)
     check(f"bf16 causal at {odd} (not a tile multiple)", *qkv(odd, torch.bfloat16),
           True)
+    # keys past T are absent (p = 0), not zero-filled keys: a ragged KV tail
+    check(f"bf16 non-causal at S={odd}, T={s} (ragged KV tail)",
+          *qkv(odd, torch.bfloat16, s), False)
     check(f"f32 non-causal at {odd}", *qkv(odd, torch.float32), False)
 
     flops = 2.0 * b * hq * s * s * dh                 # causal: the lower half
@@ -837,8 +844,17 @@ def flash_phase(frac: float, dev) -> dict:
     bnd16, by16 = bound_ms(io * 2, flops, BF16_FLOP_PER_S)
     bnd32, by32 = bound_ms(io * 4, flops)
     qt, kt, vt = (x.transpose(1, 2) for x in q16)     # SDPA's (B, H, S, dh)
+    qt32, kt32, vt32 = (x.transpose(1, 2) for x in q32)
     ms16 = time_ms(lambda: fa.flash_attention_cuda(*q16, causal=True))
     ms32 = time_ms(lambda: fa.flash_attention_cuda(*q32, causal=True))
+    # SDPA in float32 with TF32 off, as the port's precision rule (timed only)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        sdpa32 = time_ms(lambda: F.scaled_dot_product_attention(
+            qt32, kt32, vt32, is_causal=True, enable_gqa=True), 2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     info = dict(
         shape=dict(b=b, s=s, t=s, hq=hq, hkv=hkv, dh=dh),
         bf16_causal_ms=ms16, f32_causal_ms=ms32,
@@ -849,6 +865,7 @@ def flash_phase(frac: float, dev) -> dict:
         bf16_gaps=gaps,
         sdpa_bf16_causal_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)),
+        sdpa_f32_causal_ms=sdpa32,
         tflops_bf16=flops / ms16 / 1e9, tflops_f32=flops / ms32 / 1e9,
         cta_bytes=fa.flash_hbm_bytes(b, s, s, hq, hkv, dh))
     log("flash_attention: " + json.dumps(info))
@@ -1032,12 +1049,23 @@ def llama_phase(frac: float, dev) -> dict:
 
     # --- B8's share of the prefill (torch.profiler, one call) ---
     wall_us, dev_us, flash_us, top = profile_one(
-        lambda: TM.forward_with_cache(params, tokens, cfg, max_len), "flash_kernel")
+        lambda: TM.forward_with_cache(params, tokens, cfg, max_len),
+        "flash_tc_kernel")
     if dev_us <= 0.0:
         fail("torch.profiler saw no device time in the prefill")
+    if flash_us <= 0.0:
+        fail("prefill: torch.profiler saw no flash_tc_kernel time: the bf16 "
+             "attention did not run on the tensor-core kernel")
+    # causal attention over the prompt, all layers: 2 * Hq * S^2 * dh each
+    b8_tflops = (cfg.n_layers * 2.0 * cfg.n_heads * s_len * s_len * cfg.d_head
+                 / (flash_us * 1e-6) / 1e12)
+    log(f"prefill profile: wall {wall_us / 1e3:.1f} ms, device busy share "
+        f"{dev_us / wall_us:.3f}; B8 (flash_tc_kernel) {flash_us / 1e3:.1f} ms, "
+        f"{flash_us / dev_us:.3f} of device time, {b8_tflops} TFLOP/s at "
+        f"S={s_len}")
 
     d_wall, d_dev, _, d_top = profile_one(
-        lambda: TM.decode_step(params, cache_p, nxt, cfg), "flash_kernel")
+        lambda: TM.decode_step(params, cache_p, nxt, cfg), "flash_tc_kernel")
     del cache_p
     log(f"decode step profile: wall {d_wall / 1e3:.2f} ms, device busy share "
         f"{d_dev / d_wall:.3f}; " + ", ".join(
@@ -1109,6 +1137,7 @@ def llama_phase(frac: float, dev) -> dict:
             wall_ms=wall_us / 1e3, device_busy_share=dev_us / wall_us,
             b8_share_of_device_time=flash_us / dev_us,
             b8_share_of_wall=flash_us / wall_us, b8_ms=flash_us / 1e3,
+            b8_tflops=b8_tflops,
             top=[dict(name=k, device_ms=u / 1e3, count=c) for u, k, c in top[:6]]),
         decode_profile=dict(
             wall_ms=d_wall / 1e3, device_busy_share=d_dev / d_wall,

@@ -22,17 +22,30 @@
 // spmm_ell_dense_kernel also replaces the TPU kernel
 // src/repro/kernels/spmm_ell.py, spmm_ell_dense_pallas (_spmm_dense_kernel),
 // which expanded each doc tile's ids into a one-hot A(bn, bv) per vocab
-// subtile and ran A @ Z_tile on the matrix unit.  On Hopper the one-hot
-// product becomes its sparse meaning: a CTA of 16 warps owns 256 doc rows
-// and a 64-column chunk of B, stages Z one 512-row vocab subtile at a time
-// in shared memory (128 KB), and each warp adds, for its 16 rows, the slots
-// whose ids fall in the subtile (tiles::ell_row_accumulate; 32 register
-// accumulators per lane).  Bound: the same bytes as the blocked kernel, but
-// every CTA streams all of Z through shared memory (v*B*4 bytes per 256
-// rows, 51 GB from L2 at the slice's shapes) and re-reads its rows' ids and
-// weights once per subtile (from L1/L2): the dense formulation pays for the
-// vocabulary size, as it does on the TPU.  Sums run subtile by subtile,
-// slot order within a subtile.
+// subtile and ran A @ Z_tile on the matrix unit, summing subtile by
+// subtile.  What bounds it here: the same bytes as the blocked kernel (the
+// ids and weights read once, D written once), and before them the gathers
+// of the Z rows the slots name from L2.  Streaming all of Z through every
+// doc tile, as the one-hot product does, costs v*B*4 bytes per tile and a
+// test of every slot per subtile: matrix-unit work on the TPU, pure
+// overhead on Hopper in IEEE float32.  So the kernel keeps the one-hot
+// product's order and drops its zeros: one warp per doc row buckets the
+// row's slots by (vocab subtile of 512 ids, the plain version's DENSE_BV;
+// slot), by a bitonic sort of the keys subtile << 6 | slot across the
+// warp's registers (rows wider than 64 slots rank theirs by counting in
+// shared memory), so it visits only the row's non-empty subtiles, in
+// ascending order.  A slot of weight 0, or whose id lies outside [0, v),
+// gets no key: the one-hot product adds nothing for it either.  The lanes
+// run over the B columns; each subtile's slots add into a partial sum in
+// registers, in slot order, which is added to the row's sum when the
+// subtile ends: the reference's out += A @ Z_tile, with no float atomics
+// and an order fixed by the data.  Two slots a step keep two Z loads in
+// flight per lane.  The Z traffic is the blocked kernel's nnz*B*4 and no
+// longer grows with v.  (A variant that staged each doc tile's distinct Z
+// rows once in shared memory, by cp.async in double-buffered batches, was
+// slower than this: the synthetic corpus's 64-row tiles name mostly
+// distinct ids, so staging saved little L2 traffic and its set-up and
+// barriers cost more.)
 //
 // spmm_ell_naive_kernel also replaces the TPU kernel
 // src/repro/kernels/spmm_ell.py, spmm_ell_naive_pallas (_spmm_naive_kernel),
@@ -43,8 +56,7 @@
 // chain in slot order from 0, and a zero-weight slot leaves it unchanged.
 
 #include <cuda_runtime.h>
-
-#include "tiles.cuh"
+#include <limits.h>
 
 namespace {
 
@@ -91,18 +103,81 @@ spmm_ell_kernel(const int* __restrict__ ids,   // (n, h)
   }
 }
 
-constexpr int DENSE_WARPS = 16;
-constexpr int DENSE_ROWS = 16;  // rows per warp
-constexpr int DENSE_BV = 512;   // vocab rows per shared-memory subtile
-constexpr int DENSE_COLS = 64;  // columns per CTA (2 per lane)
+constexpr int DENSE_WARPS = 8;        // doc rows per CTA, one warp each
+constexpr int DENSE_BV_SHIFT = 9;     // vocab rows per subtile: 512
+constexpr int DENSE_COLS = 4;         // columns per lane per chunk of 128
+constexpr int DENSE_REG_H = 64;       // rows this wide sort in registers
+constexpr int DENSE_MAX_H = 2048;
+constexpr unsigned FULL = 0xffffffffu;
 
-struct SubtileRow {
-  const float* zs;
-  int lo;
-  __device__ const float* operator()(int id) const {
-    return zs + (size_t)(id - lo) * DENSE_COLS;
+// Shared memory of one CTA for rows wider than DENSE_REG_H: per warp, its
+// row's sort keys, then its nonzero slots' ids and weights, sorted.
+int dense_smem(int h) { return h > DENSE_REG_H ? DENSE_WARPS * 3 * h * 4 : 0; }
+
+// Whether a slot enters the sum: a nonzero weight and an id in [0, v).
+__device__ __forceinline__ bool adds(int id, float wv, int v) {
+  return wv != 0.f && (unsigned)id < (unsigned)v;
+}
+
+// out_row = sum over the row's nonzero slots in (subtile, slot) order, each
+// subtile's partial sum added to the row's when the subtile ends (the
+// reference's out += A @ Z_tile).  fetch(r, id, w) gives the r-th slot.
+// Two slots a step, so each lane has two Z loads in flight; a missing
+// second slot repeats the first with weight 0 (fma(0, z, x) is x).
+template <int CW, class Fetch>
+__device__ __forceinline__ void dense_row_cols(Fetch fetch, int nz,
+                                          const float* __restrict__ z,
+                                          float* __restrict__ orow, int b,
+                                          int lane) {
+  for (int c0 = 0; c0 < b; c0 += 32 * CW) {
+    float acc[CW], part[CW];
+#pragma unroll
+    for (int j = 0; j < CW; ++j) acc[j] = part[j] = 0.f;
+    int cur_s = -1;
+    for (int r = 0; r < nz; r += 2) {
+      int id[2];
+      float wv[2], zv[2][CW];
+      fetch(r, id[0], wv[0]);
+      fetch(min(r + 1, nz - 1), id[1], wv[1]);
+      if (r + 1 >= nz) wv[1] = 0.f;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float* zr = z + (size_t)id[u] * b + c0 + lane;
+#pragma unroll
+        for (int j = 0; j < CW; ++j)
+          zv[u][j] = c0 + lane + 32 * j < b ? __ldg(zr + 32 * j) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int s = id[u] >> DENSE_BV_SHIFT;
+        if (s != cur_s) {  // warp-uniform: a subtile ends
+#pragma unroll
+          for (int j = 0; j < CW; ++j) {
+            acc[j] += part[j];
+            part[j] = 0.f;
+          }
+          cur_s = s;
+        }
+#pragma unroll
+        for (int j = 0; j < CW; ++j) part[j] = fmaf(wv[u], zv[u][j], part[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < CW; ++j) {
+      const int c = c0 + lane + 32 * j;
+      if (c < b) orow[c] = acc[j] + part[j];
+    }
   }
-};
+}
+
+template <class Fetch>
+__device__ __forceinline__ void dense_row(Fetch fetch, int nz,
+                                          const float* __restrict__ z,
+                                          float* __restrict__ orow, int b,
+                                          int lane) {
+  if (b <= 64) dense_row_cols<2>(fetch, nz, z, orow, b, lane);
+  else dense_row_cols<DENSE_COLS>(fetch, nz, z, orow, b, lane);
+}
 
 __global__ void __launch_bounds__(DENSE_WARPS * 32)
 spmm_ell_dense_kernel(const int* __restrict__ ids,   // (n, h)
@@ -110,43 +185,101 @@ spmm_ell_dense_kernel(const int* __restrict__ ids,   // (n, h)
                       const float* __restrict__ z,   // (v, B)
                       float* __restrict__ out,       // (n, B)
                       int n, int h, int v, int b) {
-  extern __shared__ __align__(16) float zs[];        // [DENSE_BV][DENSE_COLS]
+  extern __shared__ __align__(16) int sm[];
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
-  const int row0 = blockIdx.x * (DENSE_WARPS * DENSE_ROWS) + warp * DENSE_ROWS;
-  const int c0 = blockIdx.y * DENSE_COLS;
-  const int nc = min(DENSE_COLS, b - c0);
-  float acc[DENSE_ROWS][2];
-#pragma unroll
-  for (int r = 0; r < DENSE_ROWS; ++r) acc[r][0] = acc[r][1] = 0.f;
+  const int row = blockIdx.x * DENSE_WARPS + warp;
+  if (row >= n) return;  // no CTA-wide barrier below
+  const int* ir = ids + (size_t)row * h;
+  const float* wr = w + (size_t)row * h;
+  float* orow = out + (size_t)row * b;
 
-  for (int lo = 0; lo < v; lo += DENSE_BV) {
-    const int nv = min(DENSE_BV, v - lo);
-    __syncthreads();  // the previous subtile is consumed
-    for (int e = threadIdx.x; e < DENSE_BV * DENSE_COLS; e += blockDim.x) {
-      const int r = e / DENSE_COLS, c = e % DENSE_COLS;
-      zs[e] = (r < nv && c < nc) ? z[(size_t)(lo + r) * b + c0 + c] : 0.f;
-    }
-    __syncthreads();
-    const SubtileRow zrow{zs, lo};
+  if (h <= DENSE_REG_H) {
+    // Slot p = lane + 32 i sits in this lane's register i.  A bitonic sort
+    // of the keys (subtile << 6 | slot; INT_MAX for a slot that adds
+    // nothing) across the warp puts the r-th smallest in lane r % 32,
+    // register r / 32.
+    int id[2], key[2];
+    float wt[2];
 #pragma unroll
-    for (int r = 0; r < DENSE_ROWS; ++r) {
-      const int row = row0 + r;
-      if (row < n)  // warp-uniform
-        tiles::ell_row_accumulate<2>(ids + (size_t)row * h, w + (size_t)row * h,
-                                     h, lo, nv, zrow, nc, lane, acc[r]);
+    for (int i = 0; i < 2; ++i) {
+      const int p = lane + 32 * i;
+      id[i] = p < h ? ir[p] : 0;
+      wt[i] = p < h ? wr[p] : 0.f;
+      key[i] = adds(id[i], wt[i], v) ? (id[i] >> DENSE_BV_SHIFT) << 6 | p
+                                     : INT_MAX;
     }
+#pragma unroll
+    for (int k = 2; k <= 64; k *= 2) {
+#pragma unroll
+      for (int j = k / 2; j > 0; j /= 2) {
+        if (j == 32) {  // the pair is this lane's two registers (k = 64)
+          const int lo = min(key[0], key[1]);
+          key[1] = max(key[0], key[1]);
+          key[0] = lo;
+          continue;
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = lane + 32 * i;
+          const int other = __shfl_xor_sync(FULL, key[i], j);
+          const bool up = (e & k) == 0;
+          const bool lower = (lane & j) == 0;
+          key[i] = lower == up ? min(key[i], other) : max(key[i], other);
+        }
+      }
+    }
+    const int nz = __popc(__ballot_sync(FULL, key[0] != INT_MAX)) +
+                   __popc(__ballot_sync(FULL, key[1] != INT_MAX));
+    // lane r % 32, register r / 32 takes the id and weight of rank r
+    int sid[2];
+    float sw[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int p = key[i] & 63;  // empty ranks fetch junk, never read
+      const int a = __shfl_sync(FULL, id[0], p & 31);
+      const int c = __shfl_sync(FULL, id[1], p & 31);
+      const float x = __shfl_sync(FULL, wt[0], p & 31);
+      const float y = __shfl_sync(FULL, wt[1], p & 31);
+      sid[i] = p < 32 ? a : c;
+      sw[i] = p < 32 ? x : y;
+    }
+    auto fetch = [&](int r, int& iv, float& wv) {
+      iv = __shfl_sync(FULL, r < 32 ? sid[0] : sid[1], r & 31);
+      wv = __shfl_sync(FULL, r < 32 ? sw[0] : sw[1], r & 31);
+    };
+    dense_row(fetch, nz, z, orow, b, lane);
+    return;
+  }
+
+  // Wider rows: rank each slot by counting in shared memory.
+  int* tk = sm + warp * 3 * h;   // sort key of each slot
+  int* sid = tk + h;             // the row's nonzero slots, sorted
+  float* sw = (float*)(sid + h);
+  for (int p = lane; p < h; p += 32)
+    tk[p] = adds(ir[p], wr[p], v) ? ir[p] >> DENSE_BV_SHIFT : INT_MAX;
+  __syncwarp();
+  int nz = 0;
+  for (int p = lane; p < h; p += 32) {
+    const int kp = tk[p];
+    if (kp == INT_MAX) continue;
+    int rank = 0;
+    for (int q = 0; q < h; ++q) {
+      const int kq = tk[q];
+      rank += kq < kp || (kq == kp && q < p);
+    }
+    sid[rank] = ir[p];
+    sw[rank] = wr[p];
+    ++nz;
   }
 #pragma unroll
-  for (int r = 0; r < DENSE_ROWS; ++r) {
-    const int row = row0 + r;
-    if (row >= n) break;
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int col = lane + 32 * c;
-      if (col < nc) out[(size_t)row * b + c0 + col] = acc[r][c];
-    }
-  }
+  for (int d = 16; d > 0; d /= 2) nz += __shfl_xor_sync(FULL, nz, d);
+  __syncwarp();
+  auto fetch = [&](int r, int& iv, float& wv) {
+    iv = sid[r];
+    wv = sw[r];
+  };
+  dense_row(fetch, nz, z, orow, b, lane);
 }
 
 __global__ void spmm_ell_naive_kernel(const int* __restrict__ ids,   // (n, h)
@@ -181,14 +314,15 @@ extern "C" int launch_spmm_ell_dense(const void* ids, const void* w,
                                      const void* z, void* out, int n, int h,
                                      int v, int b, void* stream) {
   if (n <= 0 || b <= 0) return (int)cudaGetLastError();
-  const int smem = DENSE_BV * DENSE_COLS * (int)sizeof(float);
+  if (h < 1 || h > DENSE_MAX_H) return (int)cudaErrorInvalidValue;
+  const int smem = dense_smem(h);
   cudaError_t err = cudaFuncSetAttribute(
       spmm_ell_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int rows = DENSE_WARPS * DENSE_ROWS;
-  dim3 grid((n + rows - 1) / rows, (b + DENSE_COLS - 1) / DENSE_COLS);
-  spmm_ell_dense_kernel<<<grid, DENSE_WARPS * 32, smem, (cudaStream_t)stream>>>(
-      (const int*)ids, (const float*)w, (const float*)z, (float*)out, n, h, v, b);
+  spmm_ell_dense_kernel<<<(n + DENSE_WARPS - 1) / DENSE_WARPS,
+                          DENSE_WARPS * 32, smem, (cudaStream_t)stream>>>(
+      (const int*)ids, (const float*)w, (const float*)z, (float*)out, n, h, v,
+      b);
   return (int)cudaGetLastError();
 }
 

@@ -3,12 +3,10 @@
 // ell_row_accumulate: one warp adds one ELL row's slots into per-lane
 //   column accumulators, reading each slot's Z row through a caller-given
 //   lookup.  Only slots whose id falls in [lo, lo + nv) and whose weight is
-//   non-zero contribute, in slot order.  The dense SpMM (spmm_ell.cu, one
-//   vocab subtile of Z in shared memory at a time) and the fused vocab
-//   chunk (fused_chunk.cu, the chunk's Z spread over a thread-block
-//   cluster) both consume their Z this way.  This is what the TPU kernels'
-//   one-hot product A(bn, bv) @ Z_tile computes, less the multiplications
-//   by zero.
+//   non-zero contribute, in slot order.  The fused vocab chunk
+//   (fused_chunk.cu, the chunk's Z spread over a thread-block cluster)
+//   consumes its Z this way.  This is what the TPU kernel's one-hot
+//   product A(bn, bv) @ Z_tile computes, less the multiplications by zero.
 //
 // gram_min_cols: rows resident in shared memory (transposed, [m][ldd])
 //   against a range of "query word" columns read from device memory, in

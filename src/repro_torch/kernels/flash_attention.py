@@ -1,11 +1,12 @@
 """Causal GQA attention with an online softmax (flash attention).
 
-Replaces ``flash_attention_pallas`` (``_flash_kernel``): the CUDA kernel in
-``csrc/flash_attention.cu`` serves all the query heads of one KV head from
-each K/V tile it stages in shared memory, carries the running max, sum and
-accumulator of its rows in registers, and skips the KV tiles above the
-diagonal.  Its plain version computes the same function with every score
-at once.
+Replaces ``flash_attention_pallas`` (``_flash_kernel``): the CUDA kernels in
+``csrc/flash_attention.cu`` serve all the query heads of one KV head from
+each K/V tile they stage in shared memory, carry the running max, sum and
+accumulator of their rows in registers, and skip the KV tiles above the
+diagonal.  bf16 runs both products on the tensor cores (``mma.sync``, P
+from the score registers), float32 on the FMA units in IEEE float32.  The
+plain version computes the same function with every score at once.
 
 Semantics, both versions, as the reference kernel's: scores in float32
 times ``dh**-0.5``; causal masking by the finite sentinel ``-1e30``;
@@ -27,6 +28,7 @@ from repro_torch.kernels import _build
 
 NAME = "flash_attention"
 HEAD_DIMS = (32, 64, 128)
+KEY_TILE = 64  # keys per K/V tile: the running max moves tile by tile
 _NEG = -1e30
 
 # How far a bfloat16 output of the kernel may lie from its plain version's.
@@ -46,11 +48,14 @@ BF16_REL_RMS_BAR = 5e-3
 
 
 def tiling(dh: int, group: int) -> tuple[int, int, int]:
-    """The kernel's ``(rows per CTA, query heads per CTA, positions per CTA)``.
+    """The kernels' ``(rows per CTA, query heads per CTA, positions per CTA)``.
 
-    A CTA has 256 rows (128 at dh = 128): ``gc`` query heads of one KV head
-    times ``R / gc`` positions, ``gc`` the largest of 4, 2, 1 that divides
-    the group and leaves at least 64 positions.
+    A CTA has 256 rows (128 at dh = 128, where the tensor-core kernel's
+    accumulators take twice the registers a row): ``gc`` query heads of one
+    KV head times ``R / gc`` positions, ``gc`` the largest of 4, 2, 1 that
+    divides the group and leaves at least 64 positions, so each warp's 32
+    rows (16 at dh = 128; the float32 kernel's 8) are positions of one
+    head.
     """
     r = 128 if dh == 128 else 256
     gc = next(c for c in (4, 2, 1) if c <= r // 64 and group % c == 0)
@@ -132,10 +137,11 @@ def flash_hbm_bytes(b: int, s: int, t: int, hq: int, hkv: int, dh: int, *,
     """Bytes the kernel's CTAs read and write, for its tiling.
 
     Q is read once and O written once (B·S·Hq·dh each).  Each CTA reads the
-    K and V tiles of its KV head up to its diagonal (all T keys without
-    ``causal``), once for its ``gc`` query heads: a KV head's tiles are read
-    ``group / gc`` times per query tile.  Re-reads may hit the L2 cache; this
-    counts what the CTAs ask for.
+    ``KEY_TILE``-key K and V tiles of its KV head up to its diagonal (all T
+    keys without ``causal``; keys past T are zero-filled, not read), once
+    for its ``gc`` query heads: a KV head's tiles are read ``group / gc``
+    times per query tile.  Re-reads may hit the L2 cache; this counts what
+    the CTAs ask for.
     """
     _, gc, bq = tiling(dh, hq // hkv)
     n_qt = -(-s // bq)

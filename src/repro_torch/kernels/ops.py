@@ -71,8 +71,9 @@ def spmm_ell(
 ) -> torch.Tensor:
     """D (n, B) f32 = ELL-sparse(ids, w) @ z.
 
-    ``mode``: "blocked" (a warp gathers each doc row's Z rows), "dense" (Z
-    staged one vocab subtile at a time, the TPU's one-hot formulation) or
+    ``mode``: "blocked" (a warp gathers each doc row's Z rows), "dense" (the
+    TPU's one-hot formulation: each row's slots summed vocab subtile by
+    subtile, without the one-hot product's zeros) or
     "naive" (the seed kernel, one doc per CTA, kept as the baseline).
     """
     if mode not in _SPMM:

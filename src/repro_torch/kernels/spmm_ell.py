@@ -5,9 +5,11 @@ Three formulations, as in the reference, each a CUDA kernel in
 
 * blocked (:func:`spmm_ell`), replacing ``spmm_ell_pallas``: one warp per
   doc row gathers its Z rows;
-* dense (:func:`spmm_ell_dense`), replacing ``spmm_ell_dense_pallas``: Z
-  staged one vocab subtile at a time, each row adding the slots whose ids
-  fall in it (the one-hot product of the TPU kernel);
+* dense (:func:`spmm_ell_dense`), replacing ``spmm_ell_dense_pallas``: a
+  warp buckets its row's nonzero slots by vocab subtile and adds them
+  subtile by subtile in ascending order, each subtile's partial sum into
+  the row's (the one-hot product of the TPU kernel, without its zeros;
+  a slot whose id lies outside [0, v) adds nothing, as there);
 * naive (:func:`spmm_ell_naive`), replacing ``spmm_ell_naive_pallas``: the
   seed baseline, one doc per CTA, slots in sequence.
 """
@@ -22,6 +24,7 @@ NAME = "spmm_ell"
 DENSE_NAME = "spmm_ell_dense"
 NAIVE_NAME = "spmm_ell_naive"
 DENSE_BV = 512  # vocab rows per subtile, as in the kernel
+DENSE_MAX_H = 2048  # the dense kernel's widest ELL row (its shared memory)
 
 
 def spmm_ell_plain(ids: torch.Tensor, w: torch.Tensor,
@@ -74,7 +77,8 @@ def spmm_ell_dense_plain(ids: torch.Tensor, w: torch.Tensor, z: torch.Tensor,
                          *, block_v: int = DENSE_BV) -> torch.Tensor:
     """Plain PyTorch version of the dense formulation: per vocab subtile, the
     one-hot ``A[i, c] = Σ_p w[i,p]·[ids[i,p] = lo + c]`` times ``Z[lo:lo+bv]``,
-    summed subtile by subtile.  ids/w (n, h), z (v, B) → (n, B)."""
+    summed subtile by subtile in ascending order, as the kernel sums.
+    ids/w (n, h), z (v, B) → (n, B)."""
     n = ids.shape[0]
     v, b = z.shape
     ids_l = ids.long()
@@ -95,8 +99,8 @@ def spmm_ell_dense_cuda(ids: torch.Tensor, w: torch.Tensor,
     _check(ids, w, z)
     n, h = ids.shape
     v, b = z.shape
-    if b > 65535 * 64:
-        raise ValueError(f"at most {65535 * 64} query columns, got {b}")
+    if not 1 <= h <= DENSE_MAX_H:
+        raise ValueError(f"ELL width must be in 1..{DENSE_MAX_H}, got {h}")
     out = torch.empty((n, b), dtype=torch.float32, device=z.device)
     lib = _build.lib(NAME)
     with torch.cuda.device(z.device):

@@ -139,8 +139,20 @@ def test_spmm_dense_and_naive_kernels_match_plain(cuda):
     from repro_torch.kernels import spmm_ell as sp
 
     rng = np.random.default_rng(4)
-    for n, h, v, b in ((5000, 48, 1500, 64), (777, 13, 600, 70), (33, 40, 513, 5)):
-        ids, w = (x.to(cuda) for x in _ell(rng, n, h, v))
+    # (.., 160, ..): rows wider than 64 slots (the dense kernel's shared-
+    # memory path); "skewed": every slot in one vocab subtile; "pad": all-
+    # zero rows; n is not a multiple of the dense kernel's 8 rows a CTA
+    for n, h, v, b, kind in ((5000, 48, 1500, 64, ""), (777, 13, 600, 70, ""),
+                             (33, 40, 513, 5, ""), (301, 160, 4000, 64, ""),
+                             (1003, 48, 2000, 64, "skewed"),
+                             (515, 48, 2000, 33, "pad")):
+        ids, w = _ell(rng, n, h, v)
+        if kind == "skewed":              # all in subtile 2 of 2000 // 512
+            ids = torch.tensor(rng.integers(2 * sp.DENSE_BV, 3 * sp.DENSE_BV,
+                                            size=(n, h)).astype(np.int32))
+        if kind == "pad":
+            w[::3] = 0.0
+        ids, w = ids.to(cuda), w.to(cuda)
         z = torch.tensor(rng.normal(size=(v, b)).astype(np.float32)).to(cuda)
         plain = sp.spmm_ell_plain(ids, w, z)
         torch.testing.assert_close(sp.spmm_ell_dense_cuda(ids, w, z),
@@ -154,6 +166,30 @@ def test_spmm_dense_and_naive_kernels_match_plain(cuda):
         # the seed kernel takes the blocked kernel's fmaf chain: bit-equal
         assert torch.equal(sp.spmm_ell_naive_cuda(ids, w, z),
                            sp.spmm_ell_cuda(ids, w, z))
+        if kind == "pad":
+            assert not sp.spmm_ell_dense_cuda(ids, w, z)[::3].any()
+
+
+def test_spmm_dense_kernel_adds_nothing_for_out_of_range_ids(cuda):
+    """A slot whose id lies outside [0, v) adds nothing, as in the one-hot
+    product of the plain version (the register and shared-memory paths)."""
+    from repro_torch.kernels import spmm_ell as sp
+
+    rng = np.random.default_rng(5)
+    for n, h, v, b in ((1000, 48, 1500, 64), (203, 160, 3000, 40)):
+        ids, w = _ell(rng, n, h, v)
+        out = torch.tensor(rng.random(size=(n, h)) < 0.2)
+        bad = torch.tensor(rng.choice([-1, -(2**31), v, v + 700, 2**31 - 1],
+                                      size=(n, h)).astype(np.int32))
+        ids_bad = torch.where(out, bad, ids)
+        w_in = torch.where(out, torch.zeros_like(w), w)
+        ids_bad, w, w_in = ids_bad.to(cuda), w.to(cuda), w_in.to(cuda)
+        z = torch.tensor(rng.normal(size=(v, b)).astype(np.float32)).to(cuda)
+        got = sp.spmm_ell_dense_cuda(ids_bad, w, z)
+        torch.testing.assert_close(got, sp.spmm_ell_dense_plain(ids_bad, w, z),
+                                   rtol=1e-5, atol=1e-5)
+        # the same sums as with those slots' weights set to 0
+        assert torch.equal(got, sp.spmm_ell_dense_cuda(ids_bad, w_in, z))
 
 
 def test_fused_chunk_kernel_matches_plain(cuda):
@@ -220,6 +256,11 @@ FLASH_SHAPES = [
     (1, 300, 300, 32, 8, 64, True),    # llama3.2-1b heads, not a tile multiple
     (2, 77, 130, 6, 2, 64, False),     # T != S, group 3
     (1, 100, 100, 12, 3, 128, True),   # dh 128, group 4
+    # ragged KV tails: S != T, T not a multiple of the 64-key tile
+    (1, 96, 100, 4, 2, 32, False),
+    (2, 150, 201, 8, 2, 64, False),
+    (1, 60, 131, 4, 1, 128, False),
+    (1, 200, 137, 8, 2, 64, True),     # causal with fewer keys than rows
 ]
 
 

@@ -180,6 +180,79 @@ def test_spmm_dense_plain_matches_pallas(n, h, v, b, block_v):
     np.testing.assert_allclose(small.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+def _dense_kernel_order(ids, w, z, bv=tsp.DENSE_BV):
+    """B6a's sums in the CUDA kernel's order, on the CPU, in float32: per
+    row, its slots of nonzero weight and an id in [0, v) bucketed by (vocab
+    subtile, slot), only the non-empty subtiles visited, in ascending order;
+    each subtile's slots summed in slot order into a partial, added to the
+    row's sum when the subtile ends (the reference's out += A @ Z_tile).
+    Also returns each row's subtile sequence."""
+    n, h = ids.shape
+    v = z.shape[0]
+    out = np.zeros((n, z.shape[1]), np.float32)
+    visits = []
+    for i in range(n):
+        slots = sorted((int(ids[i, p]) // bv, p) for p in range(h)
+                       if w[i, p] != 0 and 0 <= ids[i, p] < v)
+        acc = np.zeros(z.shape[1], np.float32)
+        part = np.zeros_like(acc)
+        seq = []
+        for sub, p in slots:
+            if seq and sub != seq[-1]:
+                acc = acc + part
+                part = np.zeros_like(acc)
+            if not seq or sub != seq[-1]:
+                seq.append(sub)
+            part = part + np.float32(w[i, p]) * z[ids[i, p]]
+        out[i] = acc + part
+        visits.append(seq)
+    return out, visits
+
+
+def _dense_case(kind, rng):
+    n, h, v, b = {"random": (40, 12, 1700, 5), "skewed": (13, 16, 2100, 3),
+                  "padding_rows": (21, 9, 1200, 4), "wide_rows": (9, 80, 1600, 2),
+                  "out_of_range_ids": (19, 24, 1300, 4)}[kind]
+    ids, w = _mk_ell(rng, n, h, v)
+    if kind == "skewed":          # every slot in one subtile (3 of 2100 // 512)
+        ids = rng.integers(3 * tsp.DENSE_BV, 4 * tsp.DENSE_BV,
+                           size=(n, h)).astype(np.int32)
+    if kind == "padding_rows":    # all-zero rows, as ELL padding docs
+        w[::4] = 0.0
+    if kind == "out_of_range_ids":  # ids < 0 or >= v, with nonzero weights
+        bad = rng.random(size=(n, h)) < 0.25
+        ids[bad] = rng.choice([-1, -(2**31), v, v + 300, 2**31 - 1],
+                              size=int(bad.sum()))
+        w[bad] = rng.uniform(0.5, 1.0, size=int(bad.sum()))
+    return ids, w, rng.normal(size=(v, b)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["random", "skewed", "padding_rows",
+                                  "wide_rows", "out_of_range_ids"])
+def test_spmm_dense_kernel_order_matches_plain_and_pallas(kind):
+    """B6a's bucketed order (n not a multiple of the kernel's 8 rows a CTA;
+    rows wider than 64 slots take the kernel's shared-memory path; a slot
+    whose id lies outside [0, v) adds nothing) computes the dense
+    formulation: against its plain version and the reference's one-hot
+    Pallas kernel."""
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    ids, w, z = _dense_case(kind, rng)
+    got, visits = _dense_kernel_order(ids, w, z)
+    for i, seq in enumerate(visits):   # the non-empty subtiles, ascending
+        adds = (w[i] != 0) & (ids[i] >= 0) & (ids[i] < z.shape[0])
+        assert seq == sorted(set((ids[i][adds] // tsp.DENSE_BV).tolist()))
+    if kind == "skewed":
+        assert all(seq == [3] for seq in visits if seq)
+    if kind == "padding_rows":
+        assert not any(visits[::4]) and not got[::4].any()
+    plain = tsp.spmm_ell_dense_plain(_t(ids), _t(w), _t(z)).numpy()
+    np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-5)
+    want = np.asarray(jops.spmm_ell(jnp.asarray(ids), jnp.asarray(w),
+                                    jnp.asarray(z), mode="dense",
+                                    block_v=tsp.DENSE_BV, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("n,h,v,b", [(24, 8, 128, 6), (7, 13, 300, 2)])
 def test_spmm_naive_plain_matches_pallas(n, h, v, b):
     rng = np.random.default_rng(n * 19 + h + v + b)
@@ -528,12 +601,13 @@ def test_flash_attention_plain_q_offset_gives_a_slice_of_rows():
     torch.testing.assert_close(part, full[:, 40:72], rtol=1e-6, atol=1e-6)
 
 
-def _kernel_order(q, k, v, causal, skip=None, round_p=True, bk=64):
-    """B8's numerics in the CUDA kernel's order, on the CPU: 64-key tiles in
-    ascending order, the running max, p rounded to v's dtype against it
-    (unless ``round_p`` is False), float32 sums, O / max(l, 1e-30) cast to
-    q's dtype.  ``skip`` drops one KV tile.  The last two are planted
-    faults."""
+def _kernel_order(q, k, v, causal, skip=None, round_p=True,
+                  bk=tfa.KEY_TILE):
+    """B8's numerics in the CUDA kernels' order, on the CPU: key tiles of
+    the kernels' width in ascending order, the running max, p rounded to
+    v's dtype against it (unless ``round_p`` is False), float32 sums,
+    O / max(l, 1e-30) cast to q's dtype.  ``skip`` drops one KV tile.  The
+    last two are planted faults."""
     b, s, hq, dh = q.shape
     _, t, hkv, _ = k.shape
     qf = q.float().reshape(b, s, hkv, hq // hkv, dh)
@@ -612,6 +686,12 @@ def test_flash_hbm_bytes_follows_the_port_tiling():
     assert tfa.tiling(32, 1) == (256, 1, 256)
     assert tfa.tiling(128, 4) == (128, 2, 64)
     assert tfa.tiling(64, 3) == (256, 1, 256)
+    # every CTA's positions are whole 32-row warps and whole key tiles
+    for dh in tfa.HEAD_DIMS:
+        for group in (1, 2, 3, 4, 8):
+            r, gc, bq = tfa.tiling(dh, group)
+            assert r == gc * bq and group % gc == 0
+            assert bq % 32 == 0 and bq % tfa.KEY_TILE == 0
     b, s, hq, hkv, dh = 4, 4096, 32, 8, 64
     qo = 2 * b * s * hq * dh * 2
     # non-causal: every CTA reads all T keys of K and V once for 4 heads
@@ -620,6 +700,10 @@ def test_flash_hbm_bytes_follows_the_port_tiling():
     causal = tfa.flash_hbm_bytes(b, s, s, hq, hkv, dh)
     n = s // 64
     assert causal == qo + 2 * b * hkv * 64 * (n * (n + 1) // 2) * dh * 2
+    # a ragged KV tail: keys past T are not read
+    t = 4000
+    assert tfa.flash_hbm_bytes(b, s, t, hq, hkv, dh, causal=False) == \
+        qo + 2 * b * hkv * (s // 64) * t * dh * 2
 
 
 # ---------------------------------------------------------------------------
