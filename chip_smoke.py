@@ -18,14 +18,19 @@ Phases, each of which exits non-zero on failure:
    gives it against its plain PyTorch version on the card, with the stated
    tolerance; its time beside the plain version's, the library yardstick's
    where one PyTorch call computes the same function, and its bound on an
-   H100 SXM.
+   H100 SXM.  Phase 1 also reports its TFLOP/s over the valid query words;
+   the fused top-k its GB/s, the merge launches' share of its device time
+   (``torch.profiler``), and must return values equal bit for bit to the
+   SpMM's D at the ids it returns.
 4. slice: the synthetic corpus at the paper's Table IV set 2 statistics
    (h_max 48, mean h 27.5, m 300) resident in one engine; a batch of 64
    resident docs goes through the README quickstart (one-sided streaming
    top-32, Sinkhorn rerank to top-5, every query's top-1 is itself),
    ``one_sided`` and ``pruned_wmd_topk``.  The kernel launch counts are
    reset just before and read just after; each kernel must have run.
-   Then per-call times after warm-up and the peak device memory.
+   Then per-call times after warm-up, the peak device memory, and a
+   ``torch.profiler`` breakdown of ``topk_streaming``, the quickstart,
+   ``one_sided`` and ``pruned_wmd_topk``.
 5. comparison: the paper's comparison path on the same corpus, with the
    counts reset just before and read just after: phase 2 by each SpMM
    formulation (blocked, dense, naive) on the engine's Z, the vocab-streamed
@@ -286,16 +291,20 @@ def kernel_phase(engine, q, report):
         d.masked_fill_(~vmask[None, :], float("inf"))
         return d.reshape(v_e, B, h2).amin(dim=2)
 
-    bnd, by = bound_ms(4 * (v_e * m + B * h2 * m + B * h2 + v_e * B),
-                       2.0 * v_e * m * n_valid)
-    report["lc_rwmd_phase1"] = dict(
+    flop1 = 2.0 * v_e * m * n_valid   # the products over the valid words
+    bnd, by = bound_ms(4 * (v_e * m + B * h2 * m + B * h2 + v_e * B), flop1)
+    r1 = report["lc_rwmd_phase1"] = dict(
         max_abs_err=diff.max().item(), tol="1e-5*(|e|^2+|t|^2), squared Z",
         ms=time_ms(lambda: p1.phase1_sq_cuda(emb_r, t, valid)),
         plain_ms=time_ms(lambda: p1.phase1_sq_plain(emb_r, t, valid), 2),
         library_ms=time_ms(lib_p1, 2), bound_ms=bnd, bound_by=by)
+    r1["tflops"] = flop1 / r1["ms"] / 1e9
     del z_p, diff, tol
-    log(f"kernel lc_rwmd_phase1: max |dZ^2| "
-        f"{report['lc_rwmd_phase1']['max_abs_err']:.3e} within 1e-5*(|e|^2+|t|^2)")
+    log(f"kernel lc_rwmd_phase1: max |dZ^2| {r1['max_abs_err']:.3e} within "
+        f"1e-5*(|e|^2+|t|^2); {r1['ms']:.3f} ms, {r1['tflops']:.1f} TFLOP/s "
+        f"over the {n_valid} valid words ({flop1:.3e} FLOP), "
+        f"{bnd / r1['ms']:.3f} of its {by} bound {bnd:.3f} ms; cdist + amin "
+        f"{r1['library_ms']:.3f} ms")
 
     # --- B2: ELL SpMM ---
     z1 = torch.sqrt(torch.clamp(z_k, min=0.0))
@@ -315,7 +324,7 @@ def kernel_phase(engine, q, report):
         bound_ms=bnd, bound_by=by)
     log(f"kernel spmm_ell: max |dD| {report['spmm_ell']['max_abs_err']:.3e} "
         f"within 1e-5 + 1e-5*|D|")
-    del d_k, d_p, err
+    del d_p, err
 
     # --- B3: phase 2 folded into the streaming top-k ---
     kk = K_CAND
@@ -328,15 +337,28 @@ def kernel_phase(engine, q, report):
         d = torch.sparse.mm(csr, z1)
         return torch.topk(d, kk, dim=0, largest=False)
 
-    bnd, by = bound_ms(n * h1 * 8 + v_e * B * 4 + B * kk * 8, 2.0 * nnz * B)
-    report["fused_topk"] = dict(
+    # its values are B2's D at the returned ids, bit for bit
+    if not torch.equal(v_k, d_k.T.gather(1, i_k.long())):
+        fail("fused_topk: values differ from spmm_ell's D at the returned ids")
+    del d_k
+    bytes3 = n * h1 * 8 + v_e * B * 4 + B * kk * 8
+    bnd, by = bound_ms(bytes3, 2.0 * nnz * B)
+    r3 = report["fused_topk"] = dict(
         max_abs_err=err3, tol=f"values {tol3}; ids where gaps > {tol3}",
         ms=time_ms(lambda: fs.phase2_topk_cuda(r_ids, r_w, z1, kk)),
         plain_ms=time_ms(lambda: fs.phase2_topk_plain(
             r_ids, r_w, z1, kk, row_block=65536), 2),
         library_ms=time_ms(lib_topk), bound_ms=bnd, bound_by=by)
+    r3["gbps"] = bytes3 / r3["ms"] / 1e6
+    _, dev_us, merge_us, _ = profile_one(
+        lambda: fs.phase2_topk_cuda(r_ids, r_w, z1, kk), "topk_merge")
+    r3["merge_share"] = merge_us / dev_us if dev_us else None
     log(f"kernel fused_topk: max |dval| {err3:.3e} within {tol3}; ids equal "
-        f"where the gaps exceed {tol3}")
+        f"where the gaps exceed {tol3}; values equal spmm_ell's D; "
+        f"{r3['ms']:.3f} ms, {r3['gbps']:.1f} GB/s ({bytes3 / 1e6:.1f} MB), "
+        f"{bnd / r3['ms']:.3f} of its {by} bound {bnd:.3f} ms; the merge "
+        f"launches {merge_us / 1e3:.3f} of {dev_us / 1e3:.3f} device ms "
+        f"(torch.profiler); sparse.mm + topk {r3['library_ms']:.3f} ms")
     del csr
 
     # --- B4: Sinkhorn-WMD on the rerank's pairs ---
@@ -1291,6 +1313,7 @@ def lcrwmd_phases(scale: float) -> dict:
     log(f"peak device memory over the main path: {peak_gb:.2f} GB "
         f"(max_memory_allocated)")
     profiles = profile_calls({
+        "topk_streaming_k32": lambda: engine.topk_streaming(q, K_CAND),
         "quickstart": lambda: engine.rerank_topk(
             q, engine.topk_streaming(q, K_CAND).indices, K_FINAL,
             sinkhorn_kw=KW_RERANK),

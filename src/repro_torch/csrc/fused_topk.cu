@@ -7,14 +7,29 @@
 // writes Z to HBM and this file does the rest:
 //
 //   fused_topk_partial: each CTA takes a contiguous range of doc rows and a
-//     chunk of up to 64 queries.  A warp computes one row's D as the ELL
-//     SpMM does (spmm_ell.cu), 8 rows per step, into shared memory; then
-//     each warp folds those rows into the k-smallest carries of its queries,
-//     which live in shared memory, ordered by (value, doc id).  Rows arrive
-//     in ascending id, so a candidate goes before exactly the entries whose
-//     value is <= its own; a candidate no smaller than the k-th entry is
-//     dropped after one compare.  Rows >= n_real are dropped.  The CTA
-//     writes its (B, k) partial.
+//     chunk of up to 64 queries, and walks its range in steps of 32 rows.
+//     - Row pass: each warp computes 4 rows' D at once, lanes over the
+//       queries (2 each), into a (32 rows x 64 queries) tile in shared
+//       memory.  The rows' nonzero slots are staged in shared memory and
+//       read back 4 per broadcast load; the 4 rows' next 4 slots issue
+//       their Z gathers together, before their sums.  Each row's sum is
+//       the ELL SpMM's (spmm_ell.cu): nonzero slots in order, fmaf, so the
+//       values equal B2's D bit for bit.
+//     - Filter: all 256 threads test the tile's entries against a
+//       per-query threshold, the k-th value of the query's carry (3.4e38
+//       while it is not full).  Only val < thr passes: a later row has a
+//       larger doc id, so an equal value loses to the k-th entry, and a
+//       value >= 3.4e38 never enters, as in the reference kernel.
+//       Survivors go into the query's buffer of (value, id) through a
+//       shared atomicAdd on its count.
+//     - Flush: when a buffer could overflow in the next step (count > CAP -
+//       32), and at the end of the range, one warp per query sorts its
+//       buffer and merges it with the sorted carry by a bitonic merge, all
+//       in registers, keeping the k smallest (value, doc id) pairs; the
+//       threshold drops to the new k-th value.  Between flushes the
+//       threshold is stale: that lets extra candidates into the buffer,
+//       which the flush drops.  No per-row walk by one warp per query.
+//     Rows >= n_real are dropped.  The CTA writes its (B, k) partial.
 //   topk_merge: merges pairs of sorted partial lists by rank (a binary
 //     search of each element in the other list), in the same (value, id)
 //     order, halving the number of lists per launch.  Empty slots are
@@ -23,113 +38,25 @@
 // No (n, B) tensor is written: the D rows live only in shared memory.
 //
 // What bounds it: memory, as for the SpMM: the ids/weights read (~269 MB at
-// n=700,000, h=48) with the Z gathers served from L2; the output is only
-// B*k pairs.  The carry insertions are a few shared-memory compares per
-// (row, query) once the carries have filled.
+// n=700,000, h=48) with the Z gathers served from L2 (~4.9 GB of L2 reads
+// at mean h 27.5 and B=64); the output is only B*k pairs.  The filter costs
+// one shared-memory compare per (row, query); after the carries fill, about
+// k*ln(rows/k) candidates per query and CTA reach a flush.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 
 namespace {
 
-constexpr int WARPS = 8;        // rows per step, one per warp
-constexpr int QC = 64;          // queries per CTA (2 per lane)
-constexpr int KMAX = 128;       // largest k this kernel takes
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int QC = 64;                 // queries per CTA (2 per lane)
+constexpr int RPW = 4;                 // rows per warp per step
+constexpr int STEP = WARPS * RPW;      // rows per step
+constexpr int CAP = 64;                // buffered candidates per query
+constexpr int KMAX = 128;              // largest k this kernel takes
 constexpr float BIG = 3.4e38f;
-
-__global__ void __launch_bounds__(WARPS * 32)
-fused_topk_partial_kernel(const int* __restrict__ ids,   // (n, h)
-                          const float* __restrict__ w,   // (n, h)
-                          const float* __restrict__ z,   // (v, B)
-                          float* __restrict__ part_vals, // (n_ctas, B, k)
-                          int* __restrict__ part_idx,    // (n_ctas, B, k)
-                          int n, int n_real, int h, int b, int k,
-                          int rows_per_cta) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* cv = reinterpret_cast<float*>(smem);          // [QC][k]
-  int* ci = reinterpret_cast<int*>(cv + QC * k);       // [QC][k]
-  float* dt = reinterpret_cast<float*>(ci + QC * k);   // [WARPS][QC]
-
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int q0 = blockIdx.y * QC;
-  const int nq = min(QC, b - q0);
-  const int r0 = blockIdx.x * rows_per_cta;
-  const int r1 = min(min(n, n_real), r0 + rows_per_cta);
-
-  for (int i = threadIdx.x; i < QC * k; i += blockDim.x) {
-    cv[i] = BIG;
-    ci[i] = -1;
-  }
-  __syncthreads();
-
-  for (int tile = r0; tile < r1; tile += WARPS) {
-    // --- phase 2: one doc row per warp, lanes over the query columns ---
-    const int row = tile + warp;
-    if (row < r1) {
-      const int* ir = ids + (size_t)row * h;
-      const float* wr = w + (size_t)row * h;
-      float a0 = 0.f, a1 = 0.f;
-      const int c0 = q0 + lane, c1 = q0 + lane + 32;
-      for (int p0 = 0; p0 < h; p0 += 32) {
-        const int p = p0 + lane;
-        const int my_id = p < h ? ir[p] : 0;
-        const float my_w = p < h ? wr[p] : 0.f;
-        const int np = min(32, h - p0);
-        for (int pp = 0; pp < np; ++pp) {
-          const float wv = __shfl_sync(0xffffffffu, my_w, pp);
-          const int id = __shfl_sync(0xffffffffu, my_id, pp);
-          if (wv == 0.f) continue;  // warp-uniform; exact since Z is finite
-          const float* zr = z + (size_t)id * b;
-          if (c0 < b) a0 = fmaf(wv, zr[c0], a0);
-          if (c1 < b) a1 = fmaf(wv, zr[c1], a1);
-        }
-      }
-      dt[warp * QC + lane] = a0;
-      dt[warp * QC + lane + 32] = a1;
-    }
-    __syncthreads();
-
-    // --- fold the step's rows into the carries, one warp per query ---
-    for (int c = warp; c < nq; c += WARPS) {
-      float* cq = cv + c * k;
-      int* iq = ci + c * k;
-      for (int r = 0; r < WARPS; ++r) {
-        const int gid = tile + r;
-        if (gid >= r1) break;
-        const float val = dt[r * QC + c];
-        if (!(val < cq[k - 1])) continue;
-        int rank = 0;
-        for (int j0 = 0; j0 < k; j0 += 32) {
-          const int j = j0 + lane;
-          rank += __popc(__ballot_sync(0xffffffffu, j < k && cq[j] <= val));
-        }
-        float sv[KMAX / 32];
-        int si[KMAX / 32];
-#pragma unroll
-        for (int t = 0; t < KMAX / 32; ++t) {
-          const int j = rank + 1 + lane + 32 * t;
-          if (j < k) { sv[t] = cq[j - 1]; si[t] = iq[j - 1]; }
-        }
-        __syncwarp();
-#pragma unroll
-        for (int t = 0; t < KMAX / 32; ++t) {
-          const int j = rank + 1 + lane + 32 * t;
-          if (j < k) { cq[j] = sv[t]; iq[j] = si[t]; }
-        }
-        if (lane == 0) { cq[rank] = val; iq[rank] = gid; }
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int i = threadIdx.x; i < nq * k; i += blockDim.x) {
-    const int c = i / k, j = i % k;
-    const size_t o = ((size_t)blockIdx.x * b + q0 + c) * k + j;
-    part_vals[o] = cv[c * k + j];
-    part_idx[o] = ci[c * k + j];
-  }
-}
+static_assert(CAP >= STEP && (CAP & (CAP - 1)) == 0, "CAP: a power of two >= STEP");
 
 __device__ __forceinline__ bool lex_less(float v1, int i1, float v2, int i2) {
   return v1 < v2 || (v1 == v2 && i1 < i2);
@@ -147,6 +74,262 @@ __device__ int rank_in(const float* v, const int* ix, int k, float x, int xi,
     if (before) lo = mid + 1; else hi = mid;
   }
   return lo;
+}
+
+// Bitonic compare-exchange of a warp's 64 register-held entries (v[s],
+// i[s] is entry lane + 32 s) at one (size, stride) of the network.
+__device__ __forceinline__ void bitonic_step(float (&v)[2], int (&ix)[2],
+                                             int size, int stride, int lane) {
+  if (stride == 32) {  // the partner is this lane's other entry
+    const bool up = (lane & size) == 0;  // size == 64: ascending
+    if (lex_less(v[1], ix[1], v[0], ix[0]) == up) {
+      const float tv = v[0]; v[0] = v[1]; v[1] = tv;
+      const int ti = ix[0]; ix[0] = ix[1]; ix[1] = ti;
+    }
+    return;
+  }
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int e = lane + 32 * s;
+    const float pv = __shfl_xor_sync(0xffffffffu, v[s], stride);
+    const int pi = __shfl_xor_sync(0xffffffffu, ix[s], stride);
+    const bool keep_min = ((e & size) == 0) == ((e & stride) == 0);
+    const bool take = keep_min ? lex_less(pv, pi, v[s], ix[s])
+                               : lex_less(v[s], ix[s], pv, pi);
+    if (take) { v[s] = pv; ix[s] = pi; }
+  }
+}
+
+// One step of a bitonic merge over a warp's N = 32 * S register-held
+// entries (entry lane + 32 s in v[s], ix[s]), ascending: of each pair
+// (e, e ^ stride) the lower keeps the smaller.
+template <int S>
+__device__ __forceinline__ void merge_step(float (&v)[S], int (&ix)[S],
+                                           int stride, int lane) {
+  if (stride >= 32) {  // partners in this lane's registers
+    const int d = stride / 32;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (s & d) continue;
+      if (lex_less(v[s + d], ix[s + d], v[s], ix[s])) {
+        const float tv = v[s]; v[s] = v[s + d]; v[s + d] = tv;
+        const int ti = ix[s]; ix[s] = ix[s + d]; ix[s + d] = ti;
+      }
+    }
+    return;
+  }
+  const bool lower = (lane & stride) == 0;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const float pv = __shfl_xor_sync(0xffffffffu, v[s], stride);
+    const int pi = __shfl_xor_sync(0xffffffffu, ix[s], stride);
+    if (lower ? lex_less(pv, pi, v[s], ix[s]) : lex_less(v[s], ix[s], pv, pi)) {
+      v[s] = pv;
+      ix[s] = pi;
+    }
+  }
+}
+
+// One warp: merge the query's buffer (bv, bi; nb <= CAP entries, unsorted)
+// into its sorted carry (cv, ci; k <= 16 S entries), keeping the k
+// smallest; returns the new k-th value.  All in registers: the buffer is
+// sorted (bitonic, 2 entries a lane), reversed behind the carry so the two
+// form one bitonic sequence of N = 32 S entries, and merged in log2(N)
+// steps.  Pads are (3.4e38, INT_MAX): they sort after the carry's empty
+// slots (3.4e38, -1).  Ids are distinct between the two (each row is
+// tested once per query).
+template <int S>
+__device__ float flush_query(float* cv, int* ci, const float* bv,
+                             const int* bi, int nb, int k, int lane) {
+  static_assert(CAP == 64 && 16 * S >= CAP, "the buffer fills the second half");
+  float b[2];
+  int bx[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int e = lane + 32 * s;
+    b[s] = e < nb ? bv[e] : BIG;
+    bx[s] = e < nb ? bi[e] : INT_MAX;
+  }
+  int p = 2;
+  while (p < nb) p <<= 1;
+  for (int size = 2; size <= p; size <<= 1)
+    for (int stride = size / 2; stride > 0; stride >>= 1)
+      bitonic_step(b, bx, size, stride, lane);
+  float v[S];
+  int ix[S];
+#pragma unroll
+  for (int s = 0; s < S / 2; ++s) {  // the carry, ascending
+    const int j = lane + 32 * s;
+    v[s] = j < k ? cv[j] : BIG;
+    ix[s] = j < k ? ci[j] : INT_MAX;
+  }
+#pragma unroll
+  for (int s = S / 2; s < S - 2; ++s) { v[s] = BIG; ix[s] = INT_MAX; }
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {  // the buffer, reversed: entry 63 - e
+    v[S - 1 - s] = __shfl_sync(0xffffffffu, b[s], 31 - lane);
+    ix[S - 1 - s] = __shfl_sync(0xffffffffu, bx[s], 31 - lane);
+  }
+#pragma unroll
+  for (int stride = 16 * S; stride > 0; stride >>= 1)  // unrolled: static indices
+    merge_step<S>(v, ix, stride, lane);
+#pragma unroll
+  for (int s = 0; s < S / 2; ++s) {
+    const int j = lane + 32 * s;
+    if (j < k) { cv[j] = v[s]; ci[j] = ix[s]; }
+  }
+  float kth = BIG;
+#pragma unroll
+  for (int s = 0; s < S / 2; ++s)
+    if ((k - 1) / 32 == s) kth = __shfl_sync(0xffffffffu, v[s], (k - 1) % 32);
+  return kth;
+}
+
+// flush_query at the smallest register width that holds the carry.
+__device__ __forceinline__ float flush(float* cv, int* ci, const float* bv,
+                                       const int* bi, int nb, int k, int lane) {
+  return k <= 64 ? flush_query<4>(cv, ci, bv, bi, nb, k, lane)
+                 : flush_query<8>(cv, ci, bv, bi, nb, k, lane);
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+fused_topk_partial_kernel(const int* __restrict__ ids,   // (n, h)
+                          const float* __restrict__ w,   // (n, h)
+                          const float* __restrict__ z,   // (v, B)
+                          float* __restrict__ part_vals, // (n_ctas, B, k)
+                          int* __restrict__ part_idx,    // (n_ctas, B, k)
+                          int n, int n_real, int h, int b, int k,
+                          int rows_per_cta) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* cv = reinterpret_cast<float*>(smem);          // [QC][k] carry
+  int* ci = reinterpret_cast<int*>(cv + QC * k);       // [QC][k]
+  float* bv = reinterpret_cast<float*>(ci + QC * k);   // [QC][CAP] buffer
+  int* bi = reinterpret_cast<int*>(bv + QC * CAP);     // [QC][CAP]
+  float* dt = reinterpret_cast<float*>(bi + QC * CAP); // [STEP][QC] D tile
+  float* thr = dt + STEP * QC;                         // [QC]
+  int* cnt = reinterpret_cast<int*>(thr + QC);         // [QC]
+  int* flag = cnt + QC;                                // a buffer is near full
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int q0 = blockIdx.y * QC;
+  const int nq = min(QC, b - q0);
+  const int r0 = blockIdx.x * rows_per_cta;
+  const int r1 = min(min(n, n_real), r0 + rows_per_cta);
+
+  for (int i = tid; i < QC * k; i += THREADS) { cv[i] = BIG; ci[i] = -1; }
+  if (tid < QC) { thr[tid] = BIG; cnt[tid] = 0; }
+  if (tid == 0) *flag = 0;
+  __syncthreads();
+
+  const int c0 = q0 + lane, c1 = q0 + lane + 32;
+  for (int tile = r0; tile < r1; tile += STEP) {
+    // --- row pass: 4 rows per warp, lanes over the query columns ---
+    // The warp stages 32 slots of its 4 rows at a time in its own quarter
+    // KB of the D tile: each row's nonzero slots, in slot order (the SpMM
+    // skips the others), as Z row offsets and weights.  It reads them back
+    // 4 slots per broadcast load, and each batch of 4 slots issues its 32 Z
+    // gathers before their sums.  Past a row's last nonzero slot the
+    // entries read Z row 0 with weight 0 and add nothing.
+    int* so = reinterpret_cast<int*>(dt + warp * RPW * QC);  // [RPW][32]
+    float* sw = dt + warp * RPW * QC + RPW * 32;              // [RPW][32]
+    float a0[RPW], a1[RPW];
+#pragma unroll
+    for (int j = 0; j < RPW; ++j) { a0[j] = 0.f; a1[j] = 0.f; }
+    for (int p0 = 0; p0 < h; p0 += 32) {
+      const int p = p0 + lane;
+      int np = 0;  // the most nonzero slots of the 4 rows in this chunk
+#pragma unroll
+      for (int j = 0; j < RPW; ++j) {
+        const int row = min(tile + warp * RPW + j, r1 - 1);  // past r1: dropped below
+        const float wv = p < h ? w[(size_t)row * h + p] : 0.f;
+        const int id = p < h ? ids[(size_t)row * h + p] : 0;
+        // the nonzero slots first, in slot order; zeros after them
+        const unsigned nz = __ballot_sync(0xffffffffu, wv != 0.f);
+        const int n_nz = __popc(nz);
+        if (wv != 0.f) {
+          const int at = __popc(nz & ((1u << lane) - 1u));
+          so[j * 32 + at] = id * b;
+          sw[j * 32 + at] = wv;
+        }
+        if (lane >= n_nz) { so[j * 32 + lane] = 0; sw[j * 32 + lane] = 0.f; }
+        np = max(np, n_nz);
+      }
+      __syncwarp();
+      for (int g0 = 0; g0 < np; g0 += 4) {
+        float x0[RPW][4], x1[RPW][4];
+#pragma unroll
+        for (int j = 0; j < RPW; ++j) {
+          const int4 off = *reinterpret_cast<const int4*>(&so[j * 32 + g0]);
+          const int o[4] = {off.x, off.y, off.z, off.w};
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            x0[j][g] = c0 < b ? __ldg(z + o[g] + c0) : 0.f;
+            x1[j][g] = c1 < b ? __ldg(z + o[g] + c1) : 0.f;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < RPW; ++j) {
+          const float4 wq = *reinterpret_cast<const float4*>(&sw[j * 32 + g0]);
+          const float wg[4] = {wq.x, wq.y, wq.z, wq.w};
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            if (wg[g] != 0.f) {  // past the row's nonzero slots
+              a0[j] = fmaf(wg[g], x0[j][g], a0[j]);
+              a1[j] = fmaf(wg[g], x1[j][g], a1[j]);
+            }
+          }
+        }
+      }
+      __syncwarp();  // the staging is rewritten by the next chunk
+    }
+#pragma unroll
+    for (int j = 0; j < RPW; ++j) {
+      dt[(warp * RPW + j) * QC + lane] = a0[j];
+      dt[(warp * RPW + j) * QC + lane + 32] = a1[j];
+    }
+    __syncthreads();
+
+    // --- filter: every (row, query) entry against its query's threshold ---
+    for (int e = tid; e < STEP * QC; e += THREADS) {
+      const int r = e / QC, c = e % QC;
+      const int gid = tile + r;
+      const float val = dt[e];
+      if (c < nq && gid < r1 && val < thr[c]) {
+        const int pos = atomicAdd(&cnt[c], 1);
+        bv[c * CAP + pos] = val;
+        bi[c * CAP + pos] = gid;
+        if (pos >= CAP - STEP) *flag = 1;
+      }
+    }
+    __syncthreads();
+
+    // --- flush when a buffer could overflow in the next step ---
+    if (*flag) {
+      for (int c = warp; c < nq; c += WARPS) {
+        const int nb = cnt[c];
+        if (nb == 0) continue;
+        const float kth = flush(cv + c * k, ci + c * k, bv + c * CAP,
+                                bi + c * CAP, nb, k, lane);
+        if (lane == 0) { thr[c] = kth; cnt[c] = 0; }
+      }
+      __syncthreads();  // every thread read the flag before this barrier
+      if (tid == 0) *flag = 0;
+    }
+  }
+
+  for (int c = warp; c < nq; c += WARPS) {
+    const int nb = cnt[c];
+    if (nb > 0)
+      flush(cv + c * k, ci + c * k, bv + c * CAP, bi + c * CAP, nb, k, lane);
+  }
+  __syncthreads();
+
+  for (int i = tid; i < nq * k; i += THREADS) {
+    const int c = i / k, j = i % k;
+    const size_t o = ((size_t)blockIdx.x * b + q0 + c) * k + j;
+    part_vals[o] = cv[c * k + j];
+    part_idx[o] = ci[c * k + j];
+  }
 }
 
 __global__ void topk_merge_kernel(const float* __restrict__ in_vals,  // (n_in, B, k)
@@ -182,16 +365,20 @@ extern "C" int launch_fused_topk_partial(const void* ids, const void* w,
                                          int h, int b, int k, int rows_per_cta,
                                          void* stream) {
   if (k < 1 || k > KMAX) return (int)cudaErrorInvalidValue;
-  const int n_ctas = (n + rows_per_cta - 1) / rows_per_cta;
+  // One CTA per range of the rows that count: the caller allocates the
+  // partials for exactly these.
+  const int n_ctas = (min(n, n_real) + rows_per_cta - 1) / rows_per_cta;
   if (n_ctas <= 0 || b <= 0) return (int)cudaGetLastError();
   const size_t smem = (size_t)QC * k * (sizeof(float) + sizeof(int))
-                      + (size_t)WARPS * QC * sizeof(float);
+                      + (size_t)QC * CAP * (sizeof(float) + sizeof(int))
+                      + (size_t)STEP * QC * sizeof(float)
+                      + (size_t)QC * (sizeof(float) + sizeof(int)) + sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
       fused_topk_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(n_ctas, (b + QC - 1) / QC);
-  fused_topk_partial_kernel<<<grid, WARPS * 32, smem, (cudaStream_t)stream>>>(
+  fused_topk_partial_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const int*)ids, (const float*)w, (const float*)z, (float*)part_vals,
       (int*)part_idx, n, n_real, h, b, k, rows_per_cta);
   return (int)cudaGetLastError();

@@ -57,8 +57,9 @@ F = ctypes.c_float
 # void*, sizes as int).  Every launcher returns an int (cudaError_t).
 SIGNATURES = {
     "lc_rwmd_phase1": {
-        # emb, t, valid, out, v, b, h, m, bf16, stream
-        "launch_lc_rwmd_phase1": [P, P, P, P, I, I, I, I, I, P],
+        # emb, t, valid, cols (scratch), count (scratch), out, v, b, h, m,
+        # bf16, stream
+        "launch_lc_rwmd_phase1": [P, P, P, P, P, P, I, I, I, I, I, P],
     },
     "spmm_ell": {
         # ids, w, z, out, n, h, b, stream

@@ -11,11 +11,14 @@ Top-k:
 
 The CUDA kernels are ``csrc/fused_topk.cu`` (they replace the TPU kernel
 ``repro.kernels.fused_stream.fused_lc_rwmd_topk_pallas``, whose phase 1 is
-the separate phase-1 kernel here): a per-CTA SpMM + k-smallest carry over
-contiguous doc ranges, then pairwise merges of the partial lists.  No
-(n, B) tensor is written.  :func:`phase2_topk_plain` is the same function
-in plain PyTorch: the resident rows scanned in ``row_block`` slabs, each
-slab's (R, B) distances folded into a :class:`StreamingTopK` carry.
+the separate phase-1 kernel here): each CTA walks a contiguous doc range
+(:func:`cta_rows`) in steps of ``STEP_ROWS`` rows, filters each step's
+(rows, queries) tile against a per-query threshold into buffers of
+``FLUSH_CAP`` candidates, and flushes them into a sorted k-smallest carry;
+then pairwise merges of the partial lists.  No (n, B) tensor is written.
+:func:`phase2_topk_plain` is the same function in plain PyTorch: the
+resident rows scanned in ``row_block`` slabs, each slab's (R, B) distances
+folded into a :class:`StreamingTopK` carry.
 
 Both order candidates by ``(distance, doc id)`` and return ``(dists (B, k),
 ids (B, k))``, ascending, ``k = min(k, n_real)``.
@@ -32,7 +35,10 @@ from repro_torch.kernels.spmm_ell import spmm_ell_plain
 
 NAME = "fused_topk"
 K_MAX = 128  # largest k the kernel's shared-memory carry takes
+STEP_ROWS = 32   # doc rows per step of the kernel
+FLUSH_CAP = 64   # buffered candidates per query between flushes
 _CTAS_PER_SM = 2
+_MIN_ROWS = 64   # fewest doc rows per CTA
 CHUNK_NAME = "fused_chunk"
 CLUSTER = 8           # CTAs per cluster in csrc/fused_chunk.cu
 _CHUNK_ROWS_MAX = 128  # vocab rows one CTA of the cluster makes
@@ -56,6 +62,15 @@ def phase2_topk_plain(ids: torch.Tensor, w: torch.Tensor, z: torch.Tensor,
     return carry.dists, carry.indices
 
 
+def cta_rows(n_real: int, n_sm: int) -> tuple[int, int]:
+    """The kernel's doc ranges: (rows per CTA, a multiple of ``STEP_ROWS``;
+    number of CTAs), two CTAs per SM where the rows allow."""
+    n_ctas = max(1, min(-(-n_real // _MIN_ROWS), n_sm * _CTAS_PER_SM))
+    per_cta = -(-n_real // n_ctas)
+    rows = -(-per_cta // STEP_ROWS) * STEP_ROWS
+    return rows, -(-n_real // rows)
+
+
 def phase2_topk_cuda(ids: torch.Tensor, w: torch.Tensor, z: torch.Tensor,
                      k: int, *, n_real: int | None = None):
     """Launch the CUDA kernels: ids int32 / w f32 (n, h), z f32 (v, B)."""
@@ -76,12 +91,12 @@ def phase2_topk_cuda(ids: torch.Tensor, w: torch.Tensor, z: torch.Tensor,
                          f"of {K_MAX}")
     if b > 65535:
         raise ValueError(f"at most 65535 queries per call, got {b}")
+    if z.numel() >= 2 ** 31:
+        raise ValueError(f"z {tuple(z.shape)} has 2^31 entries or more; the "
+                         "kernel offsets its rows in int32")
     dev = z.device
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_ctas = max(1, min(-(-n_real // 64), n_sm * _CTAS_PER_SM))
-    per_cta = -(-n_real // n_ctas)
-    rows = -(-per_cta // 8) * 8   # rows per CTA, a multiple of the 8-row step
-    n_ctas = -(-n_real // rows)
+    rows, n_ctas = cta_rows(n_real, n_sm)
     vals = torch.empty((n_ctas, b, kk), dtype=torch.float32, device=dev)
     idx = torch.empty((n_ctas, b, kk), dtype=torch.int32, device=dev)
     lib = _build.lib(NAME)

@@ -49,17 +49,37 @@ def _ell(rng, n, h, v, pad=0.3):
     return torch.tensor(ids), torch.tensor(w)
 
 
-def test_phase1_kernel_matches_plain(cuda):
-    g = torch.Generator().manual_seed(0)
-    emb = torch.randn(700, 300, generator=g).to(cuda)
-    t = torch.randn(5, 37, 300, generator=g).to(cuda)
-    valid = (torch.rand(5, 37, generator=g) > 0.3).float().to(cuda)
+# (v, m, B, h, share of invalid words, a query with no valid word)
+PHASE1_CASES = {
+    "small": (700, 300, 5, 37, 0.3, False),
+    # the main path's batch (B 64, h 48) at ~40% invalid words, on a
+    # vocabulary as ragged as the slice's v_e = 73,123 (not a tile multiple)
+    "batch64": (73123, 300, 64, 48, 0.4, True),
+    "b1": (1000, 300, 1, 48, 0.4, False),
+    "m64": (3001, 64, 9, 21, 0.4, True),
+    "m70": (1000, 70, 7, 20, 0.3, False),  # rows copied as 4-byte words
+}
+
+
+@pytest.mark.parametrize("case", list(PHASE1_CASES))
+def test_phase1_kernel_matches_plain(cuda, case):
+    v, m, b, h, p_invalid, empty_query = PHASE1_CASES[case]
+    g = torch.Generator().manual_seed(v + b)
+    emb = torch.randn(v, m, generator=g).to(cuda)
+    t = torch.randn(b, h, m, generator=g).to(cuda)
+    valid = (torch.rand(b, h, generator=g) > p_invalid).float()
+    valid[:, 0] = 1.0
+    if empty_query:
+        valid[b // 2] = 0.0
+    valid = valid.to(cuda)
     for bf16 in (False, True):
         got = tp1.phase1_sq_cuda(emb, t, valid, bf16_matmul=bf16)
         want = tp1.phase1_sq_plain(emb, t, valid, bf16_matmul=bf16)
         # squared space: the gram form's error scales with the norms
         scale = (emb * emb).sum(1)[:, None] + (t * t).sum(2).amax(1)[None, :]
         assert bool(((got - want).abs() <= 1e-5 * scale).all())
+        if empty_query:  # no valid word: 3.4e38 in every row, as on the TPU
+            assert bool((got[:, b // 2] == np.float32(tp1.BIG)).all())
 
 
 def test_spmm_and_fused_topk_kernels_match_plain(cuda):
@@ -74,11 +94,52 @@ def test_spmm_and_fused_topk_kernels_match_plain(cuda):
         pv, pi = tfs.phase2_topk_plain(ids, w, z, k, row_block=1024)
         torch.testing.assert_close(v, pv, rtol=1e-5, atol=1e-5)
         assert torch.equal(i, pi)
+        # the same row sums as the SpMM: bit-equal at the returned ids
+        assert torch.equal(v, d.T.gather(1, i.long()))
     v, i = tfs.phase2_topk_cuda(ids, w, z, 16, n_real=777)
     pv, pi = tfs.phase2_topk_plain(ids, w, z, 16, n_real=777)
     assert torch.equal(i, pi) and int(i.max()) < 777
     with pytest.raises(ValueError, match="maximum"):
         tfs.phase2_topk_cuda(ids, w, z, 129)
+    # 200,000 rows: every CTA's range spans many steps and several flushes;
+    # B = 70 is two query chunks of the kernel.
+    ids, w = (x.to(cuda) for x in _ell(rng, 200_000, 48, 900))
+    d = tsp.spmm_ell_cuda(ids, w, z)
+    for k in (1, 32, 128):
+        v, i = tfs.phase2_topk_cuda(ids, w, z, k)
+        pv, pi = tfs.phase2_topk_plain(ids, w, z, k, row_block=65536)
+        torch.testing.assert_close(v, pv, rtol=1e-5, atol=1e-5)
+        assert torch.equal(v, d.T.gather(1, i.long()))
+        # ids equal wherever the value gaps exceed the sums' rounding
+        gap = torch.ones_like(pv, dtype=torch.bool)
+        step = pv[:, 1:] - pv[:, :-1] > 1e-4
+        gap[:, 1:] &= step
+        gap[:, :-1] &= step
+        assert torch.equal(i[gap], pi[gap])
+
+
+def test_fused_topk_kernel_writes_only_its_partials(cuda):
+    """With n_real < n the kernel runs one CTA per range of the first
+    n_real rows, the partials the wrapper allocates, and writes nothing
+    past them."""
+    rng = np.random.default_rng(4)
+    ids, w = (x.to(cuda) for x in _ell(rng, 5000, 48, 900))
+    z = torch.tensor(np.abs(rng.normal(size=(900, 8))).astype(np.float32)).to(cuda)
+    n, h = ids.shape
+    b, k, n_real = z.shape[1], 16, 777
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    rows, n_ctas = tfs.cta_rows(n_real, n_sm)
+    vals = torch.full((n_ctas + 64, b, k), 7.0, device=cuda)
+    idx = torch.full((n_ctas + 64, b, k), 7, dtype=torch.int32, device=cuda)
+    lib = _build.lib(tfs.NAME)
+    code = lib.launch_fused_topk_partial(
+        ids.data_ptr(), w.data_ptr(), z.data_ptr(), vals.data_ptr(),
+        idx.data_ptr(), n, n_real, h, b, k, rows,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(code, tfs.NAME)
+    torch.cuda.synchronize()
+    assert bool((vals[n_ctas:] == 7.0).all()) and bool((idx[n_ctas:] == 7).all())
+    assert int(idx[:n_ctas].max()) < n_real
 
 
 def test_fused_topk_kernel_tie_order(cuda):

@@ -78,6 +78,21 @@ def test_import_guard_covers_every_module():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_every_module_imports_first():
+    """Each module of the port imports when it is the first of the port to be
+    imported (no import cycle breaks it)."""
+    code = (
+        "import sys, importlib\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    for k in [k for k in sys.modules if k.split('.')[0] == 'repro_torch']:\n"
+        "        del sys.modules[k]\n"
+        "    importlib.import_module(m)\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120,
+                       env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"})
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_every_device_parameter_defaults_to_the_card():
     """A ``device`` parameter with a default defaults to None (the card)."""
     import importlib

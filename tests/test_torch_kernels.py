@@ -122,6 +122,104 @@ def test_phase1_oracle_matches_reference_oracle():
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=2.5e-2)
 
 
+def _phase1_kernel_order(emb, t, valid, bf16=False):
+    """B1's structure on the CPU, in float32: the wrapper's own column list
+    (valid words first, in (query, word) order, and their count); tiles of
+    TILE_ROWS vocab rows x TILE_COLS listed columns, a tile that starts past
+    the count skipped; in each tile sq = max(|e|² + |t|² − 2·E·Tᵀ, 0) over
+    the listed columns only, folded by min into Z² (filled with 3.4e38)
+    once per run of one query in each thread's 8 columns (two groups of 4,
+    32 apart), as the epilogue folds.  Also returns the tiles visited and
+    the runs folded."""
+    v, m = emb.shape
+    b, h, _ = t.shape
+    cols, count = tp1.valid_columns(_t(valid))
+    n = int(count[0])
+    assert count.dtype == torch.int32 and cols.dtype == torch.int32
+    cols = cols.numpy()[:n]
+    tf = t.reshape(b * h, m)
+    e_op, t_op = (emb, tf) if not bf16 else (
+        tdist.bf16_round(_t(emb)).numpy(), tdist.bf16_round(_t(tf)).numpy())
+    e2 = (emb * emb).sum(1, dtype=np.float32)
+    t2 = (tf * tf).sum(1, dtype=np.float32)
+    out = np.full((v, b), np.float32(tp1.BIG), np.float32)
+    tiles, runs = [], []
+    for c0 in range(0, b * h, tp1.TILE_COLS):
+        if c0 >= n:
+            continue                       # the CTA exits at once
+        cs = cols[c0:c0 + tp1.TILE_COLS]
+        for r0 in range(0, v, tp1.TILE_ROWS):
+            rows = slice(r0, min(r0 + tp1.TILE_ROWS, v))
+            tiles.append((r0, c0))
+            acc = e_op[rows] @ t_op[cs].T
+            sq = e2[rows, None] + t2[cs][None, :] - np.float32(2) * acc
+            sq = np.where(sq > 0, sq, np.float32(0))
+            for g0 in range(0, tp1.TILE_COLS, 64):      # a warp's 64 columns
+                for lc in range(8):                      # a thread's 8
+                    own = [g0 + lc * 4 + j + 32 * u for u in (0, 1) for j in range(4)]
+                    own = [c for c in own if c < len(cs)]
+                    seg = cs[own] // h
+                    for q in np.unique(seg):
+                        runs.append((r0, c0 + g0 + lc * 4, int(q)))
+                        out[rows, q] = np.minimum(
+                            out[rows, q], sq[:, own][:, seg == q].min(1))
+    return out, cols, tiles, runs
+
+
+def _phase1_case(kind, rng):
+    v, m, b, h = {"empty_query": (300, 40, 5, 12), "tile_ends_in_query": (260, 48, 8, 40),
+                  "ragged": (300, 70, 6, 24), "bf16": (384, 96, 4, 16),
+                  "short_queries": (200, 32, 60, 3)}[kind]
+    emb = rng.normal(size=(v, m)).astype(np.float32)
+    t = emb[rng.integers(0, v, size=b * h)].reshape(b, h, m)
+    valid = (rng.random(size=(b, h)) > 0.3).astype(np.float32)
+    valid[:, 0] = 1.0
+    if kind == "empty_query":
+        valid[2] = 0.0
+    if kind == "short_queries":     # 1-3 words: a thread's columns span several
+        valid[:] = 1.0
+    return emb, t, valid
+
+
+@pytest.mark.parametrize("kind", ["empty_query", "tile_ends_in_query", "ragged",
+                                  "bf16", "short_queries"])
+def test_phase1_kernel_order_matches_plain_and_pallas(kind):
+    """B1's tiles over the valid columns only, min-folded per run of one
+    query: against its plain version (squared) and the reference's Pallas
+    kernel in interpret mode.  Cases: a query with no valid word; a column
+    tile that ends inside a query; v and m not multiples of the tiles; the
+    bf16 path; queries of 1-3 words, so a thread's columns hold several."""
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    emb, t, valid = _phase1_case(kind, rng)
+    b, h = valid.shape
+    bf16 = kind == "bf16"
+    got, cols, tiles, runs = _phase1_kernel_order(emb, t, valid, bf16=bf16)
+    # the column list: exactly the valid words, in (query, word) order
+    assert cols.tolist() == np.flatnonzero(valid.reshape(-1) > 0).tolist()
+    assert {c0 for _, c0 in tiles} == set(range(0, len(cols), tp1.TILE_COLS))
+    if kind == "empty_query":
+        assert 2 not in {q for *_, q in runs}
+        assert np.all(got[:, 2] == np.float32(tp1.BIG))
+    if kind == "tile_ends_in_query":
+        q_at = cols // h
+        edge = tp1.TILE_COLS
+        assert len(cols) > edge and q_at[edge - 1] == q_at[edge]
+    if kind == "ragged":
+        assert emb.shape[0] % tp1.TILE_ROWS and emb.shape[1] % 16
+    if kind == "short_queries":
+        assert max(len({q for r0, s0, q in runs if (r0, s0) == key})
+                   for key in {(r0, s0) for r0, s0, _ in runs}) >= 4
+    plain = tp1.phase1_sq_plain(_t(emb), _t(t), _t(valid), bf16_matmul=bf16).numpy()
+    # squared space: the gram form's error scales with the norms
+    scale = (emb * emb).sum(1)[:, None] + ((t * t).sum(2) * valid).max(1)[None, :]
+    assert np.all(np.abs(got - plain) <= 1e-5 * scale)
+    want = np.asarray(jops.lc_rwmd_phase1_pregathered(
+        jnp.asarray(emb), jnp.asarray(t), jnp.asarray(valid), block_v=128,
+        bf16_matmul=bf16, interpret=True))
+    # atol floor: sqrt(eps·|e|²) gram-expansion noise on near-zero distances
+    np.testing.assert_allclose(np.sqrt(got), want, rtol=1e-4, atol=2.5e-2)
+
+
 # ---------------------------------------------------------------------------
 # B2 ELL SpMM
 # ---------------------------------------------------------------------------
@@ -378,6 +476,144 @@ def test_phase2_topk_plain_drops_rows_past_n_real():
     d2, i2 = tfs.phase2_topk_plain(_t(r_ids[:12]), _t(r_w[:12]), z, 5)
     assert torch.equal(i, i2) and torch.equal(d, d2)
     assert int(i.max()) < 12
+
+
+def _lex_merge(a, b, k):
+    """The k smallest of two (value, id) lists, by (value, id)."""
+    return sorted(a + b, key=lambda e: (e[0], e[1]))[:k]
+
+
+def _topk_filter_order(d, k, *, n_real=None, n_sm=2, cap=tfs.FLUSH_CAP,
+                       step=tfs.STEP_ROWS):
+    """B3's fold on the CPU over a D (n, B) float32: the wrapper's own doc
+    ranges (``tfs.cta_rows``), each walked in steps of ``step`` rows; every
+    (row, query) of a step tested against the query's threshold (its
+    carry's k-th value, 3.4e38 while not full), strictly, as of the step's
+    start; survivors into a buffer of ``cap``, flushed into the sorted carry
+    when a count exceeds ``cap - step`` and at the range's end; then the
+    CTAs' partials merged pairwise in (value, id) order.  Empty slots are
+    (3.4e38, -1).  Also returns the flushes per CTA."""
+    big = np.float32(tp1.BIG)
+    n, b = d.shape
+    n_rows = n if n_real is None else min(n, n_real)
+    kk = min(k, n_rows)
+    rows, n_ctas = tfs.cta_rows(n_rows, n_sm)
+    parts, flushes = [], []
+    for cta in range(n_ctas):
+        r0, r1 = cta * rows, min(n_rows, (cta + 1) * rows)
+        carry = [[(big, -1)] * kk for _ in range(b)]
+        thr = [big] * b
+        buf = [[] for _ in range(b)]
+        nfl = 0
+
+        def flush():
+            for q in range(b):
+                if buf[q]:
+                    carry[q] = _lex_merge(carry[q], buf[q], kk)
+                    thr[q] = carry[q][-1][0]
+                    buf[q] = []
+
+        for tile in range(r0, r1, step):
+            for r in range(tile, min(tile + step, r1)):
+                for q in range(b):
+                    if d[r, q] < thr[q]:
+                        buf[q].append((d[r, q], r))
+            assert max(map(len, buf)) <= cap           # never overflows
+            if max(map(len, buf)) > cap - step:
+                flush()
+                nfl += 1
+        flush()
+        parts.append(carry)
+        flushes.append(nfl)
+    while len(parts) > 1:   # the pairwise merge launches
+        parts = [[_lex_merge(x, y, kk) for x, y in zip(parts[i], parts[i + 1])]
+                 if i + 1 < len(parts) else parts[i]
+                 for i in range(0, len(parts), 2)]
+    vals = np.array([[e[0] for e in c] for c in parts[0]], np.float32)
+    ids = np.array([[e[1] for e in c] for c in parts[0]], np.int32)
+    return vals, ids, flushes
+
+
+def _topk_case(kind, rng):
+    """(emb, q_ids, q_w, r_ids, r_w, k, n_real, cap) for one case.
+
+    Small-integer embeddings: phase 1's gram form is then exact in both
+    packages, so Z agrees bit for bit and D only by the order of its sums;
+    such random inputs have no near ties, so the ids agree exactly."""
+    n, v, m, b, h = 300, 128, 16, 5, 6
+    emb = rng.integers(-3, 4, size=(v, m)).astype(np.float32)
+    q_ids, q_w = _mk_queries(rng, b, h, v)
+    r_ids, r_w = _mk_ell(rng, n, 8, v, pad=0.25)
+    r_w[:, 0] = np.maximum(r_w[:, 0], 0.1)  # no empty resident docs
+    k, n_real, cap = 32, None, tfs.FLUSH_CAP
+    if kind == "ties":             # each doc four times: exact ties
+        r_ids, r_w = np.repeat(r_ids[:75], 4, 0), np.repeat(r_w[:75], 4, 0)
+    elif kind.startswith("k"):
+        k = int(kind[1:])
+    elif kind == "n_real":
+        n_real = 201
+    elif kind == "first_step_flush":
+        cap, k = tfs.STEP_ROWS, 128   # full after one step: flush every step
+    elif kind == "huge":
+        # Query 1 has no valid word, so Z[:, 1] = sqrt(3.4e38) = 1.8439e19;
+        # all but 30 rows carry weight 1.8445e19 on a word no query holds:
+        # D = 3.4011e38 for query 1 (finite, >= 3.4e38) and ~1e20, tied,
+        # for the others.
+        q_w[1] = 0.0
+        spare = sorted(set(range(v)) - set(q_ids.reshape(-1).tolist()))[0]
+        heavy = np.arange(n) % 10 != 0
+        r_ids[heavy, 0], r_w[heavy, 0] = spare, 1.8445e19
+        k = 128
+    return emb, q_ids, q_w, r_ids, r_w, k, n_real, cap
+
+
+@pytest.mark.parametrize("kind", ["ties", "k1", "k32", "k128", "n_real",
+                                  "first_step_flush", "huge"])
+def test_topk_filter_order_matches_plain_and_pallas(kind):
+    """B3's filter, buffers, flushes and merges keep the k smallest (value,
+    doc id) pairs: against the plain fold (values, ids) and the reference's
+    Pallas kernel in interpret mode (equal ids).  Cases: heavy ties; k of
+    1, 32 and 128; n_real < n; a buffer that fills in the first step; D
+    values >= 3.4e38, which the kernel drops as the reference's does."""
+    emb, q_ids, q_w, r_ids, r_w, k, n_real, cap = _topk_case(
+        kind, np.random.default_rng(0))
+    n = r_ids.shape[0]
+    valid = (q_w > 0).astype(np.float32)
+    t = emb[q_ids]
+    z = torch.sqrt(torch.clamp(
+        tp1.phase1_sq_plain(_t(emb), _t(t), _t(valid)), min=0.0))
+    d = tsp.spmm_ell_plain(_t(r_ids), _t(r_w), z).numpy()
+    vals, ids, flushes = _topk_filter_order(d, k, n_real=n_real, cap=cap)
+    n_rows = n if n_real is None else n_real
+    rows, n_ctas = tfs.cta_rows(n_rows, 2)
+    assert len(flushes) == n_ctas > 1               # several CTAs
+    if kind == "first_step_flush":                  # a flush after every step
+        assert flushes == [-(-(min(n_rows, (c + 1) * rows) - c * rows)
+                             // tfs.STEP_ROWS) for c in range(n_ctas)]
+    kk = min(k, n_rows)
+    pv, pi = tfs.phase2_topk_plain(_t(r_ids), _t(r_w), z, k, n_real=n_real)
+    pv, pi = pv.numpy(), pi.numpy()
+    # the plain fold keeps a value >= 3.4e38; the kernels drop it
+    dropped = pv >= np.float32(tp1.BIG)
+    pv[dropped], pi[dropped] = np.float32(tp1.BIG), -1
+    if kind == "huge":
+        assert dropped[1].any() and not dropped[[0, 2, 3, 4]].any()
+        assert np.all(ids[1][vals[1] == np.float32(tp1.BIG)] == -1)
+    np.testing.assert_allclose(vals, pv, rtol=1e-6, atol=1e-6)
+    assert np.array_equal(ids, pi)
+    if kind == "ties":
+        same = vals[:, 1:] == vals[:, :-1]
+        assert same.any() and np.all(ids[:, 1:][same] > ids[:, :-1][same])
+    pad = -n % 8   # the reference kernel's 8-row doc tiles
+    jv, ji = jfs.fused_lc_rwmd_topk_pallas(
+        jnp.asarray(np.pad(emb, ((0, 0), (0, 128 - emb.shape[1])))),
+        jnp.asarray(np.pad(t, ((0, 0), (0, 0), (0, 128 - t.shape[2])))),
+        jnp.asarray(valid), jnp.asarray(np.pad(r_ids, ((0, pad), (0, 0)))),
+        jnp.asarray(np.pad(r_w.astype(np.float32), ((0, pad), (0, 0)))),
+        k=kk, n_real=n_rows, block_v=128, interpret=True)
+    jv, ji = np.asarray(jv)[:kk, :5].T, np.asarray(ji)[:kk, :5].T
+    np.testing.assert_allclose(vals, jv, rtol=1e-5, atol=1e-5)
+    assert np.array_equal(ids, ji)
 
 
 # ---------------------------------------------------------------------------
