@@ -21,16 +21,28 @@ Phases, each of which exits non-zero on failure:
    H100 SXM.  Phase 1 also reports its TFLOP/s over the valid query words;
    the fused top-k its GB/s, the merge launches' share of its device time
    (``torch.profiler``), and must return values equal bit for bit to the
-   SpMM's D at the ids it returns.
+   SpMM's D at the ids it returns; its partial launch through the 32-bit
+   and the 64-bit Z-offset variants, bit-equal and timed side by side;
+   then the fused top-k at k = 256 (its
+   carry in global memory) and with both masks (tombstones, each query's
+   own id excluded), and the quadratic RWMD kernel's d21 mode (the
+   symmetric fold's swapped direction) on the whole corpus, held against
+   its plain version on every doc, with its TFLOP/s over the valid words;
+   then the fused top-k with that d21 maxed in, as the symmetric route
+   calls it, at k = 32 and at ``pruned_wmd_topk``'s budget of 20.
 4. slice: the synthetic corpus at the paper's Table IV set 2 statistics
    (h_max 48, mean h 27.5, m 300) resident in one engine; a batch of 64
    resident docs goes through the README quickstart (one-sided streaming
    top-32, Sinkhorn rerank to top-5, every query's top-1 is itself),
-   ``one_sided`` and ``pruned_wmd_topk``.  The kernel launch counts are
+   ``one_sided`` and ``pruned_wmd_topk`` (whose symmetric bound runs phase
+   1, the d21 mode and the fused top-k).  The kernel launch counts are
    reset just before and read just after; each kernel must have run.
-   Then per-call times after warm-up, the peak device memory, and a
-   ``torch.profiler`` breakdown of ``topk_streaming``, the quickstart,
-   ``one_sided`` and ``pruned_wmd_topk``.
+   Then per-call times after warm-up (``symmetric_topk_streaming`` k=20
+   too), the peak device memory, a ``torch.profiler`` breakdown of
+   ``topk_streaming``, the quickstart, ``one_sided`` and
+   ``pruned_wmd_topk``, and the device time of one
+   ``symmetric_topk_streaming`` call split into B1 / d21 / B3 / other (it
+   fails if a cuBLAS GEMM ran there).
 5. comparison: the paper's comparison path on the same corpus, with the
    counts reset just before and read just after: phase 2 by each SpMM
    formulation (blocked, dense, naive) on the engine's Z, the vocab-streamed
@@ -96,11 +108,16 @@ sys.path.insert(0, str(ROOT / "src"))
 # outside the tensor cores; the kernels run IEEE float32 on the FMA units.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# Transcendentals (expf's ex2) run on the SFUs: 132 SMs x 16 results per
+# clock per SM x the 1.98 GHz boost clock of the H100 SXM (Hopper white
+# paper: 4 SFUs in each of an SM's 4 partitions).
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
 
 KW_RERANK = dict(eps=0.05, eps_scaling=2, max_iters=100)
 B = 64           # query batch: resident docs 0..63
 K_CAND = 32      # quickstart candidates
 K_FINAL = 5
+K_LARGE = 256    # B3 above its shared-memory carry (the global carry)
 SYM_ROW_BLOCK = 4096  # slab of the symmetric fold; the result does not depend on it
 VOCAB_CHUNK = 512     # the streaming engine's chunk (the reference's default)
 CHECK_ROWS = 65536    # rows held against the plain versions that gather (n, h, B)
@@ -141,8 +158,8 @@ LM_REL_RMS_BAR = 0.05
 
 
 # kernel -> (its CUDA source, the TPU kernel's pallas_call it replaces);
-# B1-B4 serve the cascade, B5-B7 the comparison path, B8 the llama3.2-1b
-# prefill, B9 its own entry point (ops.segment_spmm).
+# B1-B4 and B7's d21 mode serve the cascade, B5-B7 the comparison path, B8
+# the llama3.2-1b prefill, B9 its own entry point (ops.segment_spmm).
 KERNEL_SOURCES = {
     "lc_rwmd_phase1": ("src/repro_torch/csrc/lc_rwmd_phase1.cu",
                        "src/repro/kernels/lc_rwmd_phase1.py:85"),
@@ -160,6 +177,9 @@ KERNEL_SOURCES = {
                        "src/repro/kernels/spmm_ell.py:188"),
     "rwmd_pairwise": ("src/repro_torch/csrc/rwmd_pairwise.cu",
                       "src/repro/kernels/rwmd_pairwise.py:80"),
+    # B7's d21 mode: the symmetric fold's swapped direction (main path)
+    "rwmd_d21": ("src/repro_torch/csrc/rwmd_pairwise.cu",
+                 "src/repro/kernels/rwmd_pairwise.py:80"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:93"),
     "segment_spmm": ("src/repro_torch/csrc/segment_spmm.cu",
@@ -209,9 +229,13 @@ def wall_ms(fn, reps: int = 3) -> float:
 
 
 def bound_ms(n_bytes: float, n_ops: float,
-             flop_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+             flop_per_s: float = FP32_FLOP_PER_S,
+             n_sfu: float = 0.0) -> tuple[float, str]:
+    """The least time for the work: bytes at the HBM rate against the
+    operations, FMA-unit operations at ``flop_per_s`` and ``n_sfu``
+    transcendentals at the SFU rate, whichever takes longer."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / flop_per_s * 1e3
+    t_ops = max(n_ops / flop_per_s, n_sfu / SFU_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -258,8 +282,10 @@ def kernel_phase(engine, q, report):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels import fused_stream as fs
     from repro_torch.kernels import lc_rwmd_phase1 as p1
+    from repro_torch.kernels import rwmd_pairwise as rw
     from repro_torch.kernels import sinkhorn_wmd as sk
     from repro_torch.kernels import spmm_ell as sp
 
@@ -361,6 +387,121 @@ def kernel_phase(engine, q, report):
         f"(torch.profiler); sparse.mm + topk {r3['library_ms']:.3f} ms")
     del csr
 
+    # B3's 64-bit-offset variant (WIDE, which the launcher takes only when
+    # v*B >= 2^31) on the same partial launch: a v argument past 2^31 / B
+    # selects it on this Z.  Bit-equal partials; both timed, alternated.
+    n_sm = torch.cuda.get_device_properties(z1.device).multi_processor_count
+    rows3, n_ctas3 = fs.cta_rows(n, n_sm)
+    lib3 = _build.lib(fs.NAME)
+    stream = torch.cuda.current_stream().cuda_stream
+    parts = {}
+    for name in ("narrow", "wide"):
+        parts[name] = (torch.empty((n_ctas3, B, kk), device=z1.device),
+                       torch.empty((n_ctas3, B, kk), dtype=torch.int32,
+                                   device=z1.device))
+
+    def partial(name):
+        v_arg = v_e if name == "narrow" else 2 ** 31 // B + 1
+        pv, pi = parts[name]
+        _build.check(lib3.launch_fused_topk_partial(
+            r_ids.data_ptr(), r_w.data_ptr(), z1.data_ptr(), 0, 0, 0,
+            pv.data_ptr(), pi.data_ptr(), n, n, h1, v_arg, B, kk, rows3,
+            stream), fs.NAME)
+
+    wide_ms = {"narrow": [], "wide": []}
+    for name in ("narrow", "wide", "wide", "narrow"):
+        wide_ms[name].append(time_ms(lambda: partial(name), 10))
+    if not (torch.equal(parts["narrow"][0], parts["wide"][0])
+            and torch.equal(parts["narrow"][1], parts["wide"][1])):
+        fail("fused_topk: the 64-bit-offset variant's partials differ")
+    r3["partial_ms"] = sum(wide_ms["narrow"]) / 2
+    r3["wide_partial_ms"] = sum(wide_ms["wide"]) / 2
+    log(f"kernel fused_topk partial launch: 32-bit Z offsets "
+        f"{wide_ms['narrow'][0]:.3f} / {wide_ms['narrow'][1]:.3f} ms, 64-bit "
+        f"(WIDE) {wide_ms['wide'][0]:.3f} / {wide_ms['wide'][1]:.3f} ms, "
+        f"partials bit-equal")
+    del parts
+
+    # B3 above its shared-memory carry, and with both masks: a seventh of
+    # the rows tombstoned, each query (resident doc j) excluding itself
+    v_l, i_l = fs.phase2_topk_cuda(r_ids, r_w, z1, K_LARGE)
+    v_p, i_p = fs.phase2_topk_plain(r_ids, r_w, z1, K_LARGE + 1,
+                                    row_block=65536)
+    r3["k256_max_abs_err"] = check_topk(f"fused_topk k={K_LARGE}", v_l, i_l,
+                                        v_p, i_p, tol3)
+    live = torch.arange(n, device=z1.device) % 7 != 3
+    gid = torch.arange(B, dtype=torch.int32, device=z1.device)
+    masks = dict(row_valid=live, q_gid=gid)
+    v_m, i_m = fs.phase2_topk_cuda(r_ids, r_w, z1, kk, **masks)
+    v_p, i_p = fs.phase2_topk_plain(r_ids, r_w, z1, kk + 1, row_block=65536,
+                                    **masks)
+    r3["masks_max_abs_err"] = check_topk("fused_topk masks", v_m, i_m, v_p,
+                                         i_p, tol3)
+    if bool((i_m == gid[:, None]).any()) or not bool(live[i_m.long()].all()):
+        fail("fused_topk: a tombstoned row or a query's own id came back")
+    r3["k256_ms"] = time_ms(lambda: fs.phase2_topk_cuda(r_ids, r_w, z1, K_LARGE))
+    r3["masks_ms"] = time_ms(lambda: fs.phase2_topk_cuda(r_ids, r_w, z1, kk,
+                                                         **masks))
+    log(f"kernel fused_topk at k={K_LARGE} (global carry): max |dval| "
+        f"{r3['k256_max_abs_err']:.3e}, {r3['k256_ms']:.3f} ms; k={kk} with "
+        f"row_valid and q_gid: max |dval| {r3['masks_max_abs_err']:.3e}, "
+        f"{r3['masks_ms']:.3f} ms; ids equal where the gaps exceed {tol3}")
+    del v_l, i_l, v_m, i_m, v_p, i_p, live
+
+    # --- B7's d21 mode: the symmetric fold's swapped direction ---
+    emb_f, ids_f, w_f = engine.emb_full, engine.resident.ids, engine.resident.weights
+    d21_k = rw.rwmd_d21_cuda(emb_f, ids_f, w_f, q.ids, q.weights)
+    kept = {}
+
+    def plain21():
+        kept["d21"] = rw.rwmd_d21_plain(emb_f, ids_f, w_f, q.ids, q.weights)
+
+    plain21_ms = time_ms(plain21, 1, warm=False)
+    d21_p = kept.pop("d21")
+    # the gram form's noise on near-zero distances (see comparison_phase)
+    gram_atol = math.sqrt(2.0 ** -23 * 2.0 * float((emb_f * emb_f).sum(1).max()))
+    err21 = (d21_k - d21_p).abs()
+    ok = (d21_k == d21_p) | (err21 <= gram_atol + 1e-4 * d21_p.abs())
+    if bool(torch.isnan(d21_k).any()) or not bool(ok.all()):
+        fail(f"rwmd_d21: NaN, or |dd21| exceeds {gram_atol:.3e} + 1e-4*|d21| on "
+             f"{int((~ok).sum())} of the {n} docs x {B} queries (max "
+             f"{err21.max().item()})")
+    n1 = float((w_f > 0).sum().item())
+    flop21 = 2.0 * m * n1 * float(valid.sum().item())
+    bnd, by = bound_ms(4 * emb_f.numel() + n * h1 * 8 + B * h2 * 8 + n * B * 4,
+                       flop21)
+    r21 = report["rwmd_d21"] = dict(
+        max_abs_err=float(err21[torch.isfinite(err21)].max()),
+        tol=f"{gram_atol:.3e} (gram floor) + 1e-4*|d21| (all {n} docs)",
+        ms=time_ms(lambda: rw.rwmd_d21_cuda(emb_f, ids_f, w_f, q.ids,
+                                            q.weights), 2, warm=False),
+        plain_ms=plain21_ms, library_ms=None, bound_ms=bnd, bound_by=by)
+    r21["tflops"] = flop21 / r21["ms"] / 1e9
+    log(f"kernel rwmd_d21: max |dd21| {r21['max_abs_err']:.3e} within "
+        f"{gram_atol:.3e} + 1e-4*|d21| on all {n} docs; "
+        f"{r21['ms']:.1f} ms, {r21['tflops']:.1f} TFLOP/s over the valid words "
+        f"({flop21:.3e} FLOP), {bnd / r21['ms']:.3f} of its {by} bound "
+        f"{bnd:.1f} ms; plain {r21['plain_ms']:.1f} ms")
+    del d21_p, err21, ok
+
+    # B3 with the d21 operand maxed in, as the symmetric route calls it: at
+    # the cascade's k and at pruned_wmd_topk's budget (4 * K_FINAL)
+    for k21 in (kk, 4 * K_FINAL):
+        v_s, i_s = fs.phase2_topk_cuda(r_ids, r_w, z1, k21, d21=d21_k)
+        v_p, i_p = fs.phase2_topk_plain(r_ids, r_w, z1, k21 + 1,
+                                        row_block=65536, d21=d21_k)
+        r3[f"d21_k{k21}_max_abs_err"] = check_topk(
+            f"fused_topk d21 k={k21}", v_s, i_s, v_p, i_p, tol3)
+    r3["d21_ms"] = time_ms(lambda: fs.phase2_topk_cuda(r_ids, r_w, z1,
+                                                       4 * K_FINAL, d21=d21_k))
+    log(f"kernel fused_topk with the d21 operand at k={kk} and "
+        f"{4 * K_FINAL}: max |dval| {r3[f'd21_k{kk}_max_abs_err']:.3e} / "
+        f"{r3[f'd21_k{4 * K_FINAL}_max_abs_err']:.3e} within {tol3}, ids "
+        f"equal where the gaps exceed it; {r3['d21_ms']:.3f} ms at k="
+        f"{4 * K_FINAL}")
+    del d21_k, v_s, i_s, v_p, i_p
+    torch.cuda.empty_cache()
+
     # --- B4: Sinkhorn-WMD on the rerank's pairs ---
     flat = i_k.reshape(-1).long()
     t1 = engine._t_r.reshape(n, h1, m).index_select(0, flat)
@@ -387,21 +528,23 @@ def kernel_phase(engine, q, report):
     n1 = (w1 > 0).sum(1).to(torch.float64)
     n2 = (w2 > 0).sum(1).to(torch.float64)
     # Cost tile over the valid words, then per iteration three passes of
-    # ~4 operations (one exp) per valid entry.
+    # ~4 operations and one exp per valid entry: the exps on the SFUs.
     ops4 = float((n1 * n2 * (2.0 * m + 12.0 * it_k.to(torch.float64))).sum())
+    exps4 = float((n1 * n2 * 3.0 * it_k.to(torch.float64)).sum())
     bnd, by = bound_ms(4 * (t1.numel() + t2.numel() + w1.numel() + w2.numel()
-                            + c_k.numel()), ops4)
+                            + c_k.numel()), ops4, n_sfu=exps4)
     report["sinkhorn_wmd"] = dict(
         max_abs_err=err4.max().item(),
         tol=f"{atol4:.3e} (gram floor) + 1e-4*|WMD|",
         ms=time_ms(lambda: sk.sinkhorn_cuda(t1, w1, t2, w2, **KW_RERANK)),
         plain_ms=time_ms(lambda: sk.sinkhorn_plain(t1, w1, t2, w2, **KW_RERANK), 1),
-        library_ms=None, bound_ms=bnd, bound_by=by,
+        library_ms=None, bound_ms=bnd, bound_by=by, exps=exps4,
         iters_mean=float(it_k.float().mean()),
         iters_equal_share=float((it_k == it_p).float().mean()))
     log(f"kernel sinkhorn_wmd: max |dWMD| {err4.max().item():.3e} within "
         f"{atol4:.3e} + 1e-4*|WMD| (mean iterations "
-        f"{report['sinkhorn_wmd']['iters_mean']:.1f})")
+        f"{report['sinkhorn_wmd']['iters_mean']:.1f}); {exps4:.3e} exps at "
+        f"{SFU_OPS_PER_S:.3e}/s: {by} bound {bnd:.3f} ms")
 
 
 def comparison_phase(engine, q, cand, report):
@@ -579,8 +722,8 @@ def comparison_phase(engine, q, cand, report):
     if not bool((d_quad >= d_quad.new_zeros(())).all()):
         fail("rwmd_pairwise: negative distances")
     n1 = float((docs.weights > 0).sum().item())
-    bnd, by = bound_ms(4 * v * m + n * h1 * 8 + b * h2 * 8 + n * b * 4,
-                       2.0 * m * n1 * n_valid_q)
+    flop7 = 2.0 * m * n1 * n_valid_q   # the products over the valid words
+    bnd, by = bound_ms(4 * v * m + n * h1 * 8 + b * h2 * 8 + n * b * 4, flop7)
     report["rwmd_pairwise"] = dict(
         max_abs_err=err7.max().item(),
         tol=f"{gram_atol:.3e} (gram floor) + 1e-4*|RWMD| (first {rows} docs)",
@@ -590,10 +733,14 @@ def comparison_phase(engine, q, cand, report):
             emb, docs.ids, docs.weights, q.ids, q.weights), 1, warm=False),
         library_ms=None, bound_ms=bnd, bound_by=by,
         launches=launches.get("rwmd_pairwise", 0))
+    r7 = report["rwmd_pairwise"]
+    r7["tflops"] = flop7 / r7["ms"] / 1e9
     log(f"kernel rwmd_pairwise: max |dRWMD| {err7.max().item():.3e} within "
         f"{gram_atol:.3e} + 1e-4*|RWMD| of its plain version; max "
         f"{(d_quad[:rows] - core7).abs().max().item():.3e} from "
-        f"rwmd_many_vs_many on the first {rows} docs")
+        f"rwmd_many_vs_many on the first {rows} docs; {r7['ms']:.1f} ms, "
+        f"{r7['tflops']:.1f} TFLOP/s over the valid words ({flop7:.3e} FLOP), "
+        f"{bnd / r7['ms']:.3f} of its {by} bound {bnd:.1f} ms")
     del want7, err7, core7, head
     # Docs and queries of Table IV set 1's h_max (160 words, more than one
     # 128-row tile of the kernel) on the same vocabulary.
@@ -1212,6 +1359,36 @@ def profile_one(fn, match: str):
     return wall_us, dev_us, hit_us, top
 
 
+# The symmetric streaming top-k's kernels by name: B1 (phase 1, its prep),
+# B7's d21 mode (its three list launches and the GEMM), B3 (the fold and its
+# merges).
+SYM_KERNELS = {"B1": ("phase1_",), "d21": ("rwmd_kernel", "count_rows",
+                                          "scan_kernel", "list_rows"),
+               "B3": ("fused_topk", "topk_merge")}
+
+
+def symmetric_split(fn) -> dict:
+    """Device ms of one ``symmetric_topk_streaming`` call by kernel group
+    (``torch.profiler``); fails if a cuBLAS GEMM ran on the path."""
+    wall_us, dev_us, _, top = profile_one(fn, "")
+    split = dict.fromkeys(SYM_KERNELS, 0.0)
+    split["other"] = 0.0
+    for us, name, _ in top:
+        if "gemm" in name.lower():
+            fail(f"symmetric_topk_streaming ran a GEMM outside the port's "
+                 f"kernels: {name}")
+        group = next((g for g, keys in SYM_KERNELS.items()
+                      if any(key in name for key in keys)), "other")
+        split[group] += us / 1e3
+    if not dev_us or min(split["B1"], split["d21"], split["B3"]) <= 0:
+        fail(f"symmetric_topk_streaming: the profile shows no time in one of "
+             f"B1, d21, B3: {split}")
+    log(f"profile symmetric_topk_streaming k={4 * K_FINAL}: wall "
+        f"{wall_us / 1e3:.1f} ms, device {dev_us / 1e3:.1f} ms: " + ", ".join(
+            f"{g} {ms:.2f} ms" for g, ms in split.items()) + "; no cuBLAS GEMM")
+    return dict(wall_ms=wall_us / 1e3, device_ms=dev_us / 1e3, **split)
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -1274,7 +1451,8 @@ def lcrwmd_phases(scale: float) -> dict:
     launches = dict(_build.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"main path launches: {launches}")
-    for name in ("lc_rwmd_phase1", "spmm_ell", "fused_topk", "sinkhorn_wmd"):
+    for name in ("lc_rwmd_phase1", "spmm_ell", "fused_topk", "sinkhorn_wmd",
+                 "rwmd_d21"):
         if launches.get(name, 0) < 1:
             fail(f"kernel {name} was not launched on the main path")
 
@@ -1307,6 +1485,8 @@ def lcrwmd_phases(scale: float) -> dict:
         "pruned_wmd_topk_k5": wall_ms(lambda: pruned_wmd_topk(
             docs, q, corpus.emb, k=K_FINAL, engine=engine,
             sinkhorn_kw=KW_RERANK), 2),
+        "symmetric_topk_streaming_k20": wall_ms(
+            lambda: engine.symmetric_topk_streaming(q, 4 * K_FINAL), 2),
     }
     log("per-call ms (B=64, after warm-up): " + ", ".join(
         f"{k} {v:.2f}" for k, v in times.items()))
@@ -1322,6 +1502,8 @@ def lcrwmd_phases(scale: float) -> dict:
             docs, q, corpus.emb, k=K_FINAL, engine=engine,
             sinkhorn_kw=KW_RERANK),
     })
+    sym_split = symmetric_split(
+        lambda: engine.symmetric_topk_streaming(q, 4 * K_FINAL))
 
     # 5. the paper's comparison path (its own launch counts)
     torch.cuda.empty_cache()
@@ -1333,6 +1515,7 @@ def lcrwmd_phases(scale: float) -> dict:
     slice_info = dict(
         n_docs=spec.n_docs, v_e=v_e, batch=B, per_call_ms=times,
         peak_gb=peak_gb, pruned_exact_share=exact_share, profiles=profiles,
+        symmetric_topk_split=sym_split,
         tolerances={k: r["tol"] for k, r in report.items()},
         comparison=comp,
         sinkhorn=dict(iters_mean=report["sinkhorn_wmd"]["iters_mean"],

@@ -30,6 +30,7 @@ from repro_torch.core.distances import safe_sqrt, sq_dists
 from repro_torch.data.docs import DocSet
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels import rwmd_pairwise as _rw
 
 _INF = float("inf")
 
@@ -49,6 +50,8 @@ class SegmentTensors(NamedTuple):
     r_w: torch.Tensor       # (n, h1) f32 weights (0 at padding slots)
     t_r: torch.Tensor       # (n*h1, m) pre-gathered FULL-table word embeddings
     valid_r: torch.Tensor   # (n*h1,) bool slot validity
+    emb: torch.Tensor       # (v, m) the FULL table (the swapped-direction kernel)
+    ids: torch.Tensor       # (n, h1) int32 word ids into the full table
 
 
 # ---------------------------------------------------------------------------
@@ -155,17 +158,21 @@ def restrict_vocab(resident: DocSet, emb: torch.Tensor):
 
 
 def _topk_stream_from_z(seg: SegmentTensors, z1: torch.Tensor,
-                        t_q: torch.Tensor, q_w: torch.Tensor, *, k: int,
-                        symmetric: bool, row_block: int,
-                        bf16_matmul: bool) -> topk_lib.TopK:
+                        q_ids: torch.Tensor, t_q: torch.Tensor,
+                        q_w: torch.Tensor, *, k: int, symmetric: bool,
+                        row_block: int, bf16_matmul: bool) -> topk_lib.TopK:
     """The streaming top-k fold over the resident rows (after phase 1).
 
     One-sided: the fused phase-2 top-k (kernel on CUDA, slab fold on CPU).
-    Symmetric: ``row_block`` slabs; D1 of a slab through the ELL SpMM
-    wrapper, the swapped direction from the pre-gathered resident targets
-    by a plain GEMM (as the reference leaves it outside its kernels), both
-    folded into a :class:`StreamingTopK` carry.  Exactly the top-k of the
-    materialized matrix, ties included.
+    Symmetric, on CUDA: the swapped direction d21 (n, B) by the quadratic
+    RWMD kernel's d21 mode (full table, full ids), then the fused phase-2
+    top-k with d21 maxed into each D entry; no slab is built.  Symmetric,
+    on CPU: ``row_block`` slabs; D1 of a slab through the ELL SpMM wrapper,
+    the swapped direction from the pre-gathered resident targets by a plain
+    GEMM (as the reference leaves it outside its kernels), both folded into
+    a :class:`StreamingTopK` carry.  Exactly the top-k of the materialized
+    matrix, ties included.  An empty resident doc is +inf in the swapped
+    direction (a padded query word adds 0, not ``0 · inf``).
     """
     b, h2 = q_w.shape
     n, h1 = seg.r_ids.shape
@@ -173,6 +180,11 @@ def _topk_stream_from_z(seg: SegmentTensors, z1: torch.Tensor,
     if not symmetric:
         d, i = ops.streaming_phase2_topk(seg.r_ids, seg.r_w, z1, kk,
                                          row_block=row_block)
+        return topk_lib.TopK(d, i)
+    if z1.is_cuda:
+        d21 = ops.rwmd_d21(seg.emb, seg.ids, seg.r_w, q_ids, q_w,
+                           bf16_matmul=bf16_matmul)
+        d, i = ops.streaming_phase2_topk(seg.r_ids, seg.r_w, z1, kk, d21=d21)
         return topk_lib.TopK(d, i)
 
     r = max(1, min(row_block, n))
@@ -187,7 +199,7 @@ def _topk_stream_from_z(seg: SegmentTensors, z1: torch.Tensor,
         sq.masked_fill_(~seg.valid_r[lo * h1:hi * h1][None, :], _INF)
         z2 = safe_sqrt(sq.reshape(b * h2, rr, h1).amin(dim=2))      # (B*h2, R)
         del sq
-        d2 = torch.einsum("bh,bhr->br", q_w, z2.reshape(b, h2, rr))
+        d2 = _rw.d21_from_min(z2.reshape(b, h2, rr), q_w)           # (B, R)
         d_blk = torch.maximum(d1.T, d2)                             # (B, R)
         rows = torch.arange(lo, hi, dtype=torch.int32, device=z1.device)
         carry = stk.update(carry, d_blk, rows[None, :].expand(b, rr))
@@ -210,9 +222,10 @@ class LCRWMDEngine:
         second copy: at 700,000 docs × 48 words × 300 dims it is 40.3 GB);
       * float32 casts.
 
-    On CUDA, phase 1, the ELL SpMM, the fused phase-2 top-k and the
-    Sinkhorn rerank launch the port's kernels; on CPU their plain versions
-    run.  Top-k results are in ``(distance, doc id)`` order, ties included.
+    On CUDA, phase 1, the ELL SpMM, the fused phase-2 top-k, the
+    symmetric bound's swapped direction and the Sinkhorn rerank launch the
+    port's kernels; on CPU their plain versions run.  Top-k results are in
+    ``(distance, doc id)`` order, ties included.
     """
 
     def __init__(self, resident: DocSet, emb, *, device=None,
@@ -252,7 +265,7 @@ class LCRWMDEngine:
         return SegmentTensors(
             emb_r=self.emb_restricted, r_ids=self.resident_restricted.ids,
             r_w=self.resident_restricted.weights, t_r=self._t_r,
-            valid_r=self._valid_r)
+            valid_r=self._valid_r, emb=self.emb_full, ids=self.resident.ids)
 
     def _phase1(self, t_q: torch.Tensor, q_w: torch.Tensor) -> torch.Tensor:
         """Z1 (v_e, B) over the restricted vocab from (B*h, m) targets."""
@@ -280,7 +293,7 @@ class LCRWMDEngine:
         sq = sq_dists(t_q, self._t_r, bf16_matmul=self.bf16_matmul)
         sq.masked_fill_(~self._valid_r[None, :], _INF)
         z2 = safe_sqrt(sq.reshape(b * h2, n, h1).amin(dim=2))
-        d2 = torch.einsum("bh,bhn->bn", q_w, z2.reshape(b, h2, n))
+        d2 = _rw.d21_from_min(z2.reshape(b, h2, n), q_w)
         return torch.maximum(d1, d2.T)
 
     def _topk_dispatch(self, queries: DocSet, k: int, symmetric: bool):
@@ -288,8 +301,8 @@ class LCRWMDEngine:
         t_q = self._gather_flat(queries.ids)
         z1 = self._phase1(t_q, queries.weights)
         return _topk_stream_from_z(
-            self._segment_tensors(), z1, t_q, queries.weights, k=k,
-            symmetric=symmetric, row_block=self.row_block,
+            self._segment_tensors(), z1, queries.ids, t_q, queries.weights,
+            k=k, symmetric=symmetric, row_block=self.row_block,
             bf16_matmul=self.bf16_matmul)
 
     # -- public entry points ----------------------------------------------
@@ -317,8 +330,12 @@ class LCRWMDEngine:
         return self._topk_dispatch(queries, k, symmetric=False)
 
     def symmetric_topk_streaming(self, queries: DocSet, k: int) -> topk_lib.TopK:
-        """Per-query top-k smallest SYMMETRIC bound max(D1, D2ᵀ), streamed in
-        ``row_block`` slabs (peak O(B·h2 · row_block·h1))."""
+        """Per-query top-k smallest SYMMETRIC bound max(D1, D2ᵀ), streamed.
+
+        On CUDA: phase 1, the swapped direction D2ᵀ (n, B) by the quadratic
+        RWMD kernel's d21 mode, then the fused phase-2 top-k with it maxed
+        in; no slab.  On CPU: ``row_block`` slabs (peak O(B·h2 ·
+        row_block·h1))."""
         return self._topk_dispatch(queries, k, symmetric=True)
 
     def rerank_topk(self, queries: DocSet, cand_indices: torch.Tensor, k: int,

@@ -75,6 +75,8 @@ def cascade_topk(
     if tier >= QualityTier.LCRWMD:
         return engine.topk_streaming(queries, k)
     budget = min(max(rerank_budget or 2 * k, k), engine.resident.n_docs)
+    # Any budget: on the card the fused top-k kernel carries k > 128 in
+    # global memory and takes any number of queries.
     cand = engine.topk_streaming(queries, budget)
     return engine.rerank_topk(queries, cand.indices, k,
                               sinkhorn_kw=sinkhorn_kw)
@@ -123,6 +125,8 @@ def pruned_wmd_topk(
 
     if engine is not None:
         dev = engine.device
+        # on the card: phase 1, the swapped direction and the fused top-k
+        # kernels (no slab; d21 (n, B) is the one extra tensor)
         cand = engine.symmetric_topk_streaming(queries, budget)  # (B, budget)
         bf16 = engine.bf16_matmul
     else:

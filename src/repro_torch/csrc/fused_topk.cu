@@ -8,6 +8,8 @@
 //
 //   fused_topk_partial: each CTA takes a contiguous range of doc rows and a
 //     chunk of up to 64 queries, and walks its range in steps of 32 rows.
+//     The launcher launches the query chunks in groups of at most 65,535
+//     (the grid's y limit), so any number of queries is taken.
 //     - Row pass: each warp computes 4 rows' D at once, lanes over the
 //       queries (2 each), into a (32 rows x 64 queries) tile in shared
 //       memory.  The rows' nonzero slots are staged in shared memory and
@@ -17,9 +19,14 @@
 //       values equal B2's D bit for bit.
 //     - Filter: all 256 threads test the tile's entries against a
 //       per-query threshold, the k-th value of the query's carry (3.4e38
-//       while it is not full).  Only val < thr passes: a later row has a
-//       larger doc id, so an equal value loses to the k-th entry, and a
-//       value >= 3.4e38 never enters, as in the reference kernel.
+//       while it is not full).  First the optional operands act on the
+//       entry, as the reference's jnp fold applies them: d21 (n x B, the
+//       symmetric bound's swapped direction) is maxed in; a row with
+//       row_valid[row] == 0 (a tombstone) and the pair (row q_gid[j],
+//       query j) (self-exclusion) are +inf, which never passes.  Only
+//       val < thr passes: a later row has a larger doc id, so an equal
+//       value loses to the k-th entry, and a value >= 3.4e38 never enters,
+//       as in the reference kernel.
 //       Survivors go into the query's buffer of (value, id) through a
 //       shared atomicAdd on its count.
 //     - Flush: when a buffer could overflow in the next step (count > CAP -
@@ -29,13 +36,26 @@
 //       threshold drops to the new k-th value.  Between flushes the
 //       threshold is stale: that lets extra candidates into the buffer,
 //       which the flush drops.  No per-row walk by one warp per query.
-//     Rows >= n_real are dropped.  The CTA writes its (B, k) partial.
-//   topk_merge: merges pairs of sorted partial lists by rank (a binary
-//     search of each element in the other list), in the same (value, id)
-//     order, halving the number of lists per launch.  Empty slots are
-//     (3.4e38, -1).
+//       Up to k = 128 the carry lives in shared memory and a flush merges
+//       in registers.  Above that the carry lives in the CTA's own slice of
+//       the partials in global memory (any k): the warp sorts the buffer
+//       in registers, places each buffer entry at its index plus its rank
+//       in the carry, and shifts the carry's entries up by their ranks in
+//       the buffer, 32 at a time from the top, in place.
+//     Rows >= n_real are dropped.  The CTA writes its (B, k) partial; the
+//     wrapper asks each CTA for at most as many entries as it has rows, so
+//     the partials hold about n_real entries a query however large k is.
+//   topk_merge: merges pairs of sorted partial lists of k_in entries by
+//     rank (a binary search of each element in the other list), in the
+//     same (value, id) order, into lists of k_out <= 2 k_in entries,
+//     halving the number of lists per launch.  Empty slots are (3.4e38, -1).
 //
 // No (n, B) tensor is written: the D rows live only in shared memory.
+// Offsets into z are 32-bit while v * B < 2^31 and 64-bit above (WIDE:
+// its per-gather multiply makes the slice's k = 32 call slower on an H100;
+// chip_smoke.py times both), and the filter's operand tests are compiled
+// only when an operand is given (EXTRA): the plain call runs the same
+// instructions as without them.
 //
 // What bounds it: memory, as for the SpMM: the ids/weights read (~269 MB at
 // n=700,000, h=48) with the Z gathers served from L2 (~4.9 GB of L2 reads
@@ -54,7 +74,8 @@ constexpr int QC = 64;                 // queries per CTA (2 per lane)
 constexpr int RPW = 4;                 // rows per warp per step
 constexpr int STEP = WARPS * RPW;      // rows per step
 constexpr int CAP = 64;                // buffered candidates per query
-constexpr int KMAX = 128;              // largest k this kernel takes
+constexpr int KMAX_SMEM = 128;         // largest k carried in shared memory
+constexpr int Y_MAX = 65535;           // query chunks per launch (grid y)
 constexpr float BIG = 3.4e38f;
 static_assert(CAP >= STEP && (CAP & (CAP - 1)) == 0, "CAP: a power of two >= STEP");
 
@@ -185,38 +206,108 @@ __device__ float flush_query(float* cv, int* ci, const float* bv,
   return kth;
 }
 
-// flush_query at the smallest register width that holds the carry.
-__device__ __forceinline__ float flush(float* cv, int* ci, const float* bv,
-                                       const int* bi, int nb, int k, int lane) {
+// One warp: merge the query's buffer into a sorted carry of any length k
+// held in global memory.  The buffer is sorted in registers and written
+// back sorted; each buffer entry goes to its index plus the number of
+// carry entries before it, and each carry entry moves up by the number of
+// buffer entries before it.  The carry is shifted in place, 32 entries at
+// a time from the top: an entry only moves up, and every lane of a chunk
+// reads before any writes.  Ids are distinct between the two.
+__device__ float flush_global(float* cv, int* ci, float* bv, int* bi, int nb,
+                              int k, int lane) {
+  float b[2];
+  int bx[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int e = lane + 32 * s;
+    b[s] = e < nb ? bv[e] : BIG;
+    bx[s] = e < nb ? bi[e] : INT_MAX;
+  }
+  int p = 2;
+  while (p < nb) p <<= 1;
+  for (int size = 2; size <= p; size <<= 1)
+    for (int stride = size / 2; stride > 0; stride >>= 1)
+      bitonic_step(b, bx, size, stride, lane);
+  __syncwarp();
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int e = lane + 32 * s;
+    if (e < nb) { bv[e] = b[s]; bi[e] = bx[s]; }
+  }
+  __syncwarp();
+  int pos[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int e = lane + 32 * s;
+    pos[s] = e < nb ? e + rank_in(cv, ci, k, b[s], bx[s], true) : k;
+  }
+  for (int c0 = (k - 1) / 32 * 32; c0 >= 0; c0 -= 32) {
+    const int j = c0 + lane;
+    float v = BIG;
+    int x = -1, to = k;
+    if (j < k) {
+      v = cv[j];
+      x = ci[j];
+      to = j + rank_in(bv, bi, nb, v, x, true);
+    }
+    __syncwarp();
+    if (to < k) { cv[to] = v; ci[to] = x; }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+    if (pos[s] < k) { cv[pos[s]] = b[s]; ci[pos[s]] = bx[s]; }
+  __syncwarp();
+  return cv[k - 1];
+}
+
+// A flush at the smallest register width that holds the carry, or into
+// the global carry.
+template <bool GLOBAL>
+__device__ __forceinline__ float flush(float* cv, int* ci, float* bv, int* bi,
+                                       int nb, int k, int lane) {
+  if (GLOBAL) return flush_global(cv, ci, bv, bi, nb, k, lane);
   return k <= 64 ? flush_query<4>(cv, ci, bv, bi, nb, k, lane)
                  : flush_query<8>(cv, ci, bv, bi, nb, k, lane);
 }
 
+// GLOBAL: the carry is the CTA's slice of the partials (any k); else it is
+// in shared memory (k <= 128).  EXTRA: row_valid, q_gid and d21 are read
+// (each may still be null).  WIDE: Z row offsets in 64 bits.
+template <bool GLOBAL, bool EXTRA, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 2)
 fused_topk_partial_kernel(const int* __restrict__ ids,   // (n, h)
                           const float* __restrict__ w,   // (n, h)
                           const float* __restrict__ z,   // (v, B)
+                          const unsigned char* __restrict__ row_valid,  // (n,)
+                          const int* __restrict__ q_gid, // (B,)
+                          const float* __restrict__ d21, // (n, B)
                           float* __restrict__ part_vals, // (n_ctas, B, k)
                           int* __restrict__ part_idx,    // (n_ctas, B, k)
                           int n, int n_real, int h, int b, int k,
-                          int rows_per_cta) {
+                          int rows_per_cta, int chunk0) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* cv = reinterpret_cast<float*>(smem);          // [QC][k] carry
-  int* ci = reinterpret_cast<int*>(cv + QC * k);       // [QC][k]
-  float* bv = reinterpret_cast<float*>(ci + QC * k);   // [QC][CAP] buffer
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int q0 = (chunk0 + blockIdx.y) * QC;
+  const int nq = min(QC, b - q0);
+  const int r0 = blockIdx.x * rows_per_cta;
+  const int r1 = min(min(n, n_real), r0 + rows_per_cta);
+  const size_t part0 = ((size_t)blockIdx.x * b + q0) * k;  // this CTA's partials
+
+  const int kc = GLOBAL ? 0 : k;                       // carry entries in smem
+  float* cv = GLOBAL ? part_vals + part0 : reinterpret_cast<float*>(smem);  // [QC][k]
+  int* ci = GLOBAL ? part_idx + part0 : reinterpret_cast<int*>(smem) + QC * k;
+  float* bv = reinterpret_cast<float*>(smem) + 2 * QC * kc;  // [QC][CAP] buffer
   int* bi = reinterpret_cast<int*>(bv + QC * CAP);     // [QC][CAP]
   float* dt = reinterpret_cast<float*>(bi + QC * CAP); // [STEP][QC] D tile
   float* thr = dt + STEP * QC;                         // [QC]
   int* cnt = reinterpret_cast<int*>(thr + QC);         // [QC]
   int* flag = cnt + QC;                                // a buffer is near full
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int q0 = blockIdx.y * QC;
-  const int nq = min(QC, b - q0);
-  const int r0 = blockIdx.x * rows_per_cta;
-  const int r1 = min(min(n, n_real), r0 + rows_per_cta);
-
-  for (int i = tid; i < QC * k; i += THREADS) { cv[i] = BIG; ci[i] = -1; }
+  for (int i = tid; i < (GLOBAL ? nq : QC) * k; i += THREADS) {
+    cv[i] = BIG;
+    ci[i] = -1;
+  }
   if (tid < QC) { thr[tid] = BIG; cnt[tid] = 0; }
   if (tid == 0) *flag = 0;
   __syncthreads();
@@ -226,7 +317,7 @@ fused_topk_partial_kernel(const int* __restrict__ ids,   // (n, h)
     // --- row pass: 4 rows per warp, lanes over the query columns ---
     // The warp stages 32 slots of its 4 rows at a time in its own quarter
     // KB of the D tile: each row's nonzero slots, in slot order (the SpMM
-    // skips the others), as Z row offsets and weights.  It reads them back
+    // skips the others), as Z row offsets (ids when WIDE) and weights.  It reads them back
     // 4 slots per broadcast load, and each batch of 4 slots issues its 32 Z
     // gathers before their sums.  Past a row's last nonzero slot the
     // entries read Z row 0 with weight 0 and add nothing.
@@ -248,7 +339,7 @@ fused_topk_partial_kernel(const int* __restrict__ ids,   // (n, h)
         const int n_nz = __popc(nz);
         if (wv != 0.f) {
           const int at = __popc(nz & ((1u << lane) - 1u));
-          so[j * 32 + at] = id * b;
+          so[j * 32 + at] = WIDE ? id : id * b;
           sw[j * 32 + at] = wv;
         }
         if (lane >= n_nz) { so[j * 32 + lane] = 0; sw[j * 32 + lane] = 0.f; }
@@ -263,8 +354,9 @@ fused_topk_partial_kernel(const int* __restrict__ ids,   // (n, h)
           const int o[4] = {off.x, off.y, off.z, off.w};
 #pragma unroll
           for (int g = 0; g < 4; ++g) {
-            x0[j][g] = c0 < b ? __ldg(z + o[g] + c0) : 0.f;
-            x1[j][g] = c1 < b ? __ldg(z + o[g] + c1) : 0.f;
+            const float* zr = WIDE ? z + (size_t)o[g] * b : z + o[g];
+            x0[j][g] = c0 < b ? __ldg(zr + c0) : 0.f;
+            x1[j][g] = c1 < b ? __ldg(zr + c1) : 0.f;
           }
         }
 #pragma unroll
@@ -293,7 +385,13 @@ fused_topk_partial_kernel(const int* __restrict__ ids,   // (n, h)
     for (int e = tid; e < STEP * QC; e += THREADS) {
       const int r = e / QC, c = e % QC;
       const int gid = tile + r;
-      const float val = dt[e];
+      float val = dt[e];
+      if (EXTRA && c < nq && gid < r1) {
+        if (d21 != nullptr) val = fmaxf(val, d21[(size_t)gid * b + q0 + c]);
+        if ((row_valid != nullptr && row_valid[gid] == 0) ||
+            (q_gid != nullptr && q_gid[q0 + c] == gid))
+          continue;
+      }
       if (c < nq && gid < r1 && val < thr[c]) {
         const int pos = atomicAdd(&cnt[c], 1);
         bv[c * CAP + pos] = val;
@@ -308,8 +406,8 @@ fused_topk_partial_kernel(const int* __restrict__ ids,   // (n, h)
       for (int c = warp; c < nq; c += WARPS) {
         const int nb = cnt[c];
         if (nb == 0) continue;
-        const float kth = flush(cv + c * k, ci + c * k, bv + c * CAP,
-                                bi + c * CAP, nb, k, lane);
+        const float kth = flush<GLOBAL>(cv + c * k, ci + c * k, bv + c * CAP,
+                                        bi + c * CAP, nb, k, lane);
         if (lane == 0) { thr[c] = kth; cnt[c] = 0; }
       }
       __syncthreads();  // every thread read the flag before this barrier
@@ -320,77 +418,113 @@ fused_topk_partial_kernel(const int* __restrict__ ids,   // (n, h)
   for (int c = warp; c < nq; c += WARPS) {
     const int nb = cnt[c];
     if (nb > 0)
-      flush(cv + c * k, ci + c * k, bv + c * CAP, bi + c * CAP, nb, k, lane);
+      flush<GLOBAL>(cv + c * k, ci + c * k, bv + c * CAP, bi + c * CAP, nb, k,
+                    lane);
   }
+  if (GLOBAL) return;  // the carry is the partial
   __syncthreads();
 
   for (int i = tid; i < nq * k; i += THREADS) {
-    const int c = i / k, j = i % k;
-    const size_t o = ((size_t)blockIdx.x * b + q0 + c) * k + j;
-    part_vals[o] = cv[c * k + j];
-    part_idx[o] = ci[c * k + j];
+    part_vals[part0 + i] = cv[i];
+    part_idx[part0 + i] = ci[i];
   }
 }
 
-__global__ void topk_merge_kernel(const float* __restrict__ in_vals,  // (n_in, B, k)
+__global__ void topk_merge_kernel(const float* __restrict__ in_vals,  // (n_in, B, k_in)
                                   const int* __restrict__ in_idx,
-                                  float* __restrict__ out_vals,       // (n_out, B, k)
+                                  float* __restrict__ out_vals,       // (n_out, B, k_out)
                                   int* __restrict__ out_idx,
-                                  int n_in, int b, int k) {
-  const int pair = blockIdx.x, q = blockIdx.y;
+                                  int n_in, int b, int k_in, int k_out) {
+  const int pair = blockIdx.x / b, q = blockIdx.x % b;
   const int la = 2 * pair, lb = 2 * pair + 1;
-  const float* av = in_vals + ((size_t)la * b + q) * k;
-  const int* ai = in_idx + ((size_t)la * b + q) * k;
-  float* ov = out_vals + ((size_t)pair * b + q) * k;
-  int* oi = out_idx + ((size_t)pair * b + q) * k;
-  if (lb >= n_in) {
-    for (int j = threadIdx.x; j < k; j += blockDim.x) { ov[j] = av[j]; oi[j] = ai[j]; }
+  const float* av = in_vals + ((size_t)la * b + q) * k_in;
+  const int* ai = in_idx + ((size_t)la * b + q) * k_in;
+  float* ov = out_vals + ((size_t)pair * b + q) * k_out;
+  int* oi = out_idx + ((size_t)pair * b + q) * k_out;
+  if (lb >= n_in) {  // no partner: the list, padded with empty slots
+    for (int j = threadIdx.x; j < k_out; j += blockDim.x) {
+      ov[j] = j < k_in ? av[j] : BIG;
+      oi[j] = j < k_in ? ai[j] : -1;
+    }
     return;
   }
-  const float* bv = in_vals + ((size_t)lb * b + q) * k;
-  const int* bi = in_idx + ((size_t)lb * b + q) * k;
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    const int pa = j + rank_in(bv, bi, k, av[j], ai[j], true);
-    if (pa < k) { ov[pa] = av[j]; oi[pa] = ai[j]; }
-    const int pb = j + rank_in(av, ai, k, bv[j], bi[j], false);
-    if (pb < k) { ov[pb] = bv[j]; oi[pb] = bi[j]; }
+  const float* bv = in_vals + ((size_t)lb * b + q) * k_in;
+  const int* bi = in_idx + ((size_t)lb * b + q) * k_in;
+  for (int j = threadIdx.x; j < k_in; j += blockDim.x) {
+    const int pa = j + rank_in(bv, bi, k_in, av[j], ai[j], true);
+    if (pa < k_out) { ov[pa] = av[j]; oi[pa] = ai[j]; }
+    const int pb = j + rank_in(av, ai, k_in, bv[j], bi[j], false);
+    if (pb < k_out) { ov[pb] = bv[j]; oi[pb] = bi[j]; }
   }
+}
+
+template <bool GLOBAL, bool EXTRA, bool WIDE>
+int launch_partial(dim3 grid, size_t smem, cudaStream_t stream, const int* ids,
+                   const float* w, const float* z,
+                   const unsigned char* row_valid, const int* q_gid,
+                   const float* d21, float* part_vals, int* part_idx, int n,
+                   int n_real, int h, int b, int k, int rows_per_cta,
+                   int chunk0) {
+  auto kern = fused_topk_partial_kernel<GLOBAL, EXTRA, WIDE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, THREADS, smem, stream>>>(ids, w, z, row_valid, q_gid, d21,
+                                        part_vals, part_idx, n, n_real, h, b,
+                                        k, rows_per_cta, chunk0);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int launch_fused_topk_partial(const void* ids, const void* w,
-                                         const void* z, void* part_vals,
-                                         void* part_idx, int n, int n_real,
-                                         int h, int b, int k, int rows_per_cta,
-                                         void* stream) {
-  if (k < 1 || k > KMAX) return (int)cudaErrorInvalidValue;
+                                         const void* z, const void* row_valid,
+                                         const void* q_gid, const void* d21,
+                                         void* part_vals, void* part_idx,
+                                         int n, int n_real, int h, int v, int b,
+                                         int k, int rows_per_cta, void* stream) {
+  if (k < 1) return (int)cudaErrorInvalidValue;
   // One CTA per range of the rows that count: the caller allocates the
   // partials for exactly these.
   const int n_ctas = (min(n, n_real) + rows_per_cta - 1) / rows_per_cta;
   if (n_ctas <= 0 || b <= 0) return (int)cudaGetLastError();
-  const size_t smem = (size_t)QC * k * (sizeof(float) + sizeof(int))
+  const bool global = k > KMAX_SMEM;
+  const bool extra = row_valid != nullptr || q_gid != nullptr || d21 != nullptr;
+  const bool wide = (long long)v * b >= 0x7fffffffLL;
+  const size_t smem = (global ? 0 : (size_t)QC * k * (sizeof(float) + sizeof(int)))
                       + (size_t)QC * CAP * (sizeof(float) + sizeof(int))
                       + (size_t)STEP * QC * sizeof(float)
                       + (size_t)QC * (sizeof(float) + sizeof(int)) + sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_topk_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(n_ctas, (b + QC - 1) / QC);
-  fused_topk_partial_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const int*)ids, (const float*)w, (const float*)z, (float*)part_vals,
-      (int*)part_idx, n, n_real, h, b, k, rows_per_cta);
-  return (int)cudaGetLastError();
+  auto launch = global ? (extra ? (wide ? launch_partial<true, true, true>
+                                        : launch_partial<true, true, false>)
+                                : (wide ? launch_partial<true, false, true>
+                                        : launch_partial<true, false, false>))
+                       : (extra ? (wide ? launch_partial<false, true, true>
+                                        : launch_partial<false, true, false>)
+                                : (wide ? launch_partial<false, false, true>
+                                        : launch_partial<false, false, false>));
+  const int chunks = (b + QC - 1) / QC;
+  for (int c0 = 0; c0 < chunks; c0 += Y_MAX) {
+    const int code = launch(
+        dim3(n_ctas, min(Y_MAX, chunks - c0)), smem, (cudaStream_t)stream,
+        (const int*)ids, (const float*)w, (const float*)z,
+        (const unsigned char*)row_valid, (const int*)q_gid, (const float*)d21,
+        (float*)part_vals, (int*)part_idx, n, n_real, h, b, k, rows_per_cta,
+        c0);
+    if (code != 0) return code;
+  }
+  return (int)cudaSuccess;
 }
 
 extern "C" int launch_topk_merge(const void* in_vals, const void* in_idx,
                                  void* out_vals, void* out_idx, int n_in, int b,
-                                 int k, void* stream) {
+                                 int k_in, int k_out, void* stream) {
   if (n_in <= 0 || b <= 0) return (int)cudaGetLastError();
-  dim3 grid((n_in + 1) / 2, b);
-  topk_merge_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
+  if (k_in < 1 || k_out < k_in || k_out > 2 * k_in) return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)((n_in + 1) / 2) * b;  // one per (pair, query)
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  topk_merge_kernel<<<(unsigned)blocks, 128, 0, (cudaStream_t)stream>>>(
       (const float*)in_vals, (const int*)in_idx, (float*)out_vals,
-      (int*)out_idx, n_in, b, k);
+      (int*)out_idx, n_in, b, k_in, k_out);
   return (int)cudaGetLastError();
 }

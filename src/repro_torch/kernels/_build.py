@@ -70,10 +70,12 @@ SIGNATURES = {
         "launch_spmm_ell_naive": [P, P, P, P, I, I, I, P],
     },
     "fused_topk": {
-        # ids, w, z, part_vals, part_idx, n, n_real, h, b, k, rows_per_cta, stream
-        "launch_fused_topk_partial": [P, P, P, P, P, I, I, I, I, I, I, P],
-        # in_vals, in_idx, out_vals, out_idx, n_in, b, k, stream
-        "launch_topk_merge": [P, P, P, P, I, I, I, P],
+        # ids, w, z, row_valid, q_gid, d21 (each may be null), part_vals,
+        # part_idx, n, n_real, h, v, b, k, rows_per_cta, stream
+        "launch_fused_topk_partial": [P, P, P, P, P, P, P, P, I, I, I, I, I,
+                                      I, I, P],
+        # in_vals, in_idx, out_vals, out_idx, n_in, b, k_in, k_out, stream
+        "launch_topk_merge": [P, P, P, P, I, I, I, I, P],
     },
     "sinkhorn_wmd": {
         # t1, w1, t2, w2, levels, inv_levels, out, iters, p, h1, h2, m,
@@ -87,9 +89,11 @@ SIGNATURES = {
         "launch_fused_chunk": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
     },
     "rwmd_pairwise": {
-        # emb, r_ids, r_w, q_ids, q_w, out, n, b, h1, h2, m, docs_per_cta,
-        # queries_per_group, bf16, stream
-        "launch_rwmd_pairwise": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+        # emb, r_ids, r_w, q_ids, q_w, then scratch: cnt, doc_start, rows,
+        # cols, gcol, carry_col, carry_d12; out, n, b, h1, h2, m, ctas,
+        # full, bf16, stream
+        "launch_rwmd_pairwise": [P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I,
+                                 I, I, I, I, I, P],
     },
     "flash_attention": {
         # q, k, v, o, b, s, t, hq, hkv, dh, gc, causal, bf16, scale, stream

@@ -14,14 +14,25 @@ The CUDA kernels are ``csrc/fused_topk.cu`` (they replace the TPU kernel
 the separate phase-1 kernel here): each CTA walks a contiguous doc range
 (:func:`cta_rows`) in steps of ``STEP_ROWS`` rows, filters each step's
 (rows, queries) tile against a per-query threshold into buffers of
-``FLUSH_CAP`` candidates, and flushes them into a sorted k-smallest carry;
-then pairwise merges of the partial lists.  No (n, B) tensor is written.
-:func:`phase2_topk_plain` is the same function in plain PyTorch: the
-resident rows scanned in ``row_block`` slabs, each slab's (R, B) distances
-folded into a :class:`StreamingTopK` carry.
+``FLUSH_CAP`` candidates, and flushes them into a sorted k-smallest carry
+(in shared memory up to k = 128, in the partials' global memory above
+it: any k; a CTA keeps at most as many entries as it has rows, see
+:func:`list_widths`); then pairwise merges of the partial lists.  No (n, B)
+tensor is written.  :func:`phase2_topk_plain` is the same function in
+plain PyTorch: the resident rows scanned in ``row_block`` slabs, each
+slab's (R, B) distances folded into a :class:`StreamingTopK` carry.
+
+Three optional operands act on each (row, query) entry before it is
+ranked, as the reference's jnp fold applies them: ``d21`` (n, B), maxed in
+(the symmetric bound's swapped direction); ``row_valid`` (n,) bool, whose
+False rows are +inf for every query (tombstones); ``q_gid`` (B,), whose
+pair (row ``q_gid[j]``, query j) is +inf (self-exclusion).
 
 Both order candidates by ``(distance, doc id)`` and return ``(dists (B, k),
-ids (B, k))``, ascending, ``k = min(k, n_real)``.
+ids (B, k))``, ascending, ``k = min(k, n_real)``.  Where fewer than k rows
+are finite for a query, the plain fold's unfilled slots are (+inf, -1)
+and the kernel's (3.4e38, -1): the kernel, like the reference's, ranks
+no value >= 3.4e38.
 """
 
 from __future__ import annotations
@@ -34,7 +45,6 @@ from repro_torch.kernels.lc_rwmd_phase1 import phase1_sq_plain
 from repro_torch.kernels.spmm_ell import spmm_ell_plain
 
 NAME = "fused_topk"
-K_MAX = 128  # largest k the kernel's shared-memory carry takes
 STEP_ROWS = 32   # doc rows per step of the kernel
 FLUSH_CAP = 64   # buffered candidates per query between flushes
 _CTAS_PER_SM = 2
@@ -47,17 +57,26 @@ _PLAIN_ROWS = 65536    # doc rows per (rows, h1, B) gather of the plain version
 
 def phase2_topk_plain(ids: torch.Tensor, w: torch.Tensor, z: torch.Tensor,
                       k: int, *, n_real: int | None = None,
-                      row_block: int = 128):
+                      row_block: int = 128, q_gid: torch.Tensor | None = None,
+                      row_valid: torch.Tensor | None = None,
+                      d21: torch.Tensor | None = None):
     """Plain PyTorch version: ids/w (n, h), z (v, B) → ((B, k), (B, k))."""
     n = ids.shape[0] if n_real is None else min(n_real, ids.shape[0])
     b = z.shape[1]
     stk = StreamingTopK(min(k, n))
     carry = stk.init(b, device=z.device)
     r = max(1, min(row_block, n))
+    inf = torch.tensor(float("inf"), device=z.device)
     for lo in range(0, n, r):
         hi = min(lo + r, n)
         d_blk = spmm_ell_plain(ids[lo:hi], w[lo:hi], z)            # (R, B)
         rows = torch.arange(lo, hi, dtype=torch.int32, device=z.device)
+        if d21 is not None:
+            d_blk = torch.maximum(d_blk, d21[lo:hi])
+        if row_valid is not None:
+            d_blk = torch.where(row_valid[lo:hi, None], d_blk, inf)
+        if q_gid is not None:
+            d_blk = torch.where(rows[:, None] == q_gid[None, :], inf, d_blk)
         carry = stk.update_cols(carry, d_blk, rows)
     return carry.dists, carry.indices
 
@@ -71,9 +90,37 @@ def cta_rows(n_real: int, n_sm: int) -> tuple[int, int]:
     return rows, -(-n_real // rows)
 
 
+def list_widths(kk: int, rows: int, n_ctas: int) -> list[int]:
+    """Entries a query of each level of the kernel's lists: a CTA's partial
+    holds ``min(k, rows)`` (it ranks no more rows than that), each pairwise
+    merge up to twice its inputs', capped at k.  The last level holds k, and
+    no level more than about ``n_real`` entries a query, whatever k is."""
+    widths = [min(kk, rows)]
+    while n_ctas > 1:
+        n_ctas = -(-n_ctas // 2)
+        widths.append(min(kk, 2 * widths[-1]))
+    return widths
+
+
+def _optional(x: torch.Tensor | None, dtype: torch.dtype, shape: tuple,
+              name: str) -> int:
+    """The device pointer of an optional operand (0 for None), checked."""
+    if x is None:
+        return 0
+    _build.require(x, dtype, len(shape), name)
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(x.shape)}")
+    return x.data_ptr()
+
+
 def phase2_topk_cuda(ids: torch.Tensor, w: torch.Tensor, z: torch.Tensor,
-                     k: int, *, n_real: int | None = None):
-    """Launch the CUDA kernels: ids int32 / w f32 (n, h), z f32 (v, B)."""
+                     k: int, *, n_real: int | None = None,
+                     q_gid: torch.Tensor | None = None,
+                     row_valid: torch.Tensor | None = None,
+                     d21: torch.Tensor | None = None):
+    """Launch the CUDA kernels: ids int32 / w f32 (n, h), z f32 (v, B);
+    q_gid int32 (B,), row_valid bool (n,), d21 f32 (n, B), each optional."""
     _build.require(ids, torch.int32, 2, "ids")
     _build.require(w, torch.float32, 2, "w")
     _build.require(z, torch.float32, 2, "z")
@@ -86,33 +133,30 @@ def phase2_topk_cuda(ids: torch.Tensor, w: torch.Tensor, z: torch.Tensor,
     if kk < 1:
         raise ValueError(f"k must be positive and n_real > 0, got k={k}, "
                          f"n_real={n_real}")
-    if kk > K_MAX:
-        raise ValueError(f"k={kk} exceeds the fused top-k kernel's maximum "
-                         f"of {K_MAX}")
-    if b > 65535:
-        raise ValueError(f"at most 65535 queries per call, got {b}")
-    if z.numel() >= 2 ** 31:
-        raise ValueError(f"z {tuple(z.shape)} has 2^31 entries or more; the "
-                         "kernel offsets its rows in int32")
+    extra = (_optional(row_valid, torch.bool, (n,), "row_valid"),
+             _optional(q_gid, torch.int32, (b,), "q_gid"),
+             _optional(d21, torch.float32, (n, b), "d21"))
     dev = z.device
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, n_ctas = cta_rows(n_real, n_sm)
-    vals = torch.empty((n_ctas, b, kk), dtype=torch.float32, device=dev)
-    idx = torch.empty((n_ctas, b, kk), dtype=torch.int32, device=dev)
+    widths = list_widths(kk, rows, n_ctas)
+    vals = torch.empty((n_ctas, b, widths[0]), dtype=torch.float32, device=dev)
+    idx = torch.empty((n_ctas, b, widths[0]), dtype=torch.int32, device=dev)
     lib = _build.lib(NAME)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.launch_fused_topk_partial(
-            ids.data_ptr(), w.data_ptr(), z.data_ptr(), vals.data_ptr(),
-            idx.data_ptr(), n, n_real, h, b, kk, rows, stream)
+            ids.data_ptr(), w.data_ptr(), z.data_ptr(), *extra,
+            vals.data_ptr(), idx.data_ptr(), n, n_real, h, z.shape[0], b,
+            widths[0], rows, stream)
         _build.check(code, NAME)
-        while vals.shape[0] > 1:
+        for k_out in widths[1:]:
             n_out = -(-vals.shape[0] // 2)
-            v2 = torch.empty((n_out, b, kk), dtype=torch.float32, device=dev)
-            i2 = torch.empty((n_out, b, kk), dtype=torch.int32, device=dev)
+            v2 = torch.empty((n_out, b, k_out), dtype=torch.float32, device=dev)
+            i2 = torch.empty((n_out, b, k_out), dtype=torch.int32, device=dev)
             code = lib.launch_topk_merge(
                 vals.data_ptr(), idx.data_ptr(), v2.data_ptr(),
-                i2.data_ptr(), vals.shape[0], b, kk, stream)
+                i2.data_ptr(), vals.shape[0], b, vals.shape[2], k_out, stream)
             _build.check(code, NAME + "_merge")
             vals, idx = v2, i2
     _build.LAUNCHES[NAME] += 1
@@ -120,17 +164,22 @@ def phase2_topk_cuda(ids: torch.Tensor, w: torch.Tensor, z: torch.Tensor,
 
 
 def phase2_topk(ids: torch.Tensor, w: torch.Tensor, z: torch.Tensor, k: int,
-                *, n_real: int | None = None, row_block: int = 128):
+                *, n_real: int | None = None, row_block: int = 128,
+                q_gid: torch.Tensor | None = None,
+                row_valid: torch.Tensor | None = None,
+                d21: torch.Tensor | None = None):
     """Streaming phase-2 top-k: the kernels on CUDA, the plain fold on CPU.
 
     ``row_block`` is the plain fold's slab height; the kernel picks its own
     doc ranges.  The result does not depend on either.
     """
     if z.is_cuda:
-        return phase2_topk_cuda(ids, w, z, k, n_real=n_real)
+        return phase2_topk_cuda(ids, w, z, k, n_real=n_real, q_gid=q_gid,
+                                row_valid=row_valid, d21=d21)
     if z.device.type == "cpu":
         return phase2_topk_plain(ids, w, z, k, n_real=n_real,
-                                 row_block=row_block)
+                                 row_block=row_block, q_gid=q_gid,
+                                 row_valid=row_valid, d21=d21)
     raise ValueError(f"unsupported device {z.device}")
 
 

@@ -145,6 +145,9 @@ def streaming_phase2_topk(
     k: int,
     *,
     row_block: int = 128,
+    q_gid: torch.Tensor | None = None,      # (B,) global ids to self-exclude
+    row_valid: torch.Tensor | None = None,  # (n,) bool row mask (tombstones)
+    d21: torch.Tensor | None = None,        # (n, B) f32 maxed into D
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Phase-2 ELL SpMM streamed straight into a per-query top-k carry.
 
@@ -152,9 +155,22 @@ def streaming_phase2_topk(
     (ties included) to the top-k of the materialized (n, B) matrix in
     ``(distance, doc id)`` order.  On CUDA the fused top-k kernel runs
     (no (n, B) tensor is written); on CPU, the plain slab fold.
+
+    As in the reference: rows with ``row_valid`` False are +inf for every
+    query, the pair (row ``q_gid[j]``, query j) is +inf, and
+    ``row_valid=None`` equals an all-True mask.  ``d21`` (the port's
+    symmetric fold) is maxed into each entry before the masks.
     """
+    dev = z.device
+    if q_gid is not None:
+        q_gid = q_gid.to(device=dev, dtype=torch.int32).contiguous()
+    if row_valid is not None:
+        row_valid = row_valid.to(device=dev, dtype=torch.bool).contiguous()
+    if d21 is not None:
+        d21 = _f32(d21)
     return _fs.phase2_topk(r_ids.to(torch.int32).contiguous(), _f32(r_w),
-                           _f32(z), k, row_block=row_block)
+                           _f32(z), k, row_block=row_block, q_gid=q_gid,
+                           row_valid=row_valid, d21=d21)
 
 
 def lc_rwmd_fused_topk(
@@ -209,6 +225,24 @@ def rwmd_pairwise(
     return _rw.rwmd_pairwise(_f32(emb), r_ids.to(torch.int32).contiguous(),
                              _f32(r_w), q_ids.to(torch.int32).contiguous(),
                              _f32(q_w), bf16_matmul=bf16_matmul)
+
+
+def rwmd_d21(
+    emb: torch.Tensor,      # (v, m)
+    r_ids: torch.Tensor,    # (n, h1) resident ids
+    r_w: torch.Tensor,      # (n, h1)
+    q_ids: torch.Tensor,    # (B, h2) query ids
+    q_w: torch.Tensor,      # (B, h2)
+    *,
+    bf16_matmul: bool = False,
+) -> torch.Tensor:
+    """The symmetric bound's swapped direction d21 (n, B) f32: for each
+    query word the distance to the nearest valid word of the resident doc,
+    summed with the query's weights (the quadratic RWMD kernel's d21 mode).
+    An empty resident doc gives +inf; padded query words add nothing."""
+    return _rw.rwmd_d21(_f32(emb), r_ids.to(torch.int32).contiguous(),
+                        _f32(r_w), q_ids.to(torch.int32).contiguous(),
+                        _f32(q_w), bf16_matmul=bf16_matmul)
 
 
 def sinkhorn_wmd(

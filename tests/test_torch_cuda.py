@@ -99,8 +99,11 @@ def test_spmm_and_fused_topk_kernels_match_plain(cuda):
     v, i = tfs.phase2_topk_cuda(ids, w, z, 16, n_real=777)
     pv, pi = tfs.phase2_topk_plain(ids, w, z, 16, n_real=777)
     assert torch.equal(i, pi) and int(i.max()) < 777
-    with pytest.raises(ValueError, match="maximum"):
-        tfs.phase2_topk_cuda(ids, w, z, 129)
+    # above the shared-memory carry's 128: the global carry, no refusal
+    v, i = tfs.phase2_topk_cuda(ids, w, z, 129)
+    pv, pi = tfs.phase2_topk_plain(ids, w, z, 129, row_block=1024)
+    torch.testing.assert_close(v, pv, rtol=1e-5, atol=1e-5)
+    assert torch.equal(v, d.T.gather(1, i.long()))
     # 200,000 rows: every CTA's range spans many steps and several flushes;
     # B = 70 is two query chunks of the kernel.
     ids, w = (x.to(cuda) for x in _ell(rng, 200_000, 48, 900))
@@ -133,8 +136,8 @@ def test_fused_topk_kernel_writes_only_its_partials(cuda):
     idx = torch.full((n_ctas + 64, b, k), 7, dtype=torch.int32, device=cuda)
     lib = _build.lib(tfs.NAME)
     code = lib.launch_fused_topk_partial(
-        ids.data_ptr(), w.data_ptr(), z.data_ptr(), vals.data_ptr(),
-        idx.data_ptr(), n, n_real, h, b, k, rows,
+        ids.data_ptr(), w.data_ptr(), z.data_ptr(), 0, 0, 0, vals.data_ptr(),
+        idx.data_ptr(), n, n_real, h, z.shape[0], b, k, rows,
         torch.cuda.current_stream().cuda_stream)
     _build.check(code, tfs.NAME)
     torch.cuda.synchronize()
@@ -156,6 +159,150 @@ def test_fused_topk_kernel_tie_order(cuda):
     assert torch.equal(i, pi)
     tied = v[:, 1:] == v[:, :-1]
     assert bool(tied.any()) and bool((i[:, 1:][tied] > i[:, :-1][tied]).all())
+
+
+def _gap_clear(pv, tol=1e-4):
+    """Slots whose value is more than tol from both neighbours' (B, k)."""
+    clear = torch.ones_like(pv, dtype=torch.bool)
+    step = pv[:, 1:] - pv[:, :-1] > tol
+    clear[:, 1:] &= step
+    clear[:, :-1] &= step
+    return clear
+
+
+def _assert_topk_matches_plain(v, i, pv, pi, tol=1e-4):
+    """Values within 1e-5 (the plain sums run in another order), ids equal
+    wherever the gaps exceed tol; the plain fold's unfilled or >= 3.4e38
+    slots are the kernel's (3.4e38, -1)."""
+    big = torch.tensor(tp1.BIG, dtype=torch.float32, device=pv.device)
+    dropped = pv >= big
+    pv = torch.where(dropped, big, pv)
+    pi = torch.where(dropped, -1, pi)
+    torch.testing.assert_close(v, pv, rtol=1e-5, atol=1e-5)
+    clear = _gap_clear(pv, tol)
+    assert torch.equal(i[clear], pi[clear])
+
+
+@pytest.mark.parametrize("k", [129, 256, 1000, 5000])
+def test_fused_topk_kernel_any_k(cuda, k):
+    """k above the shared-memory carry: the carry in global memory.  5,000
+    exceeds n_real = 3,000: every row is ranked."""
+    rng = np.random.default_rng(k)
+    ids, w = (x.to(cuda) for x in _ell(rng, 20_000, 48, 900))
+    z = torch.tensor(np.abs(rng.normal(size=(900, 70))).astype(np.float32)).to(cuda)
+    n_real = 3000 if k == 5000 else None
+    d = tsp.spmm_ell_cuda(ids, w, z)
+    v, i = tfs.phase2_topk_cuda(ids, w, z, k, n_real=n_real)
+    pv, pi = tfs.phase2_topk_plain(ids, w, z, k, n_real=n_real,
+                                   row_block=4096)
+    assert v.shape == (70, min(k, n_real or k))
+    _assert_topk_matches_plain(v, i, pv, pi)
+    assert torch.equal(v, d.T.gather(1, i.long()))  # B2's D, bit for bit
+    if n_real is not None:
+        assert torch.equal(i.sort(dim=1).values,
+                           torch.arange(n_real, dtype=torch.int32,
+                                        device=cuda).expand(70, -1))
+
+
+@pytest.mark.parametrize("k", [49_000, 50_000])
+def test_fused_topk_kernel_k_near_n_real_many_ctas(cuda, k):
+    """k close to and equal to n_real = 50,000 over the card's full grid of
+    CTAs (a few hundred rows each): each CTA's partial is as wide as its
+    rows, not k, and the merges widen the lists to k, so the call's memory
+    stays a few times n_real x B entries."""
+    rng = np.random.default_rng(k)
+    n, b = 50_000, 8
+    ids, w = (x.to(cuda) for x in _ell(rng, n, 48, 900))
+    z = torch.tensor(np.abs(rng.normal(size=(900, b))).astype(np.float32)).to(cuda)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    rows, n_ctas = tfs.cta_rows(n, n_sm)
+    assert n_ctas > 64 and tfs.list_widths(k, rows, n_ctas)[0] == rows < k
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    v, i = tfs.phase2_topk_cuda(ids, w, z, k)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(cuda) - base
+    assert extra <= 4 * n * b * 8, extra
+    pv, pi = tfs.phase2_topk_plain(ids, w, z, k, row_block=65536)
+    assert v.shape == (b, k)
+    _assert_topk_matches_plain(v, i, pv, pi)
+    assert torch.equal(v, tsp.spmm_ell_cuda(ids, w, z).T.gather(1, i.long()))
+    if k == n:
+        assert torch.equal(i.sort(dim=1).values,
+                           torch.arange(n, dtype=torch.int32,
+                                        device=cuda).expand(b, -1))
+
+
+def test_fused_topk_kernel_z_past_2_31_entries(cuda):
+    """Z of more than 2^31 entries (8.6 GB): the kernel's 64-bit offset
+    variant (WIDE, only taken there) reaches the rows past that mark,
+    against the plain fold."""
+    rng = np.random.default_rng(31)
+    b = 64
+    v = 2 ** 31 // b + 4096
+    ids, w = _ell(rng, 2000, 16, v)
+    ids[:, ::2] = torch.tensor(rng.integers(v - 8192, v, size=(2000, 8)),
+                               dtype=torch.int32)   # rows past 2^31 / B
+    ids, w = ids.to(cuda), w.to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(31)
+    z = torch.rand((v, b), generator=g, device=cuda)
+    assert z.numel() >= 2 ** 31
+    for k in (32, 200):
+        v_k, i_k = tfs.phase2_topk_cuda(ids, w, z, k)
+        pv, pi = tfs.phase2_topk_plain(ids, w, z, k, row_block=4096)
+        _assert_topk_matches_plain(v_k, i_k, pv, pi)
+    del z
+    torch.cuda.empty_cache()
+
+
+def test_fused_topk_kernel_many_queries(cuda):
+    """B = 70,000 queries, more than a grid dimension's 65,535 (the merge
+    launches one CTA per (pair, query)), on a small corpus, at k = 32 and
+    200."""
+    rng = np.random.default_rng(70)
+    ids, w = (x.to(cuda) for x in _ell(rng, 3000, 16, 500))
+    z = torch.tensor(np.abs(rng.normal(size=(500, 70_000))).astype(np.float32)).to(cuda)
+    for k in (32, 200):
+        v, i = tfs.phase2_topk_cuda(ids, w, z, k)
+        pv, pi = tfs.phase2_topk_plain(ids, w, z, k, row_block=250)
+        _assert_topk_matches_plain(v, i, pv, pi)
+
+
+def test_fused_topk_kernel_masks_and_d21(cuda):
+    """row_valid (tombstones), q_gid (self-exclusion) and the d21 operand
+    against the plain fold; an all-True mask equals None; with all rows
+    tombstoned but k, exactly the k live rows come back."""
+    rng = np.random.default_rng(16)
+    n, b = 20_000, 70
+    ids, w = (x.to(cuda) for x in _ell(rng, n, 48, 900))
+    z = torch.tensor(np.abs(rng.normal(size=(900, b))).astype(np.float32)).to(cuda)
+    live = torch.tensor(rng.random(n) > 0.3).to(cuda)
+    gid = torch.tensor(rng.integers(0, n, b).astype(np.int32)).to(cuda)
+    d21 = torch.tensor(np.abs(rng.normal(size=(n, b)) * 8).astype(np.float32)).to(cuda)
+    for k in (32, 256):
+        for kw in (dict(row_valid=live), dict(q_gid=gid), dict(d21=d21),
+                   dict(row_valid=live, q_gid=gid, d21=d21)):
+            v, i = tfs.phase2_topk_cuda(ids, w, z, k, **kw)
+            pv, pi = tfs.phase2_topk_plain(ids, w, z, k, row_block=4096, **kw)
+            _assert_topk_matches_plain(v, i, pv, pi)
+            if "row_valid" in kw:
+                assert bool(live[i.long()].all())
+            if "q_gid" in kw:
+                assert not bool((i == gid[:, None]).any())
+        a = tfs.phase2_topk_cuda(ids, w, z, k)
+        t = tfs.phase2_topk_cuda(ids, w, z, k,
+                                 row_valid=torch.ones(n, dtype=torch.bool,
+                                                      device=cuda))
+        assert torch.equal(a[0], t[0]) and torch.equal(a[1], t[1])
+    few = torch.zeros(n, dtype=torch.bool, device=cuda)
+    keep = torch.tensor(rng.choice(n, 40, replace=False)).to(cuda)
+    few[keep] = True
+    v, i = tfs.phase2_topk_cuda(ids, w, z, 40, row_valid=few)
+    assert torch.equal(i.sort(dim=1).values,
+                       keep.sort().values.to(torch.int32).expand(b, -1))
+    pv, pi = tfs.phase2_topk_plain(ids, w, z, 40, row_block=4096, row_valid=few)
+    _assert_topk_matches_plain(v, i, pv, pi)
 
 
 def test_sinkhorn_kernel_matches_plain(cuda):
@@ -307,6 +454,81 @@ def test_rwmd_pairwise_kernel_matches_plain(cuda):
             for j in range(b - 1)], dim=1)
         torch.testing.assert_close(got[1:, :b - 1], oracle[1:], rtol=1e-4,
                                    atol=1e-2)
+
+
+# (n, h1, B, h2, m): docs straddling row tiles at the slice's widths; docs
+# of 160 words (Table IV set 1) spanning three tiles; 2-word docs, so the
+# 16-docs-a-tile cut sets the tiles; a ragged m (4-byte copies); 70 queries
+# (three groups of 32).
+D21_CASES = [(3001, 48, 64, 48, 300), (500, 160, 64, 160, 300),
+             (4000, 3, 9, 5, 64), (700, 20, 70, 30, 70)]
+
+
+@pytest.mark.parametrize("case", D21_CASES)
+def test_rwmd_kernel_modes_match_plain(cuda, case):
+    """B7 in both modes against its plain versions (f32 and bf16), with an
+    empty resident doc and an empty query."""
+    from repro_torch.kernels import rwmd_pairwise as rw
+
+    n, h1, b, h2, m = case
+    rng = np.random.default_rng(n + h1)
+    v = 2000
+    emb = torch.tensor(rng.normal(size=(v, m)).astype(np.float32)).to(cuda)
+    r_ids, r_w = (x.to(cuda) for x in _ell(rng, n, h1, v))
+    q_ids, q_w = (x.to(cuda) for x in _ell(rng, b, h2, v))
+    r_w[1] = 0.0   # an empty resident doc
+    q_w[2] = 0.0   # an empty query
+    for bf16 in (False, True):
+        got = rw.rwmd_d21_cuda(emb, r_ids, r_w, q_ids, q_w, bf16_matmul=bf16)
+        want = rw.rwmd_d21_plain(emb, r_ids, r_w, q_ids, q_w, bf16_matmul=bf16)
+        assert not bool(torch.isnan(got).any())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-2)
+        # the empty doc: +inf against every query with a word, 0 against none
+        assert bool(torch.isinf(got[1][(q_w > 0).any(1)]).all())
+        assert bool((got[:, 2] == 0).all())
+        got = rw.rwmd_pairwise_cuda(emb, r_ids, r_w, q_ids, q_w,
+                                    bf16_matmul=bf16)
+        want = rw.rwmd_pairwise_plain(emb, r_ids, r_w, q_ids, q_w,
+                                      bf16_matmul=bf16)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-2)
+
+
+def test_symmetric_topk_streaming_on_the_card_matches_the_cpu(cuda):
+    """B1 + B7's d21 mode + B3 against the CPU slab fold: values within the
+    gram tolerance, ids equal wherever the gaps exceed it; k above 128 and
+    an empty resident doc included."""
+    c = make_corpus(CorpusSpec(n_docs=3000, vocab_size=2000, emb_dim=300,
+                               h_max=48, mean_h=27.5, n_classes=4, seed=16),
+                    device="cpu")
+    c.docs.weights[5] = 0.0   # an empty resident doc (not a query)
+    cpu = tlc.LCRWMDEngine(c.docs, c.emb, device="cpu", row_block=512)
+    gpu = tlc.LCRWMDEngine(c.docs, c.emb)
+    q = c.docs[10:50]
+    atol = 4.0 * float(np.sqrt(2.0 ** -23 * float((cpu.emb_full ** 2).sum(1).max())))
+    _build.reset_launches()
+    for k in (20, 300):
+        a = gpu.symmetric_topk_streaming(q, k)
+        b = cpu.symmetric_topk_streaming(q, k)
+        ad, ai, bd, bi = a.dists.cpu(), a.indices.cpu(), b.dists, b.indices
+        torch.testing.assert_close(ad, bd, rtol=1e-4, atol=atol)
+        clear = _gap_clear(bd, atol)
+        assert torch.equal(ai[clear], bi[clear])
+        assert not bool((ai == 5).any())
+    assert _build.LAUNCHES["rwmd_d21"] == 2 and _build.LAUNCHES["fused_topk"] == 2
+    # the cascade at a rerank budget of 200: its candidates through B3 at
+    # k = 200 match the CPU's; the empty doc, at WMD 0 to every query, comes
+    # first on both (the rerank's Sinkhorn values themselves stop at
+    # max_iters and part ways, as the reference's two backends do)
+    a = gpu.topk_streaming(q, 200)
+    b = cpu.topk_streaming(q, 200)
+    torch.testing.assert_close(a.dists.cpu(), b.dists, rtol=1e-4, atol=atol)
+    assert torch.equal(a.indices.cpu()[_gap_clear(b.dists, atol)],
+                       b.indices[_gap_clear(b.dists, atol)])
+    kw = dict(rerank_budget=200, sinkhorn_kw=dict(eps=0.05, eps_scaling=2,
+                                                  max_iters=100))
+    a = tpipe.cascade_topk(gpu, q, 5, **kw)
+    b = tpipe.cascade_topk(cpu, q, 5, **kw)
+    assert bool((a.indices[:, 0] == 5).all()) and bool((b.indices[:, 0] == 5).all())
 
 
 FLASH_SHAPES = [

@@ -176,6 +176,39 @@ def test_fused_topk_on_engine_tensors_matches_streaming(pair):
     torch.testing.assert_close(d, want.dists, rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(scope="module")
+def wide_pair():
+    """300 resident docs: room for k and rerank budgets above 128 (the
+    card's fused top-k keeps k <= 128 in shared memory, more in global)."""
+    from repro.data.synth import CorpusSpec, make_corpus
+
+    c = make_corpus(CorpusSpec(n_docs=300, vocab_size=512, emb_dim=32,
+                               h_max=16, mean_h=8.0, n_classes=4, seed=16))
+    ref = jlc.LCRWMDEngine(c.docs, c.emb)
+    docs, emb = from_numpy(np.asarray(c.docs.ids), np.asarray(c.docs.weights),
+                           c.emb, device="cpu")
+    port = tlc.LCRWMDEngine(docs, emb, device="cpu", row_block=64)
+    return ref, port, c.docs[:4], docs[:4]
+
+
+@pytest.mark.parametrize("method", ["topk_streaming", "symmetric_topk_streaming"])
+def test_streaming_topk_above_128_matches_reference(wide_pair, method):
+    ref, port, jq, tq = wide_pair
+    got = getattr(port, method)(tq, 150)
+    want = getattr(ref, method)(jq, 150)
+    assert got.dists.shape == (4, 150)
+    # 150 of 300 docs: the values crowd, so fewer gaps clear the tolerance
+    assert assert_topk_close(got, want) > 0.25
+
+
+def test_cascade_rerank_budget_above_128_matches_reference(wide_pair):
+    ref, port, jq, tq = wide_pair
+    want = jpipe.cascade_topk(ref, jq, 5, rerank_budget=150, sinkhorn_kw=KW)
+    got = tpipe.cascade_topk(port, tq, 5, rerank_budget=150, sinkhorn_kw=KW)
+    assert_topk_close(got, want)
+    assert torch.equal(got.indices[:, 0], torch.arange(4, dtype=torch.int32))
+
+
 @pytest.mark.parametrize("weights", ["uniform", "distance"])
 def test_knn_classify_matches_reference(pair, small_corpus, weights):
     ref, port, jq, tq, *_ = pair

@@ -13,13 +13,17 @@ import pytest
 import torch
 
 from repro.core import distances as jdist
+from repro.core import lc_rwmd as jlc
 from repro.core import topk as jtopk
+from repro.data.docs import DocSet as JDocSet
 from repro.kernels import fused_stream as jfs
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import sinkhorn_wmd as jsk
 from repro_torch.core import distances as tdist
+from repro_torch.core import lc_rwmd as tlc
 from repro_torch.core import topk as ttopk
+from repro_torch.data.docs import DocSet as TDocSet
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_stream as tfs
@@ -491,17 +495,20 @@ def _topk_filter_order(d, k, *, n_real=None, n_sm=2, cap=tfs.FLUSH_CAP,
     carry's k-th value, 3.4e38 while not full), strictly, as of the step's
     start; survivors into a buffer of ``cap``, flushed into the sorted carry
     when a count exceeds ``cap - step`` and at the range's end; then the
-    CTAs' partials merged pairwise in (value, id) order.  Empty slots are
-    (3.4e38, -1).  Also returns the flushes per CTA."""
+    CTAs' partials merged pairwise in (value, id) order.  Each level's lists
+    are ``tfs.list_widths`` long (a CTA's carry no longer than its rows).
+    Empty slots are (3.4e38, -1).  Also returns the flushes per CTA."""
     big = np.float32(tp1.BIG)
     n, b = d.shape
     n_rows = n if n_real is None else min(n, n_real)
     kk = min(k, n_rows)
     rows, n_ctas = tfs.cta_rows(n_rows, n_sm)
+    widths = tfs.list_widths(kk, rows, n_ctas)
+    kw = widths[0]
     parts, flushes = [], []
     for cta in range(n_ctas):
         r0, r1 = cta * rows, min(n_rows, (cta + 1) * rows)
-        carry = [[(big, -1)] * kk for _ in range(b)]
+        carry = [[(big, -1)] * kw for _ in range(b)]
         thr = [big] * b
         buf = [[] for _ in range(b)]
         nfl = 0
@@ -509,7 +516,7 @@ def _topk_filter_order(d, k, *, n_real=None, n_sm=2, cap=tfs.FLUSH_CAP,
         def flush():
             for q in range(b):
                 if buf[q]:
-                    carry[q] = _lex_merge(carry[q], buf[q], kk)
+                    carry[q] = _lex_merge(carry[q], buf[q], kw)
                     thr[q] = carry[q][-1][0]
                     buf[q] = []
 
@@ -525,13 +532,32 @@ def _topk_filter_order(d, k, *, n_real=None, n_sm=2, cap=tfs.FLUSH_CAP,
         flush()
         parts.append(carry)
         flushes.append(nfl)
-    while len(parts) > 1:   # the pairwise merge launches
-        parts = [[_lex_merge(x, y, kk) for x, y in zip(parts[i], parts[i + 1])]
-                 if i + 1 < len(parts) else parts[i]
+    for w in widths[1:]:    # the pairwise merge launches
+        pad = [(big, -1)] * w
+        parts = [[_lex_merge(x, y if i + 1 < len(parts) else pad, w)
+                  for x, y in zip(parts[i], parts[min(i + 1, len(parts) - 1)])]
                  for i in range(0, len(parts), 2)]
+    assert len(parts) == 1 and len(parts[0][0]) == kk
     vals = np.array([[e[0] for e in c] for c in parts[0]], np.float32)
     ids = np.array([[e[1] for e in c] for c in parts[0]], np.int32)
     return vals, ids, flushes
+
+
+@pytest.mark.parametrize("n_real,k", [(700_000, 32), (700_000, 256),
+                                      (700_000, 700_000), (3000, 3000),
+                                      (50_000, 49_000), (40, 7)])
+def test_list_widths_end_at_k_and_bound_the_partials(n_real, k):
+    """B3's lists: the last level holds k; no level holds more than the
+    CTAs' rows (about n_real) or k entries a query per list, so the
+    partials of k = n_real fit where k lists per CTA would not."""
+    rows, n_ctas = tfs.cta_rows(n_real, 132)
+    widths = tfs.list_widths(k, rows, n_ctas)
+    assert widths[-1] == k and widths[0] == min(k, rows)
+    n_lists = n_ctas
+    for w in widths:
+        assert w <= k and n_lists * w <= max(n_ctas * rows, 2 * k)
+        n_lists = -(-n_lists // 2)
+    assert all(b <= 2 * a for a, b in zip(widths, widths[1:]))
 
 
 def _topk_case(kind, rng):
@@ -567,14 +593,16 @@ def _topk_case(kind, rng):
     return emb, q_ids, q_w, r_ids, r_w, k, n_real, cap
 
 
-@pytest.mark.parametrize("kind", ["ties", "k1", "k32", "k128", "n_real",
-                                  "first_step_flush", "huge"])
+@pytest.mark.parametrize("kind", ["ties", "k1", "k32", "k128", "k200",
+                                  "k300", "n_real", "first_step_flush", "huge"])
 def test_topk_filter_order_matches_plain_and_pallas(kind):
     """B3's filter, buffers, flushes and merges keep the k smallest (value,
     doc id) pairs: against the plain fold (values, ids) and the reference's
     Pallas kernel in interpret mode (equal ids).  Cases: heavy ties; k of
-    1, 32 and 128; n_real < n; a buffer that fills in the first step; D
-    values >= 3.4e38, which the kernel drops as the reference's does."""
+    1, 32 and 128; k of 200 and 300 (= n), above a CTA's 96 rows, so the
+    partials are narrower than k and the merges widen them; n_real < n; a
+    buffer that fills in the first step; D values >= 3.4e38, which the
+    kernel drops as the reference's does."""
     emb, q_ids, q_w, r_ids, r_w, k, n_real, cap = _topk_case(
         kind, np.random.default_rng(0))
     n = r_ids.shape[0]
@@ -614,6 +642,314 @@ def test_topk_filter_order_matches_plain_and_pallas(kind):
     jv, ji = np.asarray(jv)[:kk, :5].T, np.asarray(ji)[:kk, :5].T
     np.testing.assert_allclose(vals, jv, rtol=1e-5, atol=1e-5)
     assert np.array_equal(ids, ji)
+
+
+@pytest.mark.parametrize("k", [5, 129, 256, 400])
+@pytest.mark.parametrize("kind", ["masks", "ties", "all_true", "all_but_k"])
+def test_streaming_phase2_masks_match_reference(kind, k):
+    """``q_gid`` (self-exclusion) and ``row_valid`` (tombstones) against the
+    reference's jnp fold, at k of 5, above the kernel's shared-memory carry
+    (129, 256) and above n (400 > 300: every row ranked, the masked ones
+    left as (+inf, -1)).  Cases: random masks; every doc three times (exact
+    ties, ordered by doc id); an all-True mask, equal to None; every row
+    tombstoned but k."""
+    rng = np.random.default_rng(k + 10 * len(kind))
+    n, v, b = 300, 70, 4
+    r_ids, r_w = _mk_ell(rng, n, 6, v)
+    if kind == "ties":
+        r_ids, r_w = np.repeat(r_ids[:100], 3, 0), np.repeat(r_w[:100], 3, 0)
+    z = np.abs(rng.normal(size=(v, b))).astype(np.float32)
+    q_gid = rng.integers(0, n, b).astype(np.int32)
+    if kind == "all_true":
+        live = np.ones(n, bool)
+    elif kind == "all_but_k":
+        live = np.zeros(n, bool)
+        live[rng.choice(n, min(k, n), replace=False)] = True
+        q_gid = None
+    else:
+        live = rng.random(n) > 0.3
+    jkw = dict(row_block=64, row_valid=jnp.asarray(live),
+               q_gid=None if q_gid is None else jnp.asarray(q_gid))
+    tkw = dict(row_block=64, row_valid=_t(live),
+               q_gid=None if q_gid is None else _t(q_gid))
+    jd, ji = jops.streaming_phase2_topk(jnp.asarray(r_ids), jnp.asarray(r_w),
+                                        jnp.asarray(z), k, **jkw)
+    td, ti = tops.streaming_phase2_topk(_t(r_ids), _t(r_w), _t(z), k, **tkw)
+    assert td.shape == (b, min(k, n)) and ti.dtype == torch.int32
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-6, atol=1e-6)
+    assert np.array_equal(ti.numpy(), np.asarray(ji))
+    ti = ti.numpy()
+    got = ti >= 0
+    assert np.all(live[ti[got]])
+    if q_gid is not None:
+        assert not np.any((ti == q_gid[:, None]) & got)
+    if kind == "ties":
+        tv = td.numpy()
+        same = (tv[:, 1:] == tv[:, :-1]) & np.isfinite(tv[:, 1:])
+        assert same.any() and np.all(ti[:, 1:][same] > ti[:, :-1][same])
+    if kind == "all_true":
+        nd, ni = tops.streaming_phase2_topk(_t(r_ids), _t(r_w), _t(z), k,
+                                            row_block=64, q_gid=_t(q_gid))
+        assert torch.equal(nd, td) and np.array_equal(ni.numpy(), ti)
+    if kind == "all_but_k":   # exactly the live rows, all finite
+        assert np.array_equal(np.sort(ti, 1), np.tile(np.flatnonzero(live), (b, 1)))
+        assert np.all(np.isfinite(td.numpy()))
+
+
+# ---------------------------------------------------------------------------
+# B7 quadratic RWMD and its d21 mode (the symmetric fold's swapped direction)
+# ---------------------------------------------------------------------------
+def _fma(a, b, c):
+    """fmaf in float32: the product and sum taken exactly, rounded once
+    (up to a double rounding that does not show at these tolerances); a
+    sum past float32's range is inf, as on the card."""
+    with np.errstate(over="ignore"):
+        return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+
+
+def _rwmd_kernel_order(emb, r_ids, r_w, q_ids, q_w, *, full, bf16=False,
+                       ctas=3):
+    """B7's structure on the CPU, in float32.  The lists: each doc's first
+    valid row (doc_start), the valid (doc, word) slots, the valid (query,
+    word) columns and each group's first column.  Per group of
+    QUERY_GROUP queries, ``ctas`` CTAs own whole docs by a binary search of
+    doc_start at multiples of the rows over ``ctas``; each writes its empty
+    docs, then walks its rows in tiles of TILE_ROWS cut at TILE_DOCS docs,
+    and per tile the group's columns in tiles of TILE_COLS: squared
+    distances in gram form, row minima per query (full) and column minima
+    per doc, the d21 terms of each doc that ends in the tile (column order,
+    fmaf), the column minima of a doc that goes on kept in the CTA's carry;
+    then d12 over the tile's rows in slot order (its sum carried for a doc
+    that goes on) and the outputs.  Returns (out, stats)."""
+    f32, big = np.float32, np.float32(trw.BIG)
+    n, h1 = r_ids.shape
+    b, h2 = q_ids.shape
+    qg, bm, bn, dmax = (trw.QUERY_GROUP, trw.TILE_ROWS, trw.TILE_COLS,
+                        trw.TILE_DOCS)
+    cnt = (r_w > 0).sum(1)
+    doc_start = np.concatenate([[0], np.cumsum(cnt)]).astype(np.int64)
+    rows = np.flatnonzero(r_w.reshape(-1) > 0)
+    cols = np.flatnonzero(q_w.reshape(-1) > 0)
+    groups = -(-b // qg)
+    gcol = [int(np.searchsorted(cols, g * qg * h2)) for g in range(groups)]
+    gcol.append(len(cols))
+    e_op = tdist.bf16_round(_t(emb)).numpy() if bf16 else emb
+    norm = (emb * emb).sum(1, dtype=f32)
+    rid_all, rw_all = r_ids.reshape(-1), r_w.reshape(-1)
+    qid_all, qw_all = q_ids.reshape(-1), q_w.reshape(-1)
+    out = np.full((n, b), np.nan, f32)
+    stats = dict(tiles=0, open_in=0, docs_per_tile=0, cut_by_docs=0,
+                 empty_written=0, ranges=set())
+    nr = int(doc_start[n])
+    for g in range(groups):
+        qb, nqg = g * qg, min(qg, b - g * qg)
+        gc0, gc1 = gcol[g], gcol[g + 1]
+        empty = np.zeros(qg, f32)
+        for q in range(nqg):
+            w2 = q_w[qb + q]
+            s = f32(0)
+            for c in range(h2):
+                if w2[c] > 0:
+                    s = _fma(w2[c], big, s)
+            empty[q] = s if full else (np.inf if (w2 > 0).any() else 0.0)
+        for cta in range(ctas):
+            d_lo = 0 if cta == 0 else int(np.searchsorted(doc_start, nr * cta // ctas))
+            d_hi = n if cta == ctas - 1 else int(np.searchsorted(
+                doc_start, nr * (cta + 1) // ctas))
+            if d_lo >= d_hi:
+                continue
+            stats["ranges"].add((d_lo, d_hi))
+            for d in range(d_lo, d_hi):
+                if cnt[d] == 0:
+                    out[d, qb:qb + nqg] = empty[:nqg]
+                    stats["empty_written"] += 1
+            carry_col = np.full(qg * h2, np.nan, f32)   # never read unset
+            carry_d12 = np.full(qg, np.nan, f32)
+            r0, r_end = int(doc_start[d_lo]), int(doc_start[d_hi])
+            while r0 < r_end:
+                d0 = rows[r0] // h1
+                r1 = min(r0 + bm, r_end, int(doc_start[min(d0 + dmax, d_hi)]))
+                stats["cut_by_docs"] += r1 < min(r0 + bm, r_end)
+                dl = rows[r1 - 1] // h1
+                nd = dl - d0 + 1
+                open_in = doc_start[d0] < r0
+                open_out = doc_start[dl + 1] > r1
+                stats["tiles"] += 1
+                stats["open_in"] += open_in
+                stats["docs_per_tile"] = max(stats["docs_per_tile"], nd)
+                slots = rows[r0:r1]
+                rdoc = slots // h1 - d0
+                rw, rid = rw_all[slots], rid_all[slots]
+                dstart = np.clip(doc_start[d0:d0 + nd + 1], r0, r1) - r0
+                d21 = np.zeros((nd, qg), f32)
+                d12 = np.zeros((nd, qg), f32)
+                if open_in:
+                    d12[0] = carry_d12
+                rowmin = np.full((r1 - r0, qg), big, f32)
+                for cb in range(gc0, gc1, bn):
+                    cl = cols[cb:min(cb + bn, gc1)]
+                    cq = cl // h2 - qb
+                    cw, cid = qw_all[cl], qid_all[cl]
+                    acc = e_op[rid] @ e_op[cid].T
+                    sq = np.maximum(norm[rid][:, None] + norm[cid][None, :]
+                                    - f32(2) * acc, f32(0))
+                    if full:
+                        for q in np.unique(cq):
+                            rowmin[:, q] = np.minimum(rowmin[:, q],
+                                                      sq[:, cq == q].min(1))
+                    colmin = np.full((nd, len(cl)), big, f32)
+                    for d in range(nd):
+                        if (rdoc == d).any():
+                            colmin[d] = sq[rdoc == d].min(0)
+                    ccar = carry_col[cb - gc0:cb - gc0 + len(cl)]
+                    for d in range(nd):
+                        if (d == nd - 1 and open_out) or dstart[d] == dstart[d + 1]:
+                            continue
+                        mins = colmin[d] if not (d == 0 and open_in) else \
+                            np.minimum(colmin[d], ccar)
+                        for c in range(len(cl)):
+                            d21[d, cq[c]] = _fma(cw[c], np.sqrt(mins[c]),
+                                                 d21[d, cq[c]])
+                    if open_out:
+                        new = colmin[nd - 1]
+                        if nd == 1 and open_in:
+                            new = np.minimum(new, ccar)
+                        carry_col[cb - gc0:cb - gc0 + len(cl)] = new
+                if full:
+                    for d in range(nd):
+                        for q in range(nqg):
+                            for r in range(dstart[d], dstart[d + 1]):
+                                mn = big if rowmin[r, q] == big else np.sqrt(rowmin[r, q])
+                                d12[d, q] = _fma(rw[r], mn, d12[d, q])
+                for d in range(nd):
+                    if dstart[d] == dstart[d + 1]:
+                        continue
+                    if d == nd - 1 and open_out:
+                        carry_d12 = d12[d].copy()
+                        continue
+                    val = np.maximum(d12[d], d21[d]) if full else d21[d]
+                    out[d0 + d, qb:qb + nqg] = val[:nqg]
+                r0 = r1
+    return out, stats
+
+
+def _rwmd_case(kind, rng):
+    """(emb, r_ids, r_w, q_ids, q_w, ctas) for one case."""
+    n, h1, b, h2, m, v, ctas = {
+        "straddle": (40, 20, 5, 9, 16, 96, 3),      # docs across row tiles
+        "empty": (30, 12, 6, 7, 16, 64, 2),
+        "h160": (6, 160, 3, 160, 8, 512, 2),        # docs over three tiles
+        "bf16": (24, 16, 4, 10, 32, 128, 2),
+        "short_docs": (120, 3, 4, 5, 16, 64, 2),    # the 16-docs cut
+        "groups": (20, 10, 40, 6, 8, 64, 2),        # two query groups
+    }[kind]
+    emb = rng.normal(size=(v, m)).astype(np.float32)
+    r_ids, r_w = _mk_ell(rng, n, h1, v, pad=0.3)
+    r_w[:, 0] = np.maximum(r_w[:, 0], 0.1)
+    q_ids, q_w = _mk_queries(rng, b, h2, v)
+    if kind == "empty":
+        r_w[4] = 0.0
+        q_w[1] = 0.0
+    return emb, r_ids, r_w, q_ids, q_w, ctas
+
+
+@pytest.mark.parametrize("kind", ["straddle", "empty", "h160", "bf16",
+                                  "short_docs", "groups"])
+def test_rwmd_kernel_order_matches_plain_and_pallas(kind):
+    """B7's lists, CTA doc ranges, tiles, carries and sums, in both modes:
+    max(d12, d21) against its plain version and the reference's Pallas
+    kernel in interpret mode; d21 against rwmd_d21_plain.  Cases: docs
+    that straddle row tiles; an empty resident doc and an empty query;
+    docs of 160 words (three tiles) and queries of 160 (two column tiles);
+    bf16; 3-word docs, so tiles are cut at 16 docs; 40 queries, two
+    groups."""
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    emb, r_ids, r_w, q_ids, q_w, ctas = _rwmd_case(kind, rng)
+    bf16 = kind == "bf16"
+    args = tuple(map(_t, (emb, r_ids, r_w, q_ids, q_w)))
+    full, st = _rwmd_kernel_order(emb, r_ids, r_w, q_ids, q_w, full=True,
+                                  bf16=bf16, ctas=ctas)
+    d21, st21 = _rwmd_kernel_order(emb, r_ids, r_w, q_ids, q_w, full=False,
+                                   bf16=bf16, ctas=ctas)
+    assert st == st21 and len(st["ranges"]) > 1      # several CTAs own docs
+    assert not np.isnan(full).any() and not np.isnan(d21).any()
+    if kind in ("straddle", "h160"):
+        assert st["open_in"] > 0                     # a doc goes on
+    if kind == "h160":
+        assert st["tiles"] >= 3 * len(st["ranges"])
+    if kind == "short_docs":
+        assert st["cut_by_docs"] > 0 and st["docs_per_tile"] == trw.TILE_DOCS
+    if kind == "empty":
+        assert st["empty_written"] > 0
+        assert np.all(np.isinf(d21[4][q_w.sum(1) > 0])) and np.all(d21[:, 1] == 0)
+        assert full[4, 1] == 0.0 and full[4, 0] > 3e38 and full[0, 1] > 3e38
+    plain = trw.rwmd_pairwise_plain(*args, bf16_matmul=bf16).numpy()
+    np.testing.assert_allclose(full, plain, rtol=1e-4, atol=2.5e-2)
+    plain21 = trw.rwmd_d21_plain(*args, bf16_matmul=bf16).numpy()
+    np.testing.assert_allclose(d21, plain21, rtol=1e-4, atol=2.5e-2)
+    want = np.asarray(jops.rwmd_pairwise(
+        *map(jnp.asarray, (emb, r_ids, r_w, q_ids, q_w)), bf16_matmul=bf16,
+        interpret=True))
+    np.testing.assert_allclose(full, want, rtol=1e-4, atol=2.5e-2)
+
+
+def test_rwmd_d21_plain_matches_reference_swapped_direction():
+    """d21 is the reference's one-sided LC-RWMD with the sets swapped (the
+    queries moved into the resident docs), and the port's slab fold ranks
+    max(D1, d21): the engine's symmetric streaming top-k equals the top-k
+    of that matrix, and its dense bound is that matrix."""
+    rng = np.random.default_rng(21)
+    n, h1, b, h2, m, v = 40, 8, 5, 6, 16, 64
+    emb = rng.normal(size=(v, m)).astype(np.float32)
+    r_ids, r_w = _mk_ell(rng, n, h1, v)
+    r_w[:, 0] = np.maximum(r_w[:, 0], 0.1)
+    q_ids, q_w = _mk_queries(rng, b, h2, v)
+    got = tops.rwmd_d21(*map(_t, (emb, r_ids, r_w, q_ids, q_w))).numpy()
+    want = np.asarray(jlc.lc_rwmd_one_sided(
+        JDocSet(ids=jnp.asarray(q_ids), weights=jnp.asarray(q_w)),
+        JDocSet(ids=jnp.asarray(r_ids), weights=jnp.asarray(r_w)),
+        jnp.asarray(emb))).T
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=2.5e-2)
+    docs = TDocSet(ids=_t(r_ids), weights=_t(r_w))
+    q = TDocSet(ids=_t(q_ids), weights=_t(q_w))
+    eng = tlc.LCRWMDEngine(docs, _t(emb), device="cpu", row_block=16)
+    dense = torch.maximum(eng.one_sided(q), torch.tensor(got))
+    torch.testing.assert_close(eng.symmetric(q), dense, rtol=1e-6, atol=1e-6)
+    stream = eng.symmetric_topk_streaming(q, 12)
+    top = ttopk.topk_smallest_cols(dense, 12)
+    assert torch.equal(stream.indices, top.indices)
+    torch.testing.assert_close(stream.dists, top.dists, rtol=1e-6, atol=1e-6)
+
+
+def test_symmetric_fold_empty_doc_is_inf_not_nan():
+    """An empty resident doc against padded queries: the port's swapped
+    direction is +inf (a padded word adds 0), where the reference's
+    one-sided pass gives 0 · inf = NaN; both symmetric streaming top-ks
+    rank it last, and agree on every other slot."""
+    rng = np.random.default_rng(22)
+    n, h1, b, h2, m, v = 40, 8, 5, 6, 16, 64
+    emb = rng.normal(size=(v, m)).astype(np.float32)
+    r_ids, r_w = _mk_ell(rng, n, h1, v)
+    r_w[:, 0] = np.maximum(r_w[:, 0], 0.1)
+    r_w[7] = 0.0
+    q_ids, q_w = _mk_queries(rng, b, h2, v)
+    assert (q_w == 0).any()                          # padded query words
+    got = tops.rwmd_d21(*map(_t, (emb, r_ids, r_w, q_ids, q_w))).numpy()
+    assert np.all(np.isinf(got[7])) and not np.isnan(got).any()
+    jr = JDocSet(ids=jnp.asarray(r_ids), weights=jnp.asarray(r_w))
+    jq = JDocSet(ids=jnp.asarray(q_ids), weights=jnp.asarray(q_w))
+    want = np.asarray(jlc.lc_rwmd_one_sided(jq, jr, jnp.asarray(emb))).T
+    assert np.all(np.isnan(want[7][(q_w == 0).any(1)]))
+    eng = tlc.LCRWMDEngine(TDocSet(ids=_t(r_ids), weights=_t(r_w)), _t(emb),
+                           device="cpu", row_block=16)
+    ref = jlc.LCRWMDEngine(jr, jnp.asarray(emb))
+    k = n - 1
+    a = eng.symmetric_topk_streaming(TDocSet(ids=_t(q_ids), weights=_t(q_w)), k)
+    r = ref.symmetric_topk_streaming(jq, k)
+    assert not torch.isnan(a.dists).any() and not (a.indices == 7).any()
+    np.testing.assert_allclose(a.dists.numpy(), np.asarray(r.dists),
+                               rtol=1e-4, atol=2.5e-2)
+    assert np.array_equal(a.indices.numpy(), np.asarray(r.indices))
 
 
 # ---------------------------------------------------------------------------
