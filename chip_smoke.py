@@ -29,7 +29,11 @@ Phases, each of which exits non-zero on failure:
    symmetric fold's swapped direction) on the whole corpus, held against
    its plain version on every doc, with its TFLOP/s over the valid words;
    then the fused top-k with that d21 maxed in, as the symmetric route
-   calls it, at k = 32 and at ``pruned_wmd_topk``'s budget of 20.
+   calls it, at k = 32 and at ``pruned_wmd_topk``'s budget of 20; then
+   the Sinkhorn-WMD kernel on the rerank's 2,048 pairs, also at
+   ``max_iters = 0`` (its cost tile and final plan alone) beside the full
+   run, with its mean iterations and their agreement with the plain
+   version's.
 4. slice: the synthetic corpus at the paper's Table IV set 2 statistics
    (h_max 48, mean h 27.5, m 300) resident in one engine; a batch of 64
    resident docs goes through the README quickstart (one-sided streaming
@@ -40,7 +44,8 @@ Phases, each of which exits non-zero on failure:
    Then per-call times after warm-up (``symmetric_topk_streaming`` k=20
    too), the peak device memory, a ``torch.profiler`` breakdown of
    ``topk_streaming``, the quickstart, ``one_sided`` and
-   ``pruned_wmd_topk``, and the device time of one
+   ``pruned_wmd_topk`` (which must show no host-to-device copy), and the
+   device time of one
    ``symmetric_topk_streaming`` call split into B1 / d21 / B3 / other (it
    fails if a cuBLAS GEMM ran there).
 5. comparison: the paper's comparison path on the same corpus, with the
@@ -49,7 +54,9 @@ Phases, each of which exits non-zero on failure:
    one-sided LC-RWMD (``fuse="kernel"`` and ``"scan"``, vocab chunk 512), the
    quadratic RWMD over all docs, and the WMD baselines on the cascade's
    2,048 (candidate, query) pairs.  Then each new kernel against its plain
-   version, the streaming results against ``one_sided``, the quadratic RWMD
+   version (the fused vocab chunk on chunk 0 and on a mid-vocabulary
+   chunk, each timed whole and with Z alone, a launch over one doc row),
+   the streaming results against ``one_sided``, the quadratic RWMD
    against ``core/rwmd.py`` on the first 65,536 docs and against its plain
    version at 160 words a doc (Table IV set 1's h_max), the batched Sinkhorn
    and ``wmd_one_vs_many`` against the Sinkhorn-WMD kernel (at settings
@@ -527,23 +534,47 @@ def kernel_phase(engine, q, report):
              f"{err4.max().item()})")
     n1 = (w1 > 0).sum(1).to(torch.float64)
     n2 = (w2 > 0).sum(1).to(torch.float64)
-    # Cost tile over the valid words, then per iteration three passes of
-    # ~4 operations and one exp per valid entry: the exps on the SFUs.
-    ops4 = float((n1 * n2 * (2.0 * m + 12.0 * it_k.to(torch.float64))).sum())
-    exps4 = float((n1 * n2 * 3.0 * it_k.to(torch.float64)).sum())
+    # Cost tile over the valid words (2m FLOP an entry), then per iteration
+    # two sweeps of ~3 operations and one exp per valid entry (the row
+    # sweep's sum is both the last row marginal and the f update), and the
+    # final plan's sweep: the exps on the SFUs.
+    it64 = it_k.to(torch.float64)
+    ops4 = float((n1 * n2 * (2.0 * m + 6.0 * it64 + 6.0)).sum())
+    exps4 = float((n1 * n2 * (2.0 * it64 + 1.0)).sum())
     bnd, by = bound_ms(4 * (t1.numel() + t2.numel() + w1.numel() + w2.numel()
                             + c_k.numel()), ops4, n_sfu=exps4)
-    report["sinkhorn_wmd"] = dict(
+    # the split: the cost tile and the final plan alone (max_iters = 0)
+    # against the full run, alternated
+    kw0 = dict(KW_RERANK, max_iters=0)
+    split = {"tile": [], "full": []}
+    for name in ("full", "tile", "tile", "full"):
+        kw = kw0 if name == "tile" else KW_RERANK
+        split[name].append(time_ms(lambda: sk.sinkhorn_cuda(t1, w1, t2, w2, **kw), 10))
+    c0_k, _ = sk.sinkhorn_cuda(t1, w1, t2, w2, **kw0)
+    c0_p, _ = sk.sinkhorn_plain(t1, w1, t2, w2, **kw0)
+    err40 = (c0_k - c0_p).abs()
+    if not bool((err40 <= atol4 + 1e-4 * c0_p.abs()).all()):
+        fail(f"sinkhorn_wmd at max_iters = 0: |dWMD| exceeds {atol4:.3e} + "
+             f"1e-4*|WMD| (max {err40.max().item()})")
+    r4 = report["sinkhorn_wmd"] = dict(
         max_abs_err=err4.max().item(),
         tol=f"{atol4:.3e} (gram floor) + 1e-4*|WMD|",
-        ms=time_ms(lambda: sk.sinkhorn_cuda(t1, w1, t2, w2, **KW_RERANK)),
+        ms=sum(split["full"]) / 2,
         plain_ms=time_ms(lambda: sk.sinkhorn_plain(t1, w1, t2, w2, **KW_RERANK), 1),
         library_ms=None, bound_ms=bnd, bound_by=by, exps=exps4,
+        tile_ms=sum(split["tile"]) / 2, runs_ms=split,
+        max_iters0_max_abs_err=err40.max().item(),
         iters_mean=float(it_k.float().mean()),
         iters_equal_share=float((it_k == it_p).float().mean()))
+    r4["iterations_ms"] = r4["ms"] - r4["tile_ms"]
     log(f"kernel sinkhorn_wmd: max |dWMD| {err4.max().item():.3e} within "
-        f"{atol4:.3e} + 1e-4*|WMD| (mean iterations "
-        f"{report['sinkhorn_wmd']['iters_mean']:.1f}); {exps4:.3e} exps at "
+        f"{atol4:.3e} + 1e-4*|WMD| (mean iterations {r4['iters_mean']:.1f}, "
+        f"equal to the plain version's on {r4['iters_equal_share']:.3f} of the "
+        f"pairs); {r4['ms']:.3f} ms ({split['full'][0]:.3f} / "
+        f"{split['full'][1]:.3f}), of which the cost tile and final plan "
+        f"(max_iters = 0: {split['tile'][0]:.3f} / {split['tile'][1]:.3f} ms, "
+        f"max |dWMD| {r4['max_iters0_max_abs_err']:.3e}) and the iterations "
+        f"{r4['iterations_ms']:.3f} ms; {exps4:.3e} exps at "
         f"{SFU_OPS_PER_S:.3e}/s: {by} bound {bnd:.3f} ms")
 
 
@@ -670,39 +701,68 @@ def comparison_phase(engine, q, cand, report):
         f"{(d_kernel - d1).abs().max().item():.3e} / "
         f"{(d_scan - d1).abs().max().item():.3e})")
     del d_kernel, d_scan, d1
+    # B5 on chunk 0 and on a mid-vocabulary chunk, each held against its
+    # plain version; a launch over one doc row times Z alone, the rest of a
+    # chunk's time is the consume
     vc = VOCAB_CHUNK
-    e_c = emb[:vc].contiguous()                                   # chunk 0
     r_ids0, r_w0 = docs.ids, docs.weights
-    w_m = r_w0 * (r_ids0 < vc)
-    d_k = fs.fused_chunk_cuda(e_c, t_q, valid, r_ids0, r_w0, 0,
-                              torch.zeros(n, b, device=dev))
-    d_p = fs.fused_chunk_plain(e_c, t_q, valid, r_ids0[:rows], r_w0[:rows], 0,
-                               torch.zeros(rows, b, device=dev))
-    err5 = (d_k[:rows] - d_p).abs()
-    if not bool((err5 <= gram_atol + 1e-4 * d_p.abs()).all()):
-        fail(f"fused_chunk: |dD| exceeds {gram_atol:.3e} + 1e-4*|D| on the "
-             f"first {rows} rows (max {err5.max().item()})")
-    hit_rows = int((w_m > 0).any(dim=1).sum().item())
-    nnz_c = int((w_m > 0).sum().item())
-    bnd, by = bound_ms(4 * (vc * m + b * h2 * m + b * h2) + n * h1 * 8
-                       + hit_rows * b * 8,
-                       2.0 * vc * m * n_valid_q + 2.0 * nnz_c * b)
-    scratch = torch.zeros(n, b, device=dev)
-    report["fused_chunk"] = dict(
-        max_abs_err=err5.max().item(),
-        tol=f"{gram_atol:.3e} (gram floor) + 1e-4*|D| (chunk 0, first "
-            f"{rows} rows)",
-        ms=time_ms(lambda: fs.fused_chunk_cuda(e_c, t_q, valid, r_ids0, r_w0,
-                                               0, scratch)),
-        plain_ms=time_ms(lambda: fs.fused_chunk_plain(
-            e_c, t_q, valid, r_ids0, r_w0, 0, scratch), 1),
-        library_ms=None, bound_ms=bnd, bound_by=by,
-        launches=launches.get("fused_chunk", 0),
-        chunk0_rows_hit=hit_rows, chunk0_nnz=nnz_c)
-    log(f"kernel fused_chunk: max |dD| {err5.max().item():.3e} within "
-        f"{gram_atol:.3e} + 1e-4*|D| (chunk 0: {nnz_c} slots in {hit_rows} "
-        f"rows)")
-    del d_k, d_p, err5, scratch, w_m
+    chunks = {"chunk0": 0, "mid": (v // vc // 2) * vc}
+    r5 = report["fused_chunk"] = dict(library_ms=None,
+                                      launches=launches.get("fused_chunk", 0))
+    for name, lo in chunks.items():
+        e_c = emb[lo:lo + vc].contiguous()
+        d_k = fs.fused_chunk_cuda(e_c, t_q, valid, r_ids0, r_w0, lo,
+                                  torch.zeros(n, b, device=dev))
+        d_p = fs.fused_chunk_plain(e_c, t_q, valid, r_ids0[:rows], r_w0[:rows],
+                                   lo, torch.zeros(rows, b, device=dev))
+        err5 = (d_k[:rows] - d_p).abs()
+        if not bool((err5 <= gram_atol + 1e-4 * d_p.abs()).all()):
+            fail(f"fused_chunk ({name}, ids {lo}..{lo + vc}): |dD| exceeds "
+                 f"{gram_atol:.3e} + 1e-4*|D| on the first {rows} rows (max "
+                 f"{err5.max().item()})")
+        inb = (r_w0 > 0) & (r_ids0 >= lo) & (r_ids0 < lo + vc)
+        hit_rows = int(inb.any(dim=1).sum().item())
+        nnz_c = int(inb.sum().item())
+        # bytes: every id once (to find the chunk's slots), the weights of
+        # the slots found, D read and written on the rows they sit in, the
+        # chunk's rows and the queries; operations: Z over the valid words
+        # and the slots' products
+        bnd, by = bound_ms(4 * (vc * m + b * h2 * m + b * h2) + n * h1 * 4
+                           + nnz_c * 4 + hit_rows * b * 8,
+                           2.0 * vc * m * n_valid_q + 2.0 * nnz_c * b)
+        scratch = torch.zeros(n, b, device=dev)
+        one = torch.zeros(1, b, device=dev)
+        ms = time_ms(lambda: fs.fused_chunk_cuda(e_c, t_q, valid, r_ids0, r_w0,
+                                                 lo, scratch), 10)
+        z_ms = time_ms(lambda: fs.fused_chunk_cuda(
+            e_c, t_q, valid, r_ids0[:1], r_w0[:1], lo, one), 10)
+        # the two launches by name (torch.profiler, five chunk calls): the
+        # one-row launch above also stages Z into every SM's shared memory
+        _, dev_us, z_us, top = profile_one(lambda: [fs.fused_chunk_cuda(
+            e_c, t_q, valid, r_ids0, r_w0, lo, scratch) for _ in range(5)],
+            "chunk_z_kernel")
+        cons_us = sum(us for us, key, _ in top if "chunk_consume" in key)
+        out = dict(max_abs_err=err5.max().item(), ms=ms, z_ms=z_ms,
+                   consume_ms=ms - z_ms, bound_ms=bnd, bound_by=by,
+                   rows_hit=hit_rows, nnz=nnz_c, lo=lo,
+                   profiled_ms=dict(device=dev_us / 5e3, z=z_us / 5e3,
+                                    consume=cons_us / 5e3))
+        if name == "chunk0":
+            out["plain_ms"] = time_ms(lambda: fs.fused_chunk_plain(
+                e_c, t_q, valid, r_ids0, r_w0, lo, scratch), 1)
+            out["tol"] = (f"{gram_atol:.3e} (gram floor) + 1e-4*|D| (chunks "
+                          f"{chunks}, first {rows} rows)")
+            r5.update(out)
+        else:
+            r5[name] = out
+        log(f"kernel fused_chunk {name} (ids {lo}..{lo + vc}): max |dD| "
+            f"{out['max_abs_err']:.3e} within {gram_atol:.3e} + 1e-4*|D| ({nnz_c} "
+            f"slots in {hit_rows} rows); {ms:.4f} ms a chunk, Z alone (one doc "
+            f"row) {z_ms:.4f} ms, the consume {ms - z_ms:.4f} ms; by kernel "
+            f"(torch.profiler) Z {z_us / 5e3:.4f} ms, consume "
+            f"{cons_us / 5e3:.4f} ms of {dev_us / 5e3:.4f} device ms; {by} "
+            f"bound {bnd:.4f} ms")
+        del d_k, d_p, err5, scratch, inb
 
     # --- B7: the quadratic RWMD ---
     if tuple(d_quad.shape) != (n, b) or not bool(torch.isfinite(d_quad).all()):
@@ -872,15 +932,17 @@ def profile_calls(calls: dict) -> dict:
                 rows.append((dev_us, e.key, e.count))
         rows.sort(reverse=True)
         busy = sum(r[0] for r in rows)
+        htod = sum(c for _, k, c in rows if "HtoD" in k)
         out[name] = dict(
             wall_ms=wall_us / 1e3,
             device_busy_share=busy / wall_us if rows else None,
+            htod_copies=htod,
             top=[dict(name=k[:80], device_ms=d / 1e3, count=c)
                  for d, k, c in rows[:6]])
         log(f"profile {name}: wall {wall_us / 1e3:.2f} ms, device busy share "
             + (f"{busy / wall_us:.3f}" if rows else "not measured (no device time)")
-            + "; " + ", ".join(f"{k[:40]} {d / 1e3:.2f} ms x{c}"
-                               for d, k, c in rows[:4]))
+            + f"; {htod} host-to-device copies; " + ", ".join(
+                f"{k[:40]} {d / 1e3:.2f} ms x{c}" for d, k, c in rows[:4]))
     return out
 
 
@@ -1217,14 +1279,16 @@ def llama_phase(frac: float, dev) -> dict:
         f"product); the same tokens as the first run: {same}")
 
     # --- B8's share of the prefill (torch.profiler, one call) ---
-    wall_us, dev_us, flash_us, top = profile_one(
+    wall_us, dev_us, top, launched = profile_whole(
         lambda: TM.forward_with_cache(params, tokens, cfg, max_len),
-        "flash_tc_kernel")
-    if dev_us <= 0.0:
-        fail("torch.profiler saw no device time in the prefill")
-    if flash_us <= 0.0:
-        fail("prefill: torch.profiler saw no flash_tc_kernel time: the bf16 "
-             "attention did not run on the tensor-core kernel")
+        "prefill", {"flash_attention": ("flash_",)})
+    flash_us = sum(us for us, name, _ in top if "flash_tc_kernel" in name)
+    if launched.get("flash_attention", 0) != cfg.n_layers or flash_us <= 0.0:
+        # a whole trace: the attention ran, but not on the tensor-core kernel
+        ran = [(name, c) for us, name, c in top if "flash_" in name]
+        fail(f"prefill: a whole trace shows no flash_tc_kernel time; "
+             f"flash_attention launched {launched.get('flash_attention', 0)} "
+             f"times, as {ran}; by device time: {top[:8]}")
     # causal attention over the prompt, all layers: 2 * Hq * S^2 * dh each
     b8_tflops = (cfg.n_layers * 2.0 * cfg.n_heads * s_len * s_len * cfg.d_head
                  / (flash_us * 1e-6) / 1e12)
@@ -1329,6 +1393,18 @@ def attention_swapped(TM, attend):
         TM.flash_attention = orig
 
 
+# torch.profiler has been seen to return a trace that kept only a few of a
+# call's kernels (the symmetric call: 1.65 of 661 device ms, while the launch
+# counts and the profile before it showed every kernel).  Such a trace shows
+# its loss: a device busy share under DROP_SHARE on a call that keeps the
+# card busy (the prefill and the symmetric call run at 0.99), or a kernel
+# the call launched (its launch count) with no time in the trace.  Only such
+# a trace is taken again, at most PROFILE_TRIES times; a whole trace that
+# lacks a kernel fails at once.
+DROP_SHARE = 0.5
+PROFILE_TRIES = 3
+
+
 def profile_one(fn, match: str):
     """torch.profiler over one call: (wall us, device us, device us of the
     kernels whose name holds ``match``, [(us, name, count)] by device time)."""
@@ -1359,30 +1435,57 @@ def profile_one(fn, match: str):
     return wall_us, dev_us, hit_us, top
 
 
-# The symmetric streaming top-k's kernels by name: B1 (phase 1, its prep),
-# B7's d21 mode (its three list launches and the GEMM), B3 (the fold and its
-# merges).
-SYM_KERNELS = {"B1": ("phase1_",), "d21": ("rwmd_kernel", "count_rows",
-                                          "scan_kernel", "list_rows"),
-               "B3": ("fused_topk", "topk_merge")}
+def profile_whole(fn, what: str, families: dict):
+    """torch.profiler over one call until its trace is whole: (wall us,
+    device us, [(us, name, count)] by device time, {kernel: launches} of
+    the call).  ``families`` maps a launch-count name to the names its
+    kernels have in a trace."""
+    from repro_torch.kernels import _build
+
+    for attempt in range(1, PROFILE_TRIES + 1):
+        before = dict(_build.LAUNCHES)
+        wall_us, dev_us, _, top = profile_one(fn, "")
+        launched = {k: c - before.get(k, 0) for k, c in _build.LAUNCHES.items()
+                    if c > before.get(k, 0)}
+        lost = [k for k, keys in families.items() if launched.get(k, 0) and not
+                any(us > 0 and any(key in name for key in keys)
+                    for us, name, _ in top)]
+        share = dev_us / wall_us
+        if share >= DROP_SHARE and not lost:
+            return wall_us, dev_us, top, launched
+        log(f"{what} profile, trace {attempt} of at most {PROFILE_TRIES} lost "
+            f"records: {dev_us / 1e3:.2f} device ms of a {wall_us / 1e3:.1f} ms "
+            f"call (busy share {share:.3f}); launched {launched}, none in the "
+            f"trace: {lost}; by device time: {top[:6]}")
+    fail(f"{what}: {PROFILE_TRIES} profiles lost records")
+
+
+# The symmetric streaming top-k's kernels: (launch-count name, names in a
+# trace) of B1 (phase 1, its prep), B7's d21 mode (its three list launches
+# and the GEMM), B3 (the fold and its merges).
+SYM_KERNELS = {"B1": ("lc_rwmd_phase1", ("phase1_",)),
+               "d21": ("rwmd_d21", ("rwmd_kernel", "count_rows",
+                                    "scan_kernel", "list_rows")),
+               "B3": ("fused_topk", ("fused_topk", "topk_merge"))}
 
 
 def symmetric_split(fn) -> dict:
     """Device ms of one ``symmetric_topk_streaming`` call by kernel group
     (``torch.profiler``); fails if a cuBLAS GEMM ran on the path."""
-    wall_us, dev_us, _, top = profile_one(fn, "")
+    wall_us, dev_us, top, launched = profile_whole(
+        fn, "symmetric_topk_streaming", dict(SYM_KERNELS.values()))
     split = dict.fromkeys(SYM_KERNELS, 0.0)
     split["other"] = 0.0
     for us, name, _ in top:
         if "gemm" in name.lower():
             fail(f"symmetric_topk_streaming ran a GEMM outside the port's "
                  f"kernels: {name}")
-        group = next((g for g, keys in SYM_KERNELS.items()
+        group = next((g for g, (_, keys) in SYM_KERNELS.items()
                       if any(key in name for key in keys)), "other")
         split[group] += us / 1e3
-    if not dev_us or min(split["B1"], split["d21"], split["B3"]) <= 0:
-        fail(f"symmetric_topk_streaming: the profile shows no time in one of "
-             f"B1, d21, B3: {split}")
+    if min(split["B1"], split["d21"], split["B3"]) <= 0:
+        fail(f"symmetric_topk_streaming: a whole trace shows no time in one "
+             f"of B1, d21, B3: {split}; launched {launched}")
     log(f"profile symmetric_topk_streaming k={4 * K_FINAL}: wall "
         f"{wall_us / 1e3:.1f} ms, device {dev_us / 1e3:.1f} ms: " + ", ".join(
             f"{g} {ms:.2f} ms" for g, ms in split.items()) + "; no cuBLAS GEMM")
@@ -1502,6 +1605,9 @@ def lcrwmd_phases(scale: float) -> dict:
             docs, q, corpus.emb, k=K_FINAL, engine=engine,
             sinkhorn_kw=KW_RERANK),
     })
+    if profiles["pruned_wmd_topk_k5"]["htod_copies"]:
+        fail("pruned_wmd_topk with an engine made host-to-device copies: "
+             f"{profiles['pruned_wmd_topk_k5']}")
     sym_split = symmetric_split(
         lambda: engine.symmetric_topk_streaming(q, 4 * K_FINAL))
 

@@ -350,12 +350,19 @@ class LCRWMDEngine:
 
         queries = self._queries(queries)
         cand_indices = cand_indices.to(self.device)
-        n, h1 = self.resident.ids.shape
-        flat = cand_indices.reshape(-1).long()
+        t1, w1, t2 = self.candidate_pairs(cand_indices.reshape(-1).long(),
+                                          queries.ids)
         vals = wmd_candidate_values(
-            self._t_r.reshape(n, h1, -1).index_select(0, flat),
-            self.resident.weights.index_select(0, flat),
-            self.gather_queries(queries.ids), queries.weights,
-            use_kernel=True, bf16_matmul=self.bf16_matmul,
-            **(sinkhorn_kw or {}))
+            t1, w1, t2, queries.weights, use_kernel=True,
+            bf16_matmul=self.bf16_matmul, **(sinkhorn_kw or {}))
         return topk_lib.topk_from_candidates(vals, cand_indices, k)
+
+    def candidate_pairs(self, flat: torch.Tensor, q_ids: torch.Tensor):
+        """The rerank's inputs from the engine's device tensors: the word
+        embeddings (P, h1, m) and weights (P, h1) of resident docs ``flat``
+        (P,) long, and the embeddings (B, h2, m) of query word ids ``q_ids``
+        (B, h2).  Nothing is copied to the device."""
+        n, h1 = self.resident.ids.shape
+        return (self._t_r.reshape(n, h1, -1).index_select(0, flat),
+                self.resident.weights.index_select(0, flat),
+                self.gather_queries(q_ids))

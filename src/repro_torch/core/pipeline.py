@@ -108,7 +108,9 @@ def pruned_wmd_topk(
     and is clamped to ``[k, n]``.  ``engine``: a prebuilt
     :class:`LCRWMDEngine` over the SAME resident set and embeddings; stage 1
     then streams the symmetric bound through it (the (n, B) matrix is never
-    built) and the work runs on the engine's device.  Without an engine,
+    built), the work runs on the engine's device, and the rerank reads the
+    engine's device copies of the resident docs and embeddings (``resident``
+    and ``emb`` are not copied again).  Without an engine,
     stage 1 materializes the symmetric matrix on the resident's device.
     ``use_kernel`` routes the WMD refine through the Sinkhorn-WMD kernel
     (True) or the batched solver ``sinkhorn_log_batched`` (False); unset,
@@ -124,26 +126,31 @@ def pruned_wmd_topk(
         use_kernel = engine is not None
 
     if engine is not None:
-        dev = engine.device
         # on the card: phase 1, the swapped direction and the fused top-k
         # kernels (no slab; d21 (n, B) is the one extra tensor)
         cand = engine.symmetric_topk_streaming(queries, budget)  # (B, budget)
+        queries = queries.to(engine.device)
+        flat = torch.clamp(cand.indices, 0, n - 1).reshape(-1).long()
+        # The engine's device tensors hold the same values as the caller's
+        # resident set and embeddings: nothing is copied to the device.
+        t1, w1, t2 = engine.candidate_pairs(flat, queries.ids)
         bf16 = engine.bf16_matmul
     else:
         dev = resident.device
-        d_rwmd = lc_rwmd_symmetric(resident, queries.to(dev), emb)  # (n, B)
+        queries = queries.to(dev)
+        d_rwmd = lc_rwmd_symmetric(resident, queries, emb)  # (n, B)
         cand = topk_lib.topk_smallest_cols(d_rwmd, budget)
+        emb_t = as_f32(emb, dev)
+        flat = torch.clamp(cand.indices, 0, n - 1).reshape(-1).long()
+        t1 = emb_t[resident.ids[flat].long()]
+        w1 = resident.weights[flat]
+        t2 = emb_t[queries.ids.long()]
         bf16 = False
-    resident = resident.to(dev)
-    queries = queries.to(dev)
-    emb_t = as_f32(emb, dev)
 
     rwmd_topk = topk_lib.TopK(cand.dists[:, :k], cand.indices[:, :k])
-    flat = torch.clamp(cand.indices, 0, n - 1).reshape(-1).long()
     wmd_vals = wmd_candidate_values(
-        emb_t[resident.ids[flat].long()], resident.weights[flat],
-        emb_t[queries.ids.long()], queries.weights,
-        use_kernel=use_kernel, bf16_matmul=bf16, **sinkhorn_kw,
+        t1, w1, t2, queries.weights, use_kernel=use_kernel, bf16_matmul=bf16,
+        **sinkhorn_kw,
     )  # (B, budget)
     wmd_vals = torch.where(cand.indices >= 0, wmd_vals,
                            torch.full_like(wmd_vals, float("inf")))

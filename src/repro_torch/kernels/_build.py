@@ -39,10 +39,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on the H100
-# Tile constants of csrc/tiles.cuh (TC, KC, TR, QS_LD), for the wrappers'
-# shared-memory sums.
-GRAM_TC, GRAM_KC, GRAM_TR = 128, 16, 32
-GRAM_QS_LD = GRAM_TC + 4
 
 #: Kernel launches by kernel name (reset with :func:`reset_launches`).
 LAUNCHES: collections.Counter = collections.Counter()
@@ -78,15 +74,15 @@ SIGNATURES = {
         "launch_topk_merge": [P, P, P, P, I, I, I, I, P],
     },
     "sinkhorn_wmd": {
-        # t1, w1, t2, w2, levels, inv_levels, out, iters, p, h1, h2, m,
-        # n_levels, max_iters, tol, bf16, stream
-        "launch_sinkhorn_wmd": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, I,
-                                P],
+        # t1, w1, t2, w2, out, iters, levels (host: n_levels floats of
+        # log2(e) / eps), p, h1, h2, m, n_levels, max_iters, tol, bf16, stream
+        "launch_sinkhorn_wmd": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
     },
     "fused_chunk": {
-        # emb_chunk, t, valid, ids, w, d, cv, lo, m, b, h, n, h1,
-        # n_clusters, bf16, stream
-        "launch_fused_chunk": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+        # emb_chunk, t, valid, ids, w, d (at the slab's first column), zsq
+        # (scratch), cv, lo, m, nq, h, n, h1, ldd, bf16, stream
+        "launch_fused_chunk": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+                               P],
     },
     "rwmd_pairwise": {
         # emb, r_ids, r_w, q_ids, q_w, then scratch: cnt, doc_start, rows,
@@ -103,6 +99,12 @@ SIGNATURES = {
         # src, row offsets, feat, rad, out, n_out, d, stream
         "launch_segment_spmm": [P, P, P, P, P, I, I, P],
     },
+}
+
+# Other exports: sizes a wrapper asks its library for (an int returned).
+QUERIES = {
+    # h1, h2: the bytes of shared memory one CTA of the kernel needs
+    "sinkhorn_wmd": {"sinkhorn_smem_bytes": [I, I]},
 }
 
 
@@ -158,7 +160,8 @@ def lib(name: str) -> ctypes.CDLL:
         if name not in _libs:
             build_all()
             dll = ctypes.CDLL(str(_lib_path(name)))
-            for fn, argtypes in SIGNATURES[name].items():
+            for fn, argtypes in {**SIGNATURES[name],
+                                 **QUERIES.get(name, {})}.items():
                 f = getattr(dll, fn)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int

@@ -1,11 +1,14 @@
 """The fused LC-RWMD kernels: phase 2 folded into a streaming per-query
 top-k, and one vocab chunk's phase 1 → phase 2.
 
-Vocab chunk: the CUDA kernel is ``csrc/fused_chunk.cu`` (it replaces the
-TPU kernel ``repro.kernels.fused_stream.fused_lc_rwmd_chunk_pallas``): a
-thread-block cluster makes the chunk's Z in shared memory and every doc
-row adds its in-chunk slots into D, in place.  :func:`fused_chunk_plain`
-is the same function in plain PyTorch.
+Vocab chunk: the CUDA kernels are ``csrc/fused_chunk.cu`` (they replace
+the TPU kernel ``repro.kernels.fused_stream.fused_lc_rwmd_chunk_pallas``):
+per slab of up to ``CHUNK_COLS`` queries, one launch makes the chunk's
+squared Z over the valid query words (B1's GEMM) into a scratch, and a
+second, one CTA of 32 warps per SM, stages Z into shared memory (or reads
+it from L2 where it does not fit) while every doc row adds its in-chunk
+slots into D, in place.  :func:`fused_chunk_plain` is the same function
+in plain PyTorch.
 
 Top-k:
 
@@ -50,8 +53,7 @@ FLUSH_CAP = 64   # buffered candidates per query between flushes
 _CTAS_PER_SM = 2
 _MIN_ROWS = 64   # fewest doc rows per CTA
 CHUNK_NAME = "fused_chunk"
-CLUSTER = 8           # CTAs per cluster in csrc/fused_chunk.cu
-_CHUNK_ROWS_MAX = 128  # vocab rows one CTA of the cluster makes
+CHUNK_COLS = 128       # queries per slab of the vocab-chunk kernels
 _PLAIN_ROWS = 65536    # doc rows per (rows, h1, B) gather of the plain version
 
 
@@ -219,24 +221,16 @@ def fused_chunk_plain(emb_c: torch.Tensor, t: torch.Tensor,
     return d
 
 
-def chunk_smem_bytes(cv: int, m: int, b: int) -> int:
-    """Shared memory of one CTA (the sum ``csrc/fused_chunk.cu`` allocates)."""
-    rpc = -(-cv // CLUSTER)
-    tr = _build.GRAM_TR
-    ldd = -(-rpc // tr) * tr + 4
-    return 4 * (m * ldd + ldd + _build.GRAM_KC * _build.GRAM_QS_LD
-                + 2 * _build.GRAM_TC + rpc * b) + 64  # + the peer table
-
-
 def fused_chunk_cuda(emb_c: torch.Tensor, t: torch.Tensor,
                      valid: torch.Tensor, r_ids: torch.Tensor,
                      r_w: torch.Tensor, lo: int, d: torch.Tensor, *,
                      bf16_matmul: bool = False) -> torch.Tensor:
-    """Launch the CUDA kernel; ``d`` (n, B) f32 is accumulated in place.
+    """Launch the CUDA kernels; ``d`` (n, B) f32 is accumulated in place.
 
-    The kernel reads ``r_ids``/``r_w`` as they are and adds only the slots
+    The kernels read ``r_ids``/``r_w`` as they are and add only the slots
     whose id falls in ``[lo, lo + cv)``: the same sum as the reference's
-    chunk-relative ids and zeroed weights.
+    chunk-relative ids and zeroed weights.  Any chunk size: Z is read from
+    shared memory where the chunk's (cv, slab) floats fit, else from L2.
     """
     _build.require(emb_c, torch.float32, 2, "emb_c")
     _build.require(t, torch.float32, 3, "t")
@@ -253,27 +247,23 @@ def fused_chunk_cuda(emb_c: torch.Tensor, t: torch.Tensor,
             f"shape mismatch: emb_c {tuple(emb_c.shape)}, t {tuple(t.shape)}, "
             f"valid {tuple(valid.shape)}, r_ids {tuple(r_ids.shape)}, "
             f"r_w {tuple(r_w.shape)}, d {tuple(d.shape)}")
-    if cv > CLUSTER * _CHUNK_ROWS_MAX:
-        raise ValueError(f"vocab_chunk {cv} exceeds the fused kernel's "
-                         f"{CLUSTER * _CHUNK_ROWS_MAX} rows per chunk")
-    smem = chunk_smem_bytes(cv, m, b)
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(
-            f"the chunk's Z does not fit: the fused kernel needs {smem} bytes "
-            f"of shared memory per CTA (vocab_chunk={cv}, B={b}, m={m}), more "
-            f"than the {_build.SMEM_LIMIT} one CTA may use")
+    if n * h1 >= 2 ** 31 or b * h >= 2 ** 31:
+        raise ValueError(f"the kernels index slots in int32: n*h1 = {n * h1}, "
+                         f"B*h = {b * h}")
     dev = emb_c.device
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_clusters = max(1, n_sm // CLUSTER)
     lib = _build.lib(CHUNK_NAME)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.launch_fused_chunk(
-            emb_c.data_ptr(), t.data_ptr(), valid.data_ptr(),
-            r_ids.data_ptr(), r_w.data_ptr(), d.data_ptr(), cv, lo, m, b,
-            h, n, h1, n_clusters, int(bf16_matmul), stream)
-    _build.check(code, CHUNK_NAME)
-    _build.LAUNCHES[CHUNK_NAME] += 1
+        for c0 in range(0, b, CHUNK_COLS):
+            nq = min(CHUNK_COLS, b - c0)
+            zsq = torch.empty((cv, nq), dtype=torch.int32, device=dev)
+            code = lib.launch_fused_chunk(
+                emb_c.data_ptr(), t[c0:c0 + nq].data_ptr(),
+                valid[c0:c0 + nq].data_ptr(), r_ids.data_ptr(),
+                r_w.data_ptr(), d.data_ptr() + 4 * c0, zsq.data_ptr(), cv, lo,
+                m, nq, h, n, h1, b, int(bf16_matmul), stream)
+            _build.check(code, CHUNK_NAME)
+            _build.LAUNCHES[CHUNK_NAME] += 2  # chunk_z and chunk_consume
     return d
 
 

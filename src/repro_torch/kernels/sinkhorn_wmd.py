@@ -8,9 +8,18 @@ the iterations each pair ran over all ε levels.  Per pair both compute: the cos
 ``sqrt(max(|a|² + |b|² − 2ab, 0))``, log-domain Sinkhorn over a static ε
 ladder (``max_iters`` and ``tol`` on the L1 error of the row marginal), a
 row-max-stabilised plan with Altschuler rounding, and ``⟨P, C⟩``.
+
+The kernel works on each pair's valid words only (:func:`valid_words` is
+its list in plain PyTorch), in base 2, with two sweeps an iteration: see
+the source.  Pairs whose padded widths are both at most 48 take one warp
+each, four a CTA; wider pairs take a CTA of eight warps each, for any
+widths whose cost tile fits one CTA's shared memory (the library's
+``sinkhorn_smem_bytes``; about 230 words a side when h1 = h2).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -19,7 +28,8 @@ from repro_torch.kernels import _build
 
 NAME = "sinkhorn_wmd"
 NEG = -1e30  # log-domain mask sentinel (finite: no inf-inf NaN hazard)
-SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on the H100
+MAX_LEVELS = 16
+LOG2E = 1.4426950408889634
 
 
 def eps_schedule(eps: float, eps_scaling: int, eps_start: float) -> tuple:
@@ -103,15 +113,20 @@ def sinkhorn_plain(t1, w1, t2, w2, *, eps: float = 0.01, eps_scaling: int = 4,
     return cost_val, n_iters
 
 
-def smem_bytes(h1: int, h2: int) -> int:
-    """Dynamic shared memory the kernel needs for an (h1, h2) pair."""
-    return 4 * (h1 * (h2 | 1) + 4 * h1 + 3 * h2 + 8)
+def valid_words(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's lists of each pair's valid words in plain PyTorch: the
+    indices of ``w`` (P, h) > 0 first, in order, then the rest, as int32
+    (P, h); and the number of valid ones, (P,) int32."""
+    valid = w > 0
+    idx = torch.argsort((~valid).to(torch.int8), dim=1, stable=True)
+    return idx.to(torch.int32), valid.sum(dim=1, dtype=torch.int32)
 
 
 def sinkhorn_cuda(t1, w1, t2, w2, *, eps: float = 0.01, eps_scaling: int = 4,
                   eps_start: float = 1.0, max_iters: int = 500,
                   tol: float = 1e-5, bf16_matmul: bool = False):
-    """Launch the CUDA kernel: one CTA per pair."""
+    """Launch the CUDA kernel; raise ValueError where the pairs' cost tile
+    does not fit one CTA's shared memory."""
     _build.require(t1, torch.float32, 3, "t1")
     _build.require(w1, torch.float32, 2, "w1")
     _build.require(t2, torch.float32, 3, "t2")
@@ -123,21 +138,26 @@ def sinkhorn_cuda(t1, w1, t2, w2, *, eps: float = 0.01, eps_scaling: int = 4,
         raise ValueError(f"shape mismatch: t1 {tuple(t1.shape)}, w1 "
                          f"{tuple(w1.shape)}, t2 {tuple(t2.shape)}, w2 "
                          f"{tuple(w2.shape)}")
-    if smem_bytes(h1, h2) > SMEM_LIMIT:
-        raise ValueError(f"h1={h1}, h2={h2}: the cost tile needs "
-                         f"{smem_bytes(h1, h2)} bytes of shared memory, more "
-                         f"than the {SMEM_LIMIT} one CTA may use")
-    levels, invs = _level_constants(eps, eps_scaling, eps_start, t1.device)
+    lib = _build.lib(NAME)
+    need = lib.sinkhorn_smem_bytes(h1, h2)
+    if need > _build.SMEM_LIMIT:
+        raise ValueError(f"h1={h1}, h2={h2}: the pairs' cost tile needs "
+                         f"{need} bytes of shared memory, more than one CTA's "
+                         f"{_build.SMEM_LIMIT}")
+    levels = eps_schedule(eps, eps_scaling, eps_start)
+    if len(levels) > MAX_LEVELS:
+        raise ValueError(f"{len(levels)} eps levels; the kernel takes at most "
+                         f"{MAX_LEVELS}")
+    # log2(e) / eps per level, handed to the launch by value (host memory)
+    k = (ctypes.c_float * len(levels))(*(LOG2E / e for e in levels))
     out = torch.empty((p,), dtype=torch.float32, device=t1.device)
     n_iters = torch.empty((p,), dtype=torch.int32, device=t1.device)
-    lib = _build.lib(NAME)
     with torch.cuda.device(t1.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.launch_sinkhorn_wmd(
             t1.data_ptr(), w1.data_ptr(), t2.data_ptr(), w2.data_ptr(),
-            levels.data_ptr(), invs.data_ptr(), out.data_ptr(),
-            n_iters.data_ptr(), p, h1, h2, m, levels.shape[0], max_iters,
-            tol, int(bf16_matmul), stream)
+            out.data_ptr(), n_iters.data_ptr(), ctypes.addressof(k), p, h1,
+            h2, m, len(levels), max_iters, tol, int(bf16_matmul), stream)
     _build.check(code, NAME)
     _build.LAUNCHES[NAME] += 1
     return out, n_iters

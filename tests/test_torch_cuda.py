@@ -305,21 +305,90 @@ def test_fused_topk_kernel_masks_and_d21(cuda):
     _assert_topk_matches_plain(v, i, pv, pi)
 
 
-def test_sinkhorn_kernel_matches_plain(cuda):
-    g = torch.Generator().manual_seed(3)
-    p, h1, h2, m = 64, 12, 10, 300
-    w1 = torch.rand(p, h1, generator=g) * (torch.rand(p, h1, generator=g) > 0.3)
-    w2 = torch.rand(p, h2, generator=g) * (torch.rand(p, h2, generator=g) > 0.3)
+# (pairs, h1, h2, m, share of padded words, solver settings): the warp-per-
+# pair route (both widths <= 48) and the CTA-per-pair route on either side
+# of the split, Table IV set 1's h = 160, more rows or columns than the
+# CTA's 256 threads (long docs against short queries, and the reverse),
+# bf16, no iteration, empty pairs
+SINKHORN_CASES = {
+    "h12x10": (64, 12, 10, 300, 0.3, None),   # every CONFIGS entry
+    "h48": (300, 48, 48, 300, 0.43, "rerank"),
+    "h49x48": (64, 49, 48, 300, 0.43, "rerank"),
+    "h48x49": (64, 48, 49, 300, 0.43, "rerank"),
+    "h160": (32, 160, 160, 300, 0.3, "rerank"),
+    "h400x32": (32, 400, 32, 300, 0.3, "rerank"),
+    "h32x400": (32, 32, 400, 300, 0.3, "rerank"),
+    "bf16": (128, 48, 48, 300, 0.43, "rerank"),
+    "max_iters_0": (128, 48, 48, 300, 0.43, "none"),
+    "empty": (64, 48, 48, 300, 0.43, "rerank"),
+    "m70": (64, 20, 30, 70, 0.3, "rerank"),    # rows read as 4-byte words
+}
+RERANK_KW = dict(eps=0.05, eps_scaling=2, max_iters=100)
+
+
+@pytest.mark.parametrize("case", list(SINKHORN_CASES))
+def test_sinkhorn_kernel_matches_plain(cuda, case):
+    p, h1, h2, m, pad, kw = SINKHORN_CASES[case]
+    g = torch.Generator().manual_seed(3 + h1 + h2 + p)
+    w1 = torch.rand(p, h1, generator=g) * (torch.rand(p, h1, generator=g) > pad)
+    w2 = torch.rand(p, h2, generator=g) * (torch.rand(p, h2, generator=g) > pad)
     w1[:, 0] += 0.1
     w2[:, 0] += 0.1
-    w1, w2 = w1 / w1.sum(1, keepdim=True), w2 / w2.sum(1, keepdim=True)
+    if case == "empty":  # no valid row, no valid column, neither
+        w1[0::3] = 0.0
+        w2[1::3] = 0.0
+        w2[0::6] = 0.0
+    w1 = w1 / w1.sum(1, keepdim=True).clamp(min=1e-30)
+    w2 = w2 / w2.sum(1, keepdim=True).clamp(min=1e-30)
     t1 = torch.randn(p, h1, m, generator=g)
     t2 = torch.randn(p, h2, m, generator=g)
     t1, w1, t2, w2 = (x.to(cuda) for x in (t1, w1, t2, w2))
-    for kw in CONFIGS:
-        got, _ = tsk.sinkhorn_cuda(t1, w1, t2, w2, **kw)
-        want, _ = tsk.sinkhorn_plain(t1, w1, t2, w2, **kw)
+    bf16 = case == "bf16"
+    kws = (CONFIGS if kw is None else
+           [dict(RERANK_KW, max_iters=0)] if kw == "none" else [RERANK_KW])
+    _build.reset_launches()
+    for k in kws:
+        got, it = tsk.sinkhorn_cuda(t1, w1, t2, w2, bf16_matmul=bf16, **k)
+        want, want_it = tsk.sinkhorn_plain(t1, w1, t2, w2, bf16_matmul=bf16, **k)
         torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-4)
+        empty = ((w1 > 0).sum(1) == 0) | ((w2 > 0).sum(1) == 0)
+        assert bool((got[empty] == 0).all())
+        fixed = empty | (k["max_iters"] == 0)
+        assert torch.equal(it[fixed], want_it[fixed])
+    assert _build.LAUNCHES[tsk.NAME] == len(kws)
+    if case == "h48":  # the wrapper refuses a tile over shared memory
+        with pytest.raises(ValueError, match="shared memory"):
+            tsk.sinkhorn_cuda(*(torch.zeros(2, 257, 8, device=cuda),
+                                torch.ones(2, 257, device=cuda)) * 2)
+
+
+def test_pruned_wmd_topk_with_an_engine_copies_nothing_to_the_card(cuda):
+    """With an engine the rerank reads the engine's device tensors: one call,
+    given the embeddings as a host numpy array (as chip_smoke.py gives
+    them), makes no host-to-device copy (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    c = make_corpus(CorpusSpec(n_docs=2000, vocab_size=3000, emb_dim=300,
+                               h_max=48, mean_h=27.5, n_classes=4, seed=11),
+                    device="cpu")
+    emb = np.asarray(c.emb, dtype=np.float32)
+    assert isinstance(emb, np.ndarray)
+    eng = tlc.LCRWMDEngine(c.docs, emb)
+    docs = c.docs.to(cuda)
+    q = docs[:16]
+    kw = dict(k=5, engine=eng, sinkhorn_kw=RERANK_KW)
+    first = tpipe.pruned_wmd_topk(docs, q, emb, **kw)  # builds and warms up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = tpipe.pruned_wmd_topk(docs, q, emb, **kw)
+        torch.cuda.synchronize()
+    copies = [e.key for e in prof.key_averages() if "HtoD" in e.key]
+    assert not copies, copies
+    assert torch.equal(res.topk.indices, first.topk.indices)
+    cpu = tpipe.pruned_wmd_topk(c.docs, c.docs[:16], emb, k=5,
+                                engine=tlc.LCRWMDEngine(c.docs, emb, device="cpu"),
+                                sinkhorn_kw=RERANK_KW)
+    assert torch.equal(res.topk.indices[:, 0].cpu(), cpu.topk.indices[:, 0])
 
 
 def test_engine_on_the_card_matches_the_cpu(cuda):
@@ -400,29 +469,49 @@ def test_spmm_dense_kernel_adds_nothing_for_out_of_range_ids(cuda):
         assert torch.equal(got, sp.spmm_ell_dense_cuda(ids_bad, w_in, z))
 
 
-def test_fused_chunk_kernel_matches_plain(cuda):
+# (cv, B, h, m, n, h1): Z in shared memory (cv * B floats fit) or read from
+# L2, one or two query slabs, rows read as 16-byte vectors or as words
+FUSED_CHUNK_CASES = {
+    "cv64_b1": (64, 1, 48, 300, 3000, 48),
+    "cv512_b64": (512, 64, 48, 300, 3000, 48),   # the slice's chunk
+    "cv512_b65": (512, 65, 48, 300, 3000, 48),
+    "cv1024_b128": (1024, 128, 48, 300, 3000, 48),  # Z from L2
+    "cv2048_b64": (2048, 64, 48, 300, 3000, 48),    # past the old 1,024 cap
+    "b200": (512, 200, 20, 64, 2000, 48),           # two slabs of queries
+    "ragged": (100, 7, 9, 64, 500, 13),             # ids read as words
+}
+
+
+@pytest.mark.parametrize("case", list(FUSED_CHUNK_CASES))
+def test_fused_chunk_kernel_matches_plain(cuda, case):
     from repro_torch.kernels import fused_stream as fs
 
-    g = torch.Generator().manual_seed(5)
-    for cv, b, h, m, n, h1 in ((512, 64, 48, 300, 3000, 48),
-                               (100, 7, 9, 64, 500, 12)):
-        emb_c = torch.randn(cv, m, generator=g).to(cuda)
-        t = torch.randn(b, h, m, generator=g).to(cuda)
-        valid = (torch.rand(b, h, generator=g) > 0.3).float().to(cuda)
-        lo = 2 * cv  # ids span the chunk [lo, lo + cv) and both sides of it
-        ids = torch.randint(lo - cv, lo + 2 * cv, (n, h1), generator=g)
-        ids = ids.to(torch.int32).to(cuda)
-        w = torch.rand(n, h1, generator=g).to(cuda)
-        d0 = torch.rand(n, b, generator=g).to(cuda)
-        for bf16 in (False, True):
-            got = fs.fused_chunk_cuda(emb_c, t, valid, ids, w, lo, d0.clone(),
-                                      bf16_matmul=bf16)
-            want = fs.fused_chunk_plain(emb_c, t, valid, ids, w, lo,
-                                        d0.clone(), bf16_matmul=bf16)
-            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-2)
-    with pytest.raises(ValueError, match="exceeds"):
-        fs.fused_chunk_cuda(torch.zeros(2048, m, device=cuda), t, valid,
-                            ids, w, 0, torch.zeros(n, b, device=cuda))
+    cv, b, h, m, n, h1 = FUSED_CHUNK_CASES[case]
+    g = torch.Generator().manual_seed(5 + cv + b)
+    emb_c = torch.randn(cv, m, generator=g).to(cuda)
+    t = torch.randn(b, h, m, generator=g).to(cuda)
+    valid = (torch.rand(b, h, generator=g) > 0.3).float()
+    valid[b // 2] = 0.0  # a query with no valid word: Z = sqrt(3.4e38)
+    valid = valid.to(cuda)
+    lo = 2 * cv  # ids span the chunk [lo, lo + cv) and both sides of it
+    ids = torch.randint(lo - cv, lo + 2 * cv, (n, h1), generator=g)
+    ids = ids.to(torch.int32).to(cuda)
+    w = torch.rand(n, h1, generator=g)
+    w = (w * (torch.rand(n, h1, generator=g) > 0.3)).to(cuda)
+    d0 = torch.rand(n, b, generator=g).to(cuda)
+    for bf16 in (False, True):
+        got = fs.fused_chunk_cuda(emb_c, t, valid, ids, w, lo, d0.clone(),
+                                  bf16_matmul=bf16)
+        want = fs.fused_chunk_plain(emb_c, t, valid, ids, w, lo, d0.clone(),
+                                    bf16_matmul=bf16)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-2)
+    # a chunk that no row touches leaves D as it was, bit for bit; each
+    # slab of CHUNK_COLS queries counts its two kernels
+    away = torch.where((ids >= lo) & (ids < lo + cv), ids - cv, ids)
+    _build.reset_launches()
+    got = fs.fused_chunk_cuda(emb_c, t, valid, away, w, lo, d0.clone())
+    assert torch.equal(got, d0)
+    assert _build.LAUNCHES[fs.CHUNK_NAME] == 2 * -(-b // fs.CHUNK_COLS)
 
 
 def test_rwmd_pairwise_kernel_matches_plain(cuda):

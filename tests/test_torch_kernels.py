@@ -400,6 +400,42 @@ def test_fused_chunk_plain_matches_pallas(cv, bf16):
     np.testing.assert_allclose(d.numpy() - d0, want, **tol)
 
 
+@pytest.mark.parametrize("kind", ["untouched", "last_chunk", "d_in"])
+def test_fused_chunk_plain_matches_pallas_at_the_edges(kind):
+    """A chunk that no doc touches (D comes back as it went in), the padded
+    last chunk of a vocabulary (zero rows past v, as ops.lc_rwmd_fused pads
+    it) and a non-zero D in, against the Pallas kernel's partial."""
+    rng = np.random.default_rng({"untouched": 1, "last_chunk": 2, "d_in": 3}[kind])
+    cv, m, b, h, n, h1 = 64, 32, 4, 6, 24, 8
+    v = 3 * cv + 20 if kind == "last_chunk" else 4 * cv
+    emb = rng.normal(size=(v, m)).astype(np.float32)
+    lo = 3 * cv if kind == "last_chunk" else 2 * cv
+    emb_c = np.zeros((cv, m), np.float32)
+    emb_c[:min(cv, v - lo)] = emb[lo:lo + cv]
+    q_t = rng.normal(size=(b, h, m)).astype(np.float32)
+    valid = (rng.random((b, h)) > 0.3).astype(np.float32)
+    valid[:, 0] = 1.0
+    ids = rng.integers(0, v, size=(n, h1)).astype(np.int32)
+    if kind == "untouched":
+        ids[(ids >= lo) & (ids < lo + cv)] -= cv
+    w = rng.uniform(0, 1, size=(n, h1)).astype(np.float32)
+    w[rng.random(size=w.shape) < 0.3] = 0.0
+    inb = (ids >= lo) & (ids < lo + cv)
+    assert inb.any() != (kind == "untouched")
+    want = np.asarray(jfs.fused_lc_rwmd_chunk_pallas(
+        jnp.asarray(emb_c), jnp.asarray(q_t), jnp.asarray(valid),
+        jnp.asarray(np.clip(ids - lo, 0, cv - 1).astype(np.int32)),
+        jnp.asarray((w * inb).astype(np.float32)), block_v=32,
+        interpret=True))[:, :b]
+    d0 = (np.zeros((n, b), np.float32) if kind == "last_chunk"
+          else rng.normal(size=(n, b)).astype(np.float32))
+    d = _t(d0)
+    tfs.fused_chunk(_t(emb_c), _t(q_t), _t(valid), _t(ids), _t(w), lo, d)
+    if kind == "untouched":
+        assert np.array_equal(d.numpy(), d0)
+    np.testing.assert_allclose(d.numpy() - d0, want, rtol=1e-4, atol=1e-2)
+
+
 # ---------------------------------------------------------------------------
 # B3 phase 2 → streaming top-k
 # ---------------------------------------------------------------------------
@@ -1011,6 +1047,170 @@ def test_sinkhorn_plain_empty_pairs_cost_zero():
     assert torch.all(iters[1:] == 2)  # one iteration per level, then frozen
 
 
+def _ragged_problems(kind, p=8, h1=12, h2=10, m=16, seed=5):
+    """Pairs whose valid counts differ widely: one valid word a side, all
+    padded on one side or both, and unequal widths either way."""
+    rng = np.random.default_rng(seed)
+    if kind == "h1_ne_h2":
+        h1, h2 = 17, 5
+    elif kind == "h2_gt_h1":
+        h1, h2 = 5, 17
+    w1, w2, t1, t2 = _random_problems(rng, p=p, h1=h1, h2=h2, m=m)
+    if kind == "one_word":
+        for w, h in ((w1, h1), (w2, h2)):
+            w[:] = 0.0
+            w[np.arange(p), rng.integers(0, h, size=p)] = 1.0
+    elif kind == "all_padded":
+        w1[1] = 0.0          # no valid row
+        w2[2] = 0.0          # no valid column
+        w1[3] = w2[3] = 0.0  # neither
+        w1[4] = 0.0
+        w1[4, h1 - 1] = 1.0  # one valid row, at the last slot
+    elif kind == "mixed":    # 1 .. h valid words, pair by pair
+        for i in range(p):
+            n1, n2 = 1 + i * (h1 - 1) // (p - 1), h2 - i * (h2 - 1) // (p - 1)
+            w1[i, n1:] = 0.0
+            w2[i, n2:] = 0.0
+            w1[i, :n1] = w1[i, :n1] + 0.1
+            w2[i, :n2] = w2[i, :n2] + 0.1
+            w1[i] /= w1[i].sum()
+            w2[i] /= w2[i].sum()
+    return w1, w2, t1, t2
+
+
+RAGGED = ["one_word", "all_padded", "h1_ne_h2", "h2_gt_h1", "mixed"]
+RAGGED_KW = dict(eps=0.05, eps_scaling=2, max_iters=60)
+
+
+@pytest.mark.parametrize("kind", RAGGED)
+def test_sinkhorn_plain_matches_pallas_on_ragged_pairs(kind):
+    w1, w2, t1, t2 = _ragged_problems(kind)
+    want = np.asarray(jops.sinkhorn_wmd(
+        jnp.asarray(t1), jnp.asarray(w1), jnp.asarray(t2), jnp.asarray(w2),
+        interpret=True, **RAGGED_KW))
+    got, iters = tsk.sinkhorn_plain(_t(t1), _t(w1), _t(t2), _t(w2), **RAGGED_KW)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4)
+    empty = ((w1 > 0).sum(1) == 0) | ((w2 > 0).sum(1) == 0)
+    assert np.all(got.numpy()[empty] == 0.0)
+    # no valid row: one iteration a level; rows but no column: max_iters
+    assert np.all(iters.numpy()[(w1 > 0).sum(1) == 0] == 2)
+    no_col = ((w1 > 0).sum(1) > 0) & ((w2 > 0).sum(1) == 0)
+    assert np.all(iters.numpy()[no_col] == 2 * RAGGED_KW["max_iters"])
+
+
+def test_sinkhorn_valid_words_lists_the_kernels_words():
+    rng = np.random.default_rng(2)
+    w = rng.uniform(-0.2, 1.0, size=(6, 11)).astype(np.float32)
+    w[2] = 0.0
+    w[3] = np.where(np.arange(11) == 10, 0.5, 0.0)
+    idx, cnt = tsk.valid_words(_t(w))
+    assert idx.dtype == torch.int32 and cnt.dtype == torch.int32
+    for p in range(6):
+        want = np.flatnonzero(w[p] > 0)
+        assert cnt[p].item() == len(want)
+        assert np.array_equal(idx[p, :len(want)].numpy(), want)
+        assert sorted(idx[p].tolist()) == list(range(11))  # a permutation
+
+
+def _kernel_update(x, pot, lw, wt):
+    """One potential update as the kernel makes it (csrc/sinkhorn_wmd.cu,
+    ``update``): the sum shifted by pot - lw where it stays in [2^-40,
+    2^64], else a second, max-shifted sum.  x (rows, n)."""
+    if x.shape[1] == 0:
+        return pot.clone(), torch.zeros_like(pot)
+    s = torch.exp2(x + (pot - lw)[:, None]).sum(1)
+    safe = (s >= 2.0 ** -40) & (s <= 2.0 ** 64)
+    mx = x.amax(1)
+    s2 = torch.exp2(x - mx[:, None]).sum(1)
+    new = torch.where(safe, pot - torch.log2(s + 1e-38),
+                      lw - (mx + torch.log2(s2 + 1e-38)))
+    marginal = torch.where(safe, wt * s, torch.exp2(pot + mx) * s2)
+    return new, marginal
+
+
+def _sinkhorn_kernel_order(t1, w1, t2, w2, *, eps, eps_scaling, eps_start=1.0,
+                           max_iters, tol=1e-5, bf16=False):
+    """The kernel's algorithm in plain PyTorch, pair by pair: the valid
+    words only, base 2 (u = f K, v = g K with K = log2(e) / eps, rescaled
+    between levels), two sweeps an iteration (the row sweep gives the last
+    iteration's row marginal and the f update), one-sweep shifted sums
+    with the max-shifted fallback, the final plan's cost per row as its
+    scale times sum(plan * cost)."""
+    levels = tsk.eps_schedule(eps, eps_scaling, eps_start)
+    ks = [torch.tensor(tsk.LOG2E / e, dtype=torch.float32) for e in levels]
+    i1, c1 = tsk.valid_words(w1)
+    i2, c2 = tsk.valid_words(w2)
+    costs, iters = [], []
+    for p in range(t1.shape[0]):
+        r, c = i1[p, :c1[p]].long(), i2[p, :c2[p]].long()
+        a, b = w1[p, r], w2[p, c]
+        x1, x2 = t1[p, r], t2[p, c]
+        a2, b2 = (x1 * x1).sum(1), (x2 * x2).sum(1)
+        if bf16:
+            x1, x2 = tdist.bf16_round(x1), tdist.bf16_round(x2)
+        cost = torch.sqrt(torch.clamp(a2[:, None] + b2[None, :] - 2.0 * x1 @ x2.T,
+                                      min=0.0))
+        la2 = torch.log2(torch.clamp(a, min=1e-38))
+        lb2 = torch.log2(torch.clamp(b, min=1e-38))
+        masked = w1[p][~(w1[p] > 0)].abs().sum()
+        u, v = torch.zeros_like(a), torch.zeros_like(b)
+        total = 0
+        for li, k in enumerate(ks):
+            if li:
+                ratio = k / ks[li - 1]
+                u, v = u * ratio, v * ratio
+            it = 0
+            while it < max_iters:
+                un, marginal = _kernel_update(v[None, :] - cost * k, u, la2, a)
+                if it > 0 and not bool((marginal - a).abs().sum() + masked > tol):
+                    break
+                u = un
+                v, _ = _kernel_update(u[None, :] - cost.T * k, v, lb2,
+                                      torch.ones_like(b))
+                it += 1
+            total += it
+        x = u[:, None] + v[None, :] - cost * ks[-1]
+        if x.numel():
+            pj = torch.exp2(x - x.amax(1, keepdim=True))
+            costs.append((a / torch.clamp(pj.sum(1), min=1e-30)
+                          * (pj * cost).sum(1)).sum())
+        else:
+            costs.append(torch.zeros(()))
+        iters.append(total)
+    return torch.stack(costs), torch.tensor(iters, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("case", [f"cfg{i}" for i in range(len(CONFIGS))]
+                         + RAGGED + ["bf16", "max_iters_0"])
+def test_sinkhorn_kernel_order_matches_plain_and_pallas(case):
+    """The kernel's merged two-sweep, base-2 iteration with shifted sums
+    gives the plain version's costs and iteration counts, and the Pallas
+    kernel's costs."""
+    bf16 = case == "bf16"
+    if case.startswith("cfg"):
+        kw = CONFIGS[int(case[3:])]
+        w1, w2, t1, t2 = _random_problems(np.random.default_rng(0))
+    else:
+        kw = dict(RAGGED_KW, max_iters=0) if case == "max_iters_0" else RAGGED_KW
+        w1, w2, t1, t2 = (_ragged_problems(case) if case in RAGGED else
+                          _random_problems(np.random.default_rng(1), p=6))
+    args = tuple(map(_t, (t1, w1, t2, w2)))
+    got, it = _sinkhorn_kernel_order(*args, bf16=bf16, **kw)
+    want, want_it = tsk.sinkhorn_plain(*args, bf16_matmul=bf16, **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-4)
+    # Counts agree where the stop does not hinge on float noise: no valid
+    # row (one iteration a level), rows but no column (max_iters a level),
+    # max_iters = 0.  Where the L1 error hovers near tol the two sum orders
+    # may stop a few (at tol 1e-5, a few hundred) iterations apart.
+    n1, n2 = (w1 > 0).sum(1), (w2 > 0).sum(1)
+    fixed = torch.tensor((n1 == 0) | (n2 == 0)) | (kw["max_iters"] == 0)
+    assert torch.equal(it[fixed], want_it[fixed])
+    ref = np.asarray(jops.sinkhorn_wmd(
+        *map(jnp.asarray, (t1, w1, t2, w2)), bf16_matmul=bf16, interpret=True,
+        **kw))
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-4)
+
+
 @pytest.mark.parametrize("args", [(0.01, 4, 1.0), (0.05, 2, 1.0), (0.1, 1, 1.0),
                                   (0.02, 3, 0.5)])
 def test_eps_schedule_matches_reference(args):
@@ -1369,4 +1569,8 @@ def test_kernel_sources_and_build_contract():
         for fn, argtypes in fns.items():
             assert f'extern "C" int {fn}(' in src
             assert argtypes[-1] is _build.P  # the stream comes last
+    for name, fns in _build.QUERIES.items():
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        for fn in fns:
+            assert f'extern "C" int {fn}(' in src
     assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch_kernels")
