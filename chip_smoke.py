@@ -14,11 +14,25 @@ Phases, each of which exits non-zero on failure:
 2. small: a small corpus through the engine on the card and on the CPU
    (plain versions): one-sided, dense symmetric, both streaming top-ks,
    the rerank and the pruned cascade must agree.
-3. kernels: on the slice's corpus, each kernel at the shapes the main path
+3. gather-scale-scatter (before the corpus): ``ops.segment_spmm`` at the
+   ogb_products cell (2,449,029 nodes, 61,859,140 edges, 100 features)
+   with degree-0 rows and padding edges, against its plain version on the
+   card, bit for bit against the CPU plain version on the first rows, and
+   beside
+   ``torch.sparse.mm`` of the CSR adjacency; the kernel given the
+   wrapper's row offsets (no search of dst) at 16, 32 and 64 rows a warp,
+   bit-equal; the feat bytes gathered and their rate, the 32-byte sectors
+   they cover and that floor at the HBM rate; the call's time when one row
+   holds 1% of the edges (a hub); a whole trace of the call.
+4. kernels: on the slice's corpus, each kernel at the shapes the main path
    gives it against its plain PyTorch version on the card, with the stated
    tolerance; its time beside the plain version's, the library yardstick's
    where one PyTorch call computes the same function, and its bound on an
    H100 SXM.  Phase 1 also reports its TFLOP/s over the valid query words;
+   the ELL SpMM its nonzero slots, the Z bytes they gather and the rate,
+   the share of those slots that the 600 most frequent ids hold, and its
+   time at the vocabulary-chunk shape of ``lc_rwmd_streaming(fuse="scan")``
+   (chunk-relative ids, Z of (512, 64)) on chunk 0 and a mid chunk;
    the fused top-k its GB/s, the merge launches' share of its device time
    (``torch.profiler``), and must return values equal bit for bit to the
    SpMM's D at the ids it returns; its partial launch through the 32-bit
@@ -34,7 +48,7 @@ Phases, each of which exits non-zero on failure:
    ``max_iters = 0`` (its cost tile and final plan alone) beside the full
    run, with its mean iterations and their agreement with the plain
    version's.
-4. slice: the synthetic corpus at the paper's Table IV set 2 statistics
+5. slice: the synthetic corpus at the paper's Table IV set 2 statistics
    (h_max 48, mean h 27.5, m 300) resident in one engine; a batch of 64
    resident docs goes through the README quickstart (one-sided streaming
    top-32, Sinkhorn rerank to top-5, every query's top-1 is itself),
@@ -44,11 +58,11 @@ Phases, each of which exits non-zero on failure:
    Then per-call times after warm-up (``symmetric_topk_streaming`` k=20
    too), the peak device memory, a ``torch.profiler`` breakdown of
    ``topk_streaming``, the quickstart, ``one_sided`` and
-   ``pruned_wmd_topk`` (which must show no host-to-device copy), and the
+   ``pruned_wmd_topk`` (which must show no host-to-device copy), the
    device time of one
    ``symmetric_topk_streaming`` call split into B1 / d21 / B3 / other (it
-   fails if a cuBLAS GEMM ran there).
-5. comparison: the paper's comparison path on the same corpus, with the
+   fails if a cuBLAS GEMM ran there), and a whole trace of ``one_sided``.
+6. comparison: the paper's comparison path on the same corpus, with the
    counts reset just before and read just after: phase 2 by each SpMM
    formulation (blocked, dense, naive) on the engine's Z, the vocab-streamed
    one-sided LC-RWMD (``fuse="kernel"`` and ``"scan"``, vocab chunk 512), the
@@ -61,9 +75,11 @@ Phases, each of which exits non-zero on failure:
    version at 160 words a doc (Table IV set 1's h_max), the batched Sinkhorn
    and ``wmd_one_vs_many`` against the Sinkhorn-WMD kernel (at settings
    where they converge), and the kernel's gap to the exact EMD on 16 pairs;
-   one line compares the quadratic RWMD's time with LC-RWMD's.  The
-   engine of phases 3-5 is freed before the next phases.
-6. flash attention: the kernel against its plain version at llama3.2-1b's
+   the ELL SpMM's launches and device time inside one ``"scan"`` call
+   (``torch.profiler``); one line compares the quadratic RWMD's time with
+   LC-RWMD's.  The
+   engine of phases 4-6 is freed before the next phases.
+7. flash attention: the kernel against its plain version at llama3.2-1b's
    heads (B=4, S=T=4,096, 32 query and 8 KV heads, dh 64), causal in bf16
    and f32, non-causal, at a length that is not a tile multiple, and with
    S=4,000 queries over T=4,096 keys, non-causal (a ragged KV tail; bf16
@@ -71,11 +87,6 @@ Phases, each of which exits non-zero on failure:
    largest error over its row's largest output), and on the probe whose
    output shows that p is rounded to bf16; its time and TFLOP/s beside
    ``scaled_dot_product_attention``'s (bf16, and f32 with TF32 off).
-7. gather-scale-scatter: ``ops.segment_spmm`` at the ogb_products cell
-   (2,449,029 nodes, 61,859,140 edges, 100 features) with degree-0 rows and
-   padding edges, against its plain version on the card, bit for bit
-   against the CPU plain version on the first rows, and beside
-   ``torch.sparse.mm`` of the CSR adjacency.
 8. llama3.2-1b at full width (random weights from a seed): one 32,768-token
    prompt through ``forward_with_cache`` (flash attention in all 16 layers,
    counted) and 32 greedy ``decode_step``s; prefill and decode times, peak
@@ -192,6 +203,14 @@ KERNEL_SOURCES = {
     "segment_spmm": ("src/repro_torch/csrc/segment_spmm.cu",
                      "src/repro/kernels/segment_spmm.py:66"),
 }
+
+
+# Figures beyond the contract's that the kernels line carries for a kernel:
+# B2's gathers and its time at the vocabulary-chunk shape, B9's gathers,
+# sector floor and time given row offsets.
+EXTRA = {"spmm_ell": ("nnz", "gathered_gb", "gathered_tbps", "hot_share",
+                      "scan_chunks", "scan_call"),
+         "segment_spmm": ("info",)}
 
 
 def fail(msg: str) -> None:
@@ -348,15 +367,56 @@ def kernel_phase(engine, q, report):
         fail(f"spmm_ell: |dD| exceeds 1e-5 + 1e-5*|D| (max {err.max().item()})")
     csr = csr_of(r_ids, r_w, v_e)
     nnz = csr.values().numel()
-    bnd, by = bound_ms(n * h1 * 8 + v_e * B * 4 + n * B * 4, 2.0 * nnz * B)
-    report["spmm_ell"] = dict(
+    # bytes: every weight, the ids of the nonzero slots (the only ones the
+    # sum needs), Z and D once
+    bnd, by = bound_ms(n * h1 * 4 + nnz * 4 + v_e * B * 4 + n * B * 4,
+                       2.0 * nnz * B)
+    r2 = report["spmm_ell"] = dict(
         max_abs_err=err.max().item(), tol="1e-5 + 1e-5*|D|",
         ms=time_ms(lambda: sp.spmm_ell_cuda(r_ids, r_w, z1)),
         plain_ms=time_ms(lambda: sp.spmm_ell_plain(r_ids, r_w, z1), 2),
         library_ms=time_ms(lambda: torch.sparse.mm(csr, z1)),
         bound_ms=bnd, bound_by=by)
-    log(f"kernel spmm_ell: max |dD| {report['spmm_ell']['max_abs_err']:.3e} "
-        f"within 1e-5 + 1e-5*|D|")
+    # The Z rows gathered (nnz * B * 4 bytes, from L2 or L1) and their rate;
+    # the share of the nonzero slots whose id is among the H most frequent,
+    # H Z rows filling 150 KB of shared memory.
+    r2["nnz"] = nnz
+    r2["gathered_gb"] = nnz * B * 4 / 1e9
+    r2["gathered_tbps"] = r2["gathered_gb"] / r2["ms"]
+    hot = 150 * 1024 // (B * 4)
+    freq = torch.bincount(r_ids[r_w != 0].long(), minlength=v_e)
+    r2["hot_rows"] = hot
+    r2["hot_share"] = float(freq.topk(hot).values.sum()) / nnz
+    # the vocabulary-chunk shape of lc_rwmd_streaming(fuse="scan"): the
+    # resident ids made relative to a chunk of VOCAB_CHUNK words (most
+    # slots zero-weight), Z of (VOCAB_CHUNK, B)
+    f_ids, f_w = engine.resident.ids, engine.resident.weights
+    v_full = engine.emb_full.shape[0]
+    zc = torch.rand(VOCAB_CHUNK, B, device=z1.device)
+    r2["scan_chunks"] = {}
+    for name, lo in (("chunk0", 0),
+                     ("mid", (v_full // VOCAB_CHUNK // 2) * VOCAB_CHUNK)):
+        c_ids, c_w = fs.chunk_relative(f_ids, f_w, lo, VOCAB_CHUNK)
+        d_c = sp.spmm_ell_cuda(c_ids, c_w, zc)
+        err_c = (d_c - sp.spmm_ell_plain(c_ids, c_w, zc)).abs()
+        if not bool((err_c <= 1e-5 + 1e-5 * d_c.abs()).all()):
+            fail(f"spmm_ell at the chunk shape ({name}): |dD| exceeds 1e-5 + "
+                 f"1e-5*|D| (max {err_c.max().item()})")
+        nnz_c = int((c_w != 0).sum())
+        bnd_c, _ = bound_ms(n * h1 * 4 + nnz_c * 4 + VOCAB_CHUNK * B * 4
+                            + n * B * 4, 2.0 * nnz_c * B)
+        r2["scan_chunks"][name] = dict(
+            lo=lo, nnz=nnz_c, max_abs_err=err_c.max().item(), bound_ms=bnd_c,
+            ms=time_ms(lambda: sp.spmm_ell_cuda(c_ids, c_w, zc), 10))
+        del c_ids, c_w, d_c, err_c
+    log(f"kernel spmm_ell: max |dD| {r2['max_abs_err']:.3e} within 1e-5 + "
+        f"1e-5*|D|; {r2['ms']:.4f} ms, {bnd / r2['ms']:.3f} of its {by} bound "
+        f"{bnd:.4f} ms; {nnz} nonzero slots gather {r2['gathered_gb']:.2f} GB "
+        f"of Z rows at {r2['gathered_tbps']:.2f} TB/s; the {hot} most "
+        f"frequent ids hold {r2['hot_share']:.3f} of the slots; sparse.mm "
+        f"{r2['library_ms']:.4f} ms; at the scan chunk shape: " + ", ".join(
+            f"{k} {c['ms']:.4f} ms ({c['nnz']} slots, bound {c['bound_ms']:.4f})"
+            for k, c in r2["scan_chunks"].items()))
     del d_p, err
 
     # --- B3: phase 2 folded into the streaming top-k ---
@@ -696,6 +756,17 @@ def comparison_phase(engine, q, cand, report):
             fail(f"lc_rwmd_streaming(fuse={name!r}) differs from one_sided by "
                  f"{(d - d1).abs().max().item()} (rtol 1e-4, atol "
                  f"{gram_atol:.3e})")
+    # B2 inside the "scan" call: its launches and device time there
+    before = _build.LAUNCHES["spmm_ell"]
+    _, dev_us, b2_us, _ = profile_one(lambda: lc_rwmd_streaming(
+        docs, q, emb, vocab_chunk=VOCAB_CHUNK, fuse="scan"), "spmm_ell_kernel")
+    n_b2 = _build.LAUNCHES["spmm_ell"] - before
+    report["spmm_ell"]["scan_call"] = dict(
+        launches=n_b2, device_ms=dev_us / 1e3, spmm_ell_ms=b2_us / 1e3,
+        ms_per_chunk=b2_us / 1e3 / max(n_b2, 1))
+    log(f"spmm_ell in lc_rwmd_streaming(fuse='scan'): {n_b2} launches, "
+        f"{b2_us / 1e3:.3f} of {dev_us / 1e3:.3f} device ms (torch.profiler), "
+        f"{b2_us / 1e3 / max(n_b2, 1):.4f} ms a chunk")
     log(f"lc_rwmd_streaming: kernel and scan within rtol 1e-4, atol "
         f"{gram_atol:.3e} (gram floor) of one_sided over all {n} rows (max |dD| "
         f"{(d_kernel - d1).abs().max().item():.3e} / "
@@ -917,10 +988,12 @@ def profile_calls(calls: dict) -> dict:
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+            time.sleep(PROFILE_PAD_S)
         rows = []
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:
@@ -1189,11 +1262,73 @@ def segment_phase(frac: float, dev) -> dict:
         plain_ms=time_ms(lambda: sg.segment_spmm_plain(src, dst, feat, rad, n), 1),
         library_ms=time_ms(lambda: torch.sparse.mm(csr, feat)),
         bound_ms=bnd, bound_by=by, launches=launches)
+    del csr
+    # The kernel given the wrapper's row offsets (no search of dst) at a few
+    # rows a warp, each bit-equal to the entry point's output.
+    lib = _build.lib(sg.NAME)
+    stream = torch.cuda.current_stream().cuda_stream
+    alt = torch.empty_like(out)
+    vec = sg.vector_width(d, feat.data_ptr(), alt.data_ptr())
+
+    def launch(rows_w, offsets):
+        _build.check(lib.launch_segment_spmm(
+            src.data_ptr(), dst.data_ptr(), offsets, feat.data_ptr(),
+            rad.data_ptr(), alt.data_ptr(), n, e, d, vec, rows_w, stream),
+            sg.NAME)
+
+    given = {}
+    for rows_w in (16, sg.ROWS_PER_WARP, 64):
+        for name, offsets in (("search", None), ("offsets", off.data_ptr())):
+            alt.fill_(float("nan"))
+            launch(rows_w, offsets)
+            if not torch.equal(alt, out):
+                fail(f"segment_spmm at {rows_w} rows a warp ({name}) differs "
+                     "from the entry point's output")
+            given[f"{name}_rows{rows_w}_ms"] = time_ms(
+                lambda: launch(rows_w, offsets))
+    del alt
+    # A skewed degree distribution: one row (a hub) takes a contiguous 1% of
+    # the sorted edges, which stay sorted.  Its sum is one warp's chain.
+    k_hub = e // 100
+    mid = e // 2
+    dst_hub = dst.clone()
+    dst_hub[mid - k_hub // 2: mid - k_hub // 2 + k_hub] = dst[mid]
+    hub_ms = time_ms(lambda: ops.segment_spmm(src, dst_hub, feat, rad, n), 2)
+    del dst_hub
+    # Bytes: the feat rows gathered by edge, and the 32-byte sectors they
+    # cover (a row at byte s * 4D spans its first to its last sector).
+    row_b = 4 * d
+    s64 = src.long() * row_b
+    sectors = int(((s64 + row_b - 1) // 32 - s64 // 32 + 1).sum())
+    del s64
     info = dict(n_nodes=n, n_edges=e, d=d, max_degree=int(deg.max()),
                 degree0_rows=int((deg == 0).sum()),
                 row_offsets_ms=time_ms(lambda: sg.row_offsets(dst, n)),
+                kernel_given_offsets_ms=given[
+                    f"offsets_rows{sg.ROWS_PER_WARP}_ms"],
+                rows_sweep=given, vector_width=vec, hub_edges=k_hub,
+                hub_ms=hub_ms,
+                gathered_gb=e * row_b / 1e9,
+                gathered_tbps=e * row_b / 1e9 / rep["ms"],
+                sector_gb=sectors * 32 / 1e9,
+                sector_floor_ms=sectors * 32 / HBM_BYTES_PER_S * 1e3,
                 sparse_mm_vs_kernel=lib_err)
     log("segment_spmm: " + json.dumps(info))
+    log(f"kernel segment_spmm: {rep['ms']:.3f} ms (the kernel's own search "
+        f"of dst), {info['kernel_given_offsets_ms']:.3f} ms given row offsets "
+        f"(their pass {info['row_offsets_ms']:.3f} ms); gathers "
+        f"{info['gathered_gb']:.2f} GB at {info['gathered_tbps']:.2f} TB/s, "
+        f"{info['sector_gb']:.2f} GB in sectors: floor "
+        f"{info['sector_floor_ms']:.3f} ms at the HBM rate; bound {bnd:.3f} ms "
+        f"({by}, each input once); sparse.mm {rep['library_ms']:.3f} ms; with "
+        f"one row of {k_hub} edges (1%) {hub_ms:.3f} ms")
+    _, dev_us, top, launched = profile_whole(
+        lambda: ops.segment_spmm(src, dst, feat, rad, n), "ops.segment_spmm",
+        {"segment_spmm": ("segment_spmm_kernel",)})
+    info["profile"] = dict(device_ms=dev_us / 1e3, top=[
+        dict(name=k, device_ms=us / 1e3, count=c) for us, k, c in top[:4]])
+    log(f"profile ops.segment_spmm: device {dev_us / 1e3:.3f} ms: " + ", ".join(
+        f"{k[:50]} {us / 1e3:.3f} ms x{c}" for us, k, c in top[:4]))
     rep["info"] = info
     return {"segment_spmm": rep}
 
@@ -1402,22 +1537,34 @@ def attention_swapped(TM, attend):
 # a trace is taken again, at most PROFILE_TRIES times; a whole trace that
 # lacks a kernel fails at once.
 DROP_SHARE = 0.5
-PROFILE_TRIES = 3
+PROFILE_TRIES = 4
+# Idle seconds at each end of a profiled window, outside the timed call: a
+# kernel record whose timestamps fall outside the window is dropped, and the
+# device's clock may drift from the host's over a long process.  Traces
+# that lost records dropped kernels at the start or the end of the window,
+# and a retry with longer pads came back whole.  A retry of a trace that
+# lost records idles 4 times longer than the last, up to PROFILE_PAD_MAX_S.
+PROFILE_PAD_S = 0.5
+PROFILE_PAD_MAX_S = 8.0
 
 
-def profile_one(fn, match: str):
+def profile_one(fn, match: str, pad: float = 0.0):
     """torch.profiler over one call: (wall us, device us, device us of the
-    kernels whose name holds ``match``, [(us, name, count)] by device time)."""
+    kernels whose name holds ``match``, [(us, name, count)] by device time).
+    ``pad``: idle seconds at each end of the window (PROFILE_PAD_S if 0)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    pad = pad or PROFILE_PAD_S
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad)
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        time.sleep(pad)
     del out
     dev_us = hit_us = 0.0
     top = []
@@ -1435,25 +1582,29 @@ def profile_one(fn, match: str):
     return wall_us, dev_us, hit_us, top
 
 
-def profile_whole(fn, what: str, families: dict):
+def profile_whole(fn, what: str, families: dict, busy: bool = True):
     """torch.profiler over one call until its trace is whole: (wall us,
     device us, [(us, name, count)] by device time, {kernel: launches} of
     the call).  ``families`` maps a launch-count name to the names its
-    kernels have in a trace."""
+    kernels have in a trace; ``busy=False`` for a call whose host work
+    leaves the card idle much of the time, so that only a missing kernel
+    marks a loss."""
     from repro_torch.kernels import _build
 
     for attempt in range(1, PROFILE_TRIES + 1):
         before = dict(_build.LAUNCHES)
-        wall_us, dev_us, _, top = profile_one(fn, "")
+        pad = min(PROFILE_PAD_S * 4 ** (attempt - 1), PROFILE_PAD_MAX_S)
+        wall_us, dev_us, _, top = profile_one(fn, "", pad)
         launched = {k: c - before.get(k, 0) for k, c in _build.LAUNCHES.items()
                     if c > before.get(k, 0)}
         lost = [k for k, keys in families.items() if launched.get(k, 0) and not
                 any(us > 0 and any(key in name for key in keys)
                     for us, name, _ in top)]
         share = dev_us / wall_us
-        if share >= DROP_SHARE and not lost:
+        if (share >= DROP_SHARE or not busy) and not lost:
             return wall_us, dev_us, top, launched
-        log(f"{what} profile, trace {attempt} of at most {PROFILE_TRIES} lost "
+        log(f"{what} profile, trace {attempt} of at most {PROFILE_TRIES} "
+            f"({pad} s idle at each end) lost "
             f"records: {dev_us / 1e3:.2f} device ms of a {wall_us / 1e3:.1f} ms "
             f"call (busy share {share:.3f}); launched {launched}, none in the "
             f"trace: {lost}; by device time: {top[:6]}")
@@ -1508,7 +1659,7 @@ def _gap(a, b) -> dict:
 
 
 def lcrwmd_phases(scale: float) -> dict:
-    """Phases 3-5 on one LC-RWMD corpus; returns the kernel report of B1-B7.
+    """Phases 4-6 on one LC-RWMD corpus; returns the kernel report of B1-B7.
 
     Everything the phases build (the 40 GB engine above all) is freed when
     this returns.
@@ -1536,12 +1687,12 @@ def lcrwmd_phases(scale: float) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     q = docs[:B]
 
-    # 3. kernels against their plain versions
+    # 4. kernels against their plain versions
     report: dict = {}
     kernel_phase(engine, q, report)
     torch.cuda.empty_cache()
 
-    # 4. the slice: main path, counts reset just before and read just after
+    # 5. the slice: main path, counts reset just before and read just after
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -1610,8 +1761,19 @@ def lcrwmd_phases(scale: float) -> dict:
              f"{profiles['pruned_wmd_topk_k5']}")
     sym_split = symmetric_split(
         lambda: engine.symmetric_topk_streaming(q, 4 * K_FINAL))
+    # one_sided's device time by kernel: B1 (prep and GEMM) and B2
+    wall_us, dev_us, top, _ = profile_whole(
+        lambda: engine.one_sided(q), "one_sided",
+        {"lc_rwmd_phase1": ("phase1_",), "spmm_ell": ("spmm_ell_kernel",)},
+        busy=False)
+    profiles["one_sided_whole"] = dict(
+        wall_ms=wall_us / 1e3, device_ms=dev_us / 1e3, top=[
+            dict(name=k, device_ms=us / 1e3, count=c) for us, k, c in top[:6]])
+    log(f"profile one_sided (whole): wall {wall_us / 1e3:.3f} ms, device "
+        f"{dev_us / 1e3:.3f} ms: " + ", ".join(
+            f"{k[:50]} {us / 1e3:.3f} ms x{c}" for us, k, c in top[:6]))
 
-    # 5. the paper's comparison path (its own launch counts)
+    # 6. the paper's comparison path (its own launch counts)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     comp = comparison_phase(engine, q, cand, report)
@@ -1662,17 +1824,21 @@ def main() -> int:
     # 2. small-size agreement, card vs CPU (cheap; before the big corpus)
     small_phase()
 
-    # 3-5. the LC-RWMD slice and comparison path; the engine is freed after
+    # 3. gather-scale-scatter (B9), early: its profile is one kernel
+    frac = min(1.0, args.scale / 0.25)
+    dev = torch.device("cuda")
+    seg = segment_phase(frac, dev)
+    torch.cuda.empty_cache()
+
+    # 4-6. the LC-RWMD slice and comparison path; the engine is freed after
     report = lcrwmd_phases(args.scale)
+    report.update(seg)
     torch.cuda.empty_cache()
     log(f"LC-RWMD phases freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         "still allocated")
 
-    # 6-8. attention (B8), gather-scale-scatter (B9), llama3.2-1b serving
-    frac = min(1.0, args.scale / 0.25)
-    dev = torch.device("cuda")
+    # 7-8. attention (B8), llama3.2-1b serving
     report.update(flash_phase(frac, dev))
-    report.update(segment_phase(frac, dev))
     lm = llama_phase(frac, dev)
     report["flash_attention"]["launches"] = lm["launches"]["flash_attention"]
 
@@ -1685,6 +1851,8 @@ def main() -> int:
             ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
+        if name in EXTRA:
+            kernels[-1]["extra"] = {k: r[k] for k in EXTRA[name]}
     log("llama3.2-1b: " + json.dumps(lm))
     log("tolerances: " + json.dumps({k: r["tol"] for k, r in report.items()}))
     log(f"total after the build: {time.perf_counter() - t_start:.1f} s")

@@ -6,105 +6,215 @@
 // scalar prefetch steers the feat row to gather (src) and the output row to
 // accumulate into (dst), and the first edge of a row initialises it.
 //
-// What bounds it: memory.  Each edge reads its src, its rad and one feat
-// row; each output row is written once.  Counting each input once, that is
-// 12 bytes per edge (src, dst, rad) plus feat and out; the feat rows
-// gathered by edge are E * D * 4 bytes (24.7 GB at the ogbn-products cell),
-// and a feat table of ~1 GB does not stay in the 50 MB L2, so the gathers
-// run at the rate of scattered 400-byte reads from HBM.
+// What bounds it: memory.  Counting each input once, that is 12 bytes per
+// edge (src, dst, rad) plus feat and out (0.81 ms at the ogbn-products
+// cell).  But the feat rows are gathered by edge: E * D * 4 bytes (24.7 GB
+// there), from a table of ~1 GB that the 50 MB L2 does not hold, with src
+// uniform, so nearly every row comes from HBM.  A 400-byte row at offset
+// s * 400 covers 13 or 14 sectors of 32 bytes (~416 bytes on average):
+// 25.7 GB, a floor of 7.7 ms at 3.35 TB/s.  What the card reaches on such
+// scattered rows, not the number of rows in flight, sets the time: 4, 8
+// or 16 rows in flight a warp and 16-byte or 4-byte loads ran within a few
+// percent of one another, and L2 prefetch hints of 128 or 256 bytes ran
+// slower (more bytes).
 //
-// Design: the wrapper turns the sorted dst into row offsets (searchsorted),
-// so the kernel never reads dst.  One warp per destination row; the lanes
-// run over D (4 columns each per pass of 128).  The warp loads 32 edges'
-// src and rad at once, one per lane, and broadcasts them by shuffle; the
-// feat rows of 4 edges are loaded before they are added, so 4 gathers are
-// in flight.  The sum runs in ascending edge order, the TPU grid's order,
-// as out = out + rad * feat with a separately rounded multiply and add
-// (__fmul_rn, __fadd_rn), from 0.  No atomics: the result is deterministic.
-// A row with no edge is written 0.  A long row (a hub, or the sink row of
-// the padding edges) is one warp's serial work: power-law degrees are the
-// known weakness of this first design.
+// Design: one warp owns ROWS (an argument) consecutive destination rows.
+// It finds its first edge itself, by a lane-parallel search of the sorted
+// dst (32 probes a step), and walks from there until an edge's dst
+// reaches the next warp's rows, so no offsets pass runs before the kernel
+// (a caller may still pass row offsets, which the kernel then reads in
+// place of the search).  The warp walks its edges in order, 32 at a time
+// (lane p holds edge p's src, dst and rad; the next 32 are loaded ahead),
+// and gathers the feat rows of UNROLL edges before it adds any of them,
+// across row boundaries.  The lanes run over the columns: 16-byte loads
+// (float4) when D % 4 == 0 and the tensors are 16-byte aligned (25 of 32
+// lanes at D = 100, one pass), 4-byte loads otherwise, up to NV vectors a
+// lane per pass over the row.  When the edge's dst changes the finished
+// row is stored and the rows that no edge reaches are written 0, so every
+// row of the warp's range is written once, with no memset.  The sum of a
+// row runs in ascending edge order, the TPU grid's order, as
+// out = out + rad * feat with a separately rounded multiply and add
+// (__fmul_rn, __fadd_rn), from 0.  No atomics: the result is
+// deterministic.  A long row (a hub, or the sink row of the padding edges)
+// stays one warp's serial chain, UNROLL rows in flight at a time.
 
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int COLS = 4;    // columns per lane per pass
-constexpr int UNROLL = 4;  // feat rows in flight per warp
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARPS = 8;   // warps per CTA
+constexpr int UNROLL = 8;  // edges whose feat rows are in flight per warp
 
+// First index e in [lo, hi) with dst[e] >= key, or hi; dst ascending.  Each
+// step probes the last element of 32 equal buckets, one per lane, and keeps
+// the first bucket whose last element reaches key.
+__device__ int lower_bound_warp(const int* __restrict__ dst, int lo, int hi,
+                                int key, int lane) {
+  while (hi - lo > 32) {
+    const long long len = hi - lo;
+    const long long step = (len + 31) / 32;
+    const long long pos = lo + min((lane + 1) * step, len) - 1;
+    const int k = __popc(__ballot_sync(FULL, __ldg(dst + pos) < key));
+    const long long nlo = lo + k * step;
+    hi = (int)min(nlo + step, (long long)hi);
+    lo = (int)min(nlo, (long long)hi);
+  }
+  const bool below = lo + lane < hi && __ldg(dst + lo + lane) < key;
+  return lo + __popc(__ballot_sync(FULL, below));
+}
+
+__device__ __forceinline__ void madd(float& a, float r, float f) {
+  a = __fadd_rn(a, __fmul_rn(r, f));
+}
+__device__ __forceinline__ void madd(float4& a, float r, float4 f) {
+  madd(a.x, r, f.x);
+  madd(a.y, r, f.y);
+  madd(a.z, r, f.z);
+  madd(a.w, r, f.w);
+}
+__device__ __forceinline__ void zero(float& a) { a = 0.f; }
+__device__ __forceinline__ void zero(float4& a) { a = make_float4(0.f, 0.f, 0.f, 0.f); }
+
+// T is float4 (the vector route) or float; the lanes own vectors
+// c0 + lane + 32 j, j < NV, of each row's nv vectors.
+template <typename T, int NV>
 __global__ void __launch_bounds__(WARPS * 32)
 segment_spmm_kernel(const int* __restrict__ src,     // (E,)
-                    const int* __restrict__ off,     // (n_out + 1,)
-                    const float* __restrict__ feat,  // (N, D)
+                    const int* __restrict__ dst,     // (E,), ascending
+                    const int* __restrict__ off,     // (n_out + 1,) or null
+                    const T* __restrict__ feat,      // (N, nv)
                     const float* __restrict__ rad,   // (E,)
-                    float* __restrict__ out,         // (n_out, D)
-                    int n_out, int d) {
+                    T* __restrict__ out,             // (n_out, nv)
+                    int n_out, int n_edges, int nv, int rows) {
   const int lane = threadIdx.x % 32;
-  const long long row = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
-  if (row >= n_out) return;
-  const int e0 = off[row];
-  const int e1 = off[row + 1];
-  float* orow = out + (size_t)row * d;
-  for (int c0 = 0; c0 < d; c0 += 32 * COLS) {
-    float acc[COLS];
+  const long long r0l = ((long long)blockIdx.x * WARPS + threadIdx.x / 32) * rows;
+  if (r0l >= n_out) return;
+  const int r0 = (int)r0l;
+  const int r1 = (int)min(r0l + rows, (long long)n_out);
+  // the warp's first edge; its last is found by walking: the first edge
+  // whose dst reaches r1 ends the range
+  const int e0 = off != nullptr ? off[r0]
+                                : lower_bound_warp(dst, 0, n_edges, r0, lane);
+
+  for (int c0 = 0; c0 < nv; c0 += 32 * NV) {
+    T acc[NV];
 #pragma unroll
-    for (int j = 0; j < COLS; ++j) acc[j] = 0.f;
-    for (int b0 = e0; b0 < e1; b0 += 32) {
-      const int e = b0 + lane;
-      const int my_src = e < e1 ? src[e] : 0;
-      const float my_rad = e < e1 ? rad[e] : 0.f;
-      const int nb = min(32, e1 - b0);
-      int p = 0;
-      for (; p + UNROLL <= nb; p += UNROLL) {
-        float r[UNROLL];
-        float f[UNROLL][COLS];
+    for (int j = 0; j < NV; ++j) zero(acc[j]);
+    int row = -1;   // the row being summed, -1 before the first edge
+    int next = r0;  // the first row not yet written
+    auto store = [&](int r, bool sum) {
+      T* orow = out + (size_t)r * nv;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int c = c0 + lane + 32 * j;
+        if (c < nv) {
+          T v;
+          zero(v);
+          orow[c] = sum ? acc[j] : v;
+        }
+      }
+    };
+    // edges b0 .. b0 + 31, lane p holding edge b0 + p (dst INT_MAX past
+    // the edges); the next 32 loaded ahead
+    int n_src = 0, n_dst = INT_MAX;
+    float n_rad = 0.f;
+    if (e0 + lane < n_edges) {
+      n_src = __ldg(src + e0 + lane);
+      n_dst = __ldg(dst + e0 + lane);
+      n_rad = __ldg(rad + e0 + lane);
+    }
+    for (int b0 = e0; b0 < n_edges; b0 += 32) {
+      const int my_src = n_src, my_dst = n_dst;
+      const float my_rad = n_rad;
+      const int e = b0 + 32 + lane;
+      n_dst = INT_MAX;
+      if (e < n_edges) {
+        n_src = __ldg(src + e);
+        n_dst = __ldg(dst + e);
+        n_rad = __ldg(rad + e);
+      }
+      // the batch's edges of this warp's rows: a prefix, dst being sorted
+      const int nb = __popc(__ballot_sync(FULL, my_dst < r1));
+      for (int p = 0; p < nb; p += UNROLL) {
+        T f[UNROLL][NV];
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
-          const int s = __shfl_sync(0xffffffffu, my_src, p + u);
-          r[u] = __shfl_sync(0xffffffffu, my_rad, p + u);
-          const float* fr = feat + (size_t)s * d;
+          const int s = __shfl_sync(FULL, my_src, (p + u) % 32);
+          const T* fr = feat + (size_t)s * nv;
 #pragma unroll
-          for (int j = 0; j < COLS; ++j) {
-            const int col = c0 + j * 32 + lane;
-            f[u][j] = col < d ? fr[col] : 0.f;
+          for (int j = 0; j < NV; ++j) {
+            const int c = c0 + lane + 32 * j;
+            if (p + u < nb && c < nv) f[u][j] = __ldg(fr + c);
+            else zero(f[u][j]);
           }
         }
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u)
+        for (int u = 0; u < UNROLL; ++u) {
+          if (p + u >= nb) break;  // warp-uniform
+          const int d = __shfl_sync(FULL, my_dst, p + u);
+          const float r = __shfl_sync(FULL, my_rad, p + u);
+          if (d != row) {  // warp-uniform: a row ends
+            if (row >= 0) {
+              store(row, true);
+              next = row + 1;
+            }
+            for (; next < d; ++next) store(next, false);
+            row = d;
 #pragma unroll
-          for (int j = 0; j < COLS; ++j)
-            acc[j] = __fadd_rn(acc[j], __fmul_rn(r[u], f[u][j]));
-      }
-      for (; p < nb; ++p) {
-        const int s = __shfl_sync(0xffffffffu, my_src, p);
-        const float rv = __shfl_sync(0xffffffffu, my_rad, p);
-        const float* fr = feat + (size_t)s * d;
+            for (int j = 0; j < NV; ++j) zero(acc[j]);
+          }
 #pragma unroll
-        for (int j = 0; j < COLS; ++j) {
-          const int col = c0 + j * 32 + lane;
-          const float fv = col < d ? fr[col] : 0.f;
-          acc[j] = __fadd_rn(acc[j], __fmul_rn(rv, fv));
+          for (int j = 0; j < NV; ++j) madd(acc[j], r, f[u][j]);
         }
       }
+      if (nb < 32) break;
     }
-#pragma unroll
-    for (int j = 0; j < COLS; ++j) {
-      const int col = c0 + j * 32 + lane;
-      if (col < d) orow[col] = acc[j];
+    if (row >= 0) {
+      store(row, true);
+      next = row + 1;
     }
+    for (; next < r1; ++next) store(next, false);
   }
+}
+
+template <typename T, int NV>
+cudaError_t launch(const void* src, const void* dst, const void* off,
+                   const void* feat, const void* rad, void* out, int n_out,
+                   int n_edges, int nv, int rows, cudaStream_t stream) {
+  const long long warps = ((long long)n_out + rows - 1) / rows;
+  const long long grid = (warps + WARPS - 1) / WARPS;
+  segment_spmm_kernel<T, NV><<<(unsigned)grid, WARPS * 32, 0, stream>>>(
+      (const int*)src, (const int*)dst, (const int*)off, (const T*)feat,
+      (const float*)rad, (T*)out, n_out, n_edges, nv, rows);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int launch_segment_spmm(const void* src, const void* off,
-                                   const void* feat, const void* rad, void* out,
-                                   int n_out, int d, void* stream) {
+// vec: 4 for the float4 route (d % 4 == 0, feat and out 16-byte aligned),
+// 1 for 4-byte loads; rows: destination rows per warp; off: row offsets
+// (n_out + 1,) or null, for the kernel to search dst itself.
+extern "C" int launch_segment_spmm(const void* src, const void* dst,
+                                   const void* off, const void* feat,
+                                   const void* rad, void* out, int n_out,
+                                   int n_edges, int d, int vec, int rows,
+                                   void* stream) {
   if (n_out <= 0 || d <= 0) return (int)cudaGetLastError();
-  const int grid = (n_out + WARPS - 1) / WARPS;
-  segment_spmm_kernel<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const int*)src, (const int*)off, (const float*)feat, (const float*)rad,
-      (float*)out, n_out, d);
-  return (int)cudaGetLastError();
+  if (rows < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (vec == 4) {
+    if (d % 4 != 0 || (uintptr_t)feat % 16 != 0 || (uintptr_t)out % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    const int nv = d / 4;
+    return (int)(nv <= 32
+        ? launch<float4, 1>(src, dst, off, feat, rad, out, n_out, n_edges, nv, rows, s)
+        : launch<float4, 2>(src, dst, off, feat, rad, out, n_out, n_edges, nv, rows, s));
+  }
+  if (vec != 1) return (int)cudaErrorInvalidValue;
+  return (int)(d <= 32
+      ? launch<float, 1>(src, dst, off, feat, rad, out, n_out, n_edges, d, rows, s)
+      : launch<float, 4>(src, dst, off, feat, rad, out, n_out, n_edges, d, rows, s));
 }

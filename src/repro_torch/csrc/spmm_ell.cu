@@ -5,19 +5,33 @@
 // (_spmm_blocked_kernel), with spmm_ell_kernel (blocked, the default).  There
 // scalar prefetch steered one Z-row DMA per doc and slot.
 //
-// What bounds it: memory.  Each doc row reads h ids and h weights and
-// writes B outputs; the Z rows it gathers are v_e*B*4 bytes in all (18.7 MB
-// at v_e=73,123, B=64), which fit the H100's 50 MB L2, so the gathers hit
-// L2 and the HBM floor is the ids/weights read plus the D write
-// (~269 MB + ~179 MB at n=700,000, h=48, B=64).
+// What bounds it: each doc row reads h weights, the ids of its nonzero
+// slots and writes B outputs from HBM (~134 MB + ~77 MB + ~179 MB at
+// n=700,000, h=48, B=64: 0.12 ms at 3.35 TB/s); the Z rows it gathers,
+// nnz*B*4 bytes (~4.9 GB there), come from a Z of v_e*B*4 bytes (18.7 MB)
+// that stays in the 50 MB L2, the frequent words' rows also in L1.  The
+// first design (a warp per row, one slot a step, a shuffle, test and
+// branch for every slot, zero-weight or not) spent its time issuing
+// instructions.  More Z rows in flight alone did not help: a warp that took
+// the next 8 or 16 nonzero slots out of a ballot mask bit by bit (a serial
+// chain of find-first-set and clear) ran slower than the first design, and
+// slower the more it took at once.
 //
-// Design: one warp per doc row, 8 rows per CTA.  The warp loads the row's
-// ids and weights once, 32 slots at a time (lane p holds slot p), and
-// broadcasts them by shuffle; the lanes run over the B query columns, so
-// each gathered Z row is read as consecutive 4-byte words by consecutive
-// lanes.  A slot whose weight is 0 is skipped, which is exact because Z is
-// finite.  Each lane keeps up to 4 columns in registers; wider batches loop
-// over column chunks of 128.
+// Design: one warp per doc row, 8 rows per CTA.  The warp loads 64 of the
+// row's weights at a time, two a lane, lists the nonzero ones by
+// __ballot_sync, and each lane writes its nonzero slots' (id, weight) at
+// their rank into the warp's 512 bytes of shared memory: one pass, no
+// serial chain, and ids are read only for nonzero slots (the vocabulary
+// chunk calls, where most slots are zero-weight, read few ids).  Then it
+// takes the list U = 4 at a time, each entry a broadcast shared-memory
+// read: the U Z rows are gathered, each lane loading its CW adjacent
+// columns as one 8- or 16-byte load where B allows (a Z row of B = 64 is
+// one 256-byte load of the warp), and added to the columns' fmaf chains in
+// slot order.  Zero-weight slots cost no step, which is exact because Z is
+// finite.  Wider batches loop over column chunks of 128, wider rows over
+// pieces of 64 slots; a row of at most 64 slots and 32 * CW columns (the
+// main path's h = 48, B = 64) takes an instance without those loops, which
+// the card ran faster.
 //
 // spmm_ell_dense_kernel also replaces the TPU kernel
 // src/repro/kernels/spmm_ell.py, spmm_ell_dense_pallas (_spmm_dense_kernel),
@@ -58,49 +72,120 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 
+constexpr unsigned FULL = 0xffffffffu;
+
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int COLS = 4;  // columns per lane per chunk
+constexpr int WARPS = 8;   // warps (doc rows) per CTA of the blocked kernel
+constexpr int SLOTS = 64;  // ELL slots a warp lists at once, two a lane
+constexpr int U = 4;       // Z rows in flight per warp
 
+// A lane's CW adjacent columns [col, col + CW) of a row: one CW-float load
+// or store when VEC (B % CW == 0, aligned), else CW 4-byte ones.
+template <int CW, bool VEC>
+__device__ __forceinline__ void load_cols(const float* __restrict__ p, int col,
+                                          int b, float (&x)[CW]) {
+  if constexpr (VEC && CW == 4) {
+    const float4 t = col < b ? __ldg(reinterpret_cast<const float4*>(p))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else if constexpr (VEC && CW == 2) {
+    const float2 t = col < b ? __ldg(reinterpret_cast<const float2*>(p))
+                             : make_float2(0.f, 0.f);
+    x[0] = t.x, x[1] = t.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < CW; ++j) x[j] = col + j < b ? __ldg(p + j) : 0.f;
+  }
+}
+
+template <int CW, bool VEC>
+__device__ __forceinline__ void store_cols(float* __restrict__ p, int col,
+                                           int b, const float (&x)[CW]) {
+  if constexpr (VEC && CW == 4) {
+    if (col < b) *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (VEC && CW == 2) {
+    if (col < b) *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < CW; ++j)
+      if (col + j < b) p[j] = x[j];
+  }
+}
+
+// One warp per doc row; the row in pieces of SLOTS slots, two a lane, and
+// in column chunks of 32 * CW.  ONE: a single piece and chunk (h <= SLOTS,
+// B <= 32 * CW), the loops gone at compile time.
+template <int CW, bool VEC, bool ONE>
 __global__ void __launch_bounds__(WARPS * 32)
 spmm_ell_kernel(const int* __restrict__ ids,   // (n, h)
                 const float* __restrict__ w,   // (n, h)
                 const float* __restrict__ z,   // (v, B)
                 float* __restrict__ out,       // (n, B)
                 int n, int h, int b) {
+  __shared__ int2 listed[WARPS][SLOTS];  // (id, weight bits) by rank
   const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * WARPS + threadIdx.x / 32;
-  if (row >= n) return;
+  const int warp = threadIdx.x / 32;
+  const int row = blockIdx.x * WARPS + warp;
+  if (row >= n) return;  // no CTA-wide barrier below
   const int* ir = ids + (size_t)row * h;
   const float* wr = w + (size_t)row * h;
-  for (int c0 = 0; c0 < b; c0 += 32 * COLS) {
-    float acc[COLS];
+  int2* buf = listed[warp];
+  const unsigned below = (1u << lane) - 1;
+  for (int c0 = 0; ONE ? c0 == 0 : c0 < b; c0 += 32 * CW) {
+    const int col = c0 + lane * CW;
+    float acc[CW];
 #pragma unroll
-    for (int j = 0; j < COLS; ++j) acc[j] = 0.f;
-    for (int p0 = 0; p0 < h; p0 += 32) {
-      const int p = p0 + lane;
-      const int my_id = p < h ? ir[p] : 0;
-      const float my_w = p < h ? wr[p] : 0.f;
-      const int np = min(32, h - p0);
-      for (int pp = 0; pp < np; ++pp) {
-        const float wv = __shfl_sync(0xffffffffu, my_w, pp);
-        const int id = __shfl_sync(0xffffffffu, my_id, pp);
-        if (wv == 0.f) continue;  // warp-uniform
-        const float* zr = z + (size_t)id * b;
+    for (int j = 0; j < CW; ++j) acc[j] = 0.f;
+    for (int p0 = 0; ONE ? p0 == 0 : p0 < h; p0 += SLOTS) {
+      const int pa = p0 + lane, pb = pa + 32;
+      const float wa = pa < h ? __ldg(wr + pa) : 0.f;
+      const float wb = pb < h ? __ldg(wr + pb) : 0.f;
+      // both ids in flight before either is stored
+      const int ia = wa != 0.f ? __ldg(ir + pa) : 0;
+      const int ib = wb != 0.f ? __ldg(ir + pb) : 0;
+      const unsigned ma = __ballot_sync(FULL, wa != 0.f);
+      const unsigned mb = __ballot_sync(FULL, wb != 0.f);
+      const int nz = __popc(ma) + __popc(mb);
+      if (nz == 0) continue;  // warp-uniform
+      // the nonzero slots, listed in slot order: rank = nonzero slots before
+      if (wa != 0.f) buf[__popc(ma & below)] = make_int2(ia, __float_as_int(wa));
+      if (wb != 0.f) buf[__popc(ma) + __popc(mb & below)] = make_int2(ib, __float_as_int(wb));
+      __syncwarp();
+      for (int g = 0; g < nz; g += U) {
+        float wv[U], zv[U][CW];
 #pragma unroll
-        for (int j = 0; j < COLS; ++j) {
-          const int c = c0 + lane + 32 * j;
-          if (c < b) acc[j] = fmaf(wv, zr[c], acc[j]);
+        for (int u = 0; u < U; ++u) {
+          if (g + u < nz) {  // warp-uniform
+            const int2 e = buf[g + u];
+            wv[u] = __int_as_float(e.y);
+            load_cols<CW, VEC>(z + (size_t)e.x * b + col, col, b, zv[u]);
+          }
         }
-      }
-    }
 #pragma unroll
-    for (int j = 0; j < COLS; ++j) {
-      const int c = c0 + lane + 32 * j;
-      if (c < b) out[(size_t)row * b + c] = acc[j];
+        for (int u = 0; u < U; ++u)
+          if (g + u < nz)
+#pragma unroll
+            for (int j = 0; j < CW; ++j) acc[j] = fmaf(wv[u], zv[u][j], acc[j]);
+      }
+      __syncwarp();  // the list is read before the next piece writes it
     }
+    store_cols<CW, VEC>(out + (size_t)row * b + col, col, b, acc);
   }
+}
+
+template <int CW, bool VEC>
+cudaError_t launch_blocked(const void* ids, const void* w, const void* z,
+                           void* out, int n, int h, int b,
+                           cudaStream_t stream) {
+  const int grid = (n + WARPS - 1) / WARPS;
+  if (h <= SLOTS && b <= 32 * CW)
+    spmm_ell_kernel<CW, VEC, true><<<grid, WARPS * 32, 0, stream>>>(
+        (const int*)ids, (const float*)w, (const float*)z, (float*)out, n, h, b);
+  else
+    spmm_ell_kernel<CW, VEC, false><<<grid, WARPS * 32, 0, stream>>>(
+        (const int*)ids, (const float*)w, (const float*)z, (float*)out, n, h, b);
+  return cudaGetLastError();
 }
 
 constexpr int DENSE_WARPS = 8;        // doc rows per CTA, one warp each
@@ -108,7 +193,6 @@ constexpr int DENSE_BV_SHIFT = 9;     // vocab rows per subtile: 512
 constexpr int DENSE_COLS = 4;         // columns per lane per chunk of 128
 constexpr int DENSE_REG_H = 64;       // rows this wide sort in registers
 constexpr int DENSE_MAX_H = 2048;
-constexpr unsigned FULL = 0xffffffffu;
 
 // Shared memory of one CTA for rows wider than DENSE_REG_H: per warp, its
 // row's sort keys, then its nonzero slots' ids and weights, sorted.
@@ -301,13 +385,22 @@ __global__ void spmm_ell_naive_kernel(const int* __restrict__ ids,   // (n, h)
 
 }  // namespace
 
+// cw: adjacent columns a lane owns (1, 2 or 4; chunks of 32 * cw columns);
+// vec: load and store them as one vector (B % cw == 0, z and out aligned).
 extern "C" int launch_spmm_ell(const void* ids, const void* w, const void* z,
-                               void* out, int n, int h, int b, void* stream) {
+                               void* out, int n, int h, int b, int cw, int vec,
+                               void* stream) {
   if (n <= 0 || b <= 0) return (int)cudaGetLastError();
-  spmm_ell_kernel<<<(n + WARPS - 1) / WARPS, WARPS * 32, 0,
-                    (cudaStream_t)stream>>>(
-      (const int*)ids, (const float*)w, (const float*)z, (float*)out, n, h, b);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (vec && b % cw != 0) return (int)cudaErrorInvalidValue;
+  if (cw == 1) return (int)launch_blocked<1, false>(ids, w, z, out, n, h, b, s);
+  if (cw == 2)
+    return (int)(vec ? launch_blocked<2, true>(ids, w, z, out, n, h, b, s)
+                     : launch_blocked<2, false>(ids, w, z, out, n, h, b, s));
+  if (cw == 4)
+    return (int)(vec ? launch_blocked<4, true>(ids, w, z, out, n, h, b, s)
+                     : launch_blocked<4, false>(ids, w, z, out, n, h, b, s));
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int launch_spmm_ell_dense(const void* ids, const void* w,

@@ -58,8 +58,8 @@ SIGNATURES = {
         "launch_lc_rwmd_phase1": [P, P, P, P, P, P, I, I, I, I, I, P],
     },
     "spmm_ell": {
-        # ids, w, z, out, n, h, b, stream
-        "launch_spmm_ell": [P, P, P, P, I, I, I, P],
+        # ids, w, z, out, n, h, b, columns a lane, vector loads, stream
+        "launch_spmm_ell": [P, P, P, P, I, I, I, I, I, P],
         # ids, w, z, out, n, h, v, b, stream
         "launch_spmm_ell_dense": [P, P, P, P, I, I, I, I, P],
         # ids, w, z, out, n, h, b, stream
@@ -96,8 +96,9 @@ SIGNATURES = {
         "launch_flash_attention": [P, P, P, P, I, I, I, I, I, I, I, I, I, F, P],
     },
     "segment_spmm": {
-        # src, row offsets, feat, rad, out, n_out, d, stream
-        "launch_segment_spmm": [P, P, P, P, P, I, I, P],
+        # src, dst, row offsets (or null: searched in dst), feat, rad, out,
+        # n_out, n_edges, d, floats a load (4 or 1), rows a warp, stream
+        "launch_segment_spmm": [P, P, P, P, P, P, I, I, I, I, I, P],
     },
 }
 

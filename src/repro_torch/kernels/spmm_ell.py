@@ -3,8 +3,10 @@
 Three formulations, as in the reference, each a CUDA kernel in
 ``csrc/spmm_ell.cu`` beside its plain PyTorch version:
 
-* blocked (:func:`spmm_ell`), replacing ``spmm_ell_pallas``: one warp per
-  doc row gathers its Z rows;
+* blocked (:func:`spmm_ell`), replacing ``spmm_ell_pallas``: a warp per
+  doc row lists the row's nonzero slots in shared memory (ballot and rank)
+  and gathers their Z rows four at a time, each lane its
+  :func:`column_plan` columns;
 * dense (:func:`spmm_ell_dense`), replacing ``spmm_ell_dense_pallas``: a
   warp buckets its row's nonzero slots by vocab subtile and adds them
   subtile by subtile in ascending order, each subtile's partial sum into
@@ -33,6 +35,16 @@ def spmm_ell_plain(ids: torch.Tensor, w: torch.Tensor,
     return torch.einsum("nh,nhb->nb", w, z[ids.long()])
 
 
+def column_plan(b: int, *ptrs: int) -> tuple[int, bool]:
+    """How the blocked kernel's lanes cover B columns: ``(cw, vec)``, each
+    lane owning ``cw`` adjacent columns of a chunk of ``32 * cw`` (1 up to
+    B = 32, 2 up to 64, else 4, chunks of 128), loaded as one vector when
+    ``vec``: B a multiple of ``cw`` and every pointer aligned to it."""
+    cw = 1 if b <= 32 else 2 if b <= 64 else 4
+    vec = b % cw == 0 and all(p % (4 * cw) == 0 for p in ptrs)
+    return cw, vec
+
+
 def spmm_ell_cuda(ids: torch.Tensor, w: torch.Tensor,
                   z: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel: ids int32 / w f32 (n, h), z f32 (v, B)."""
@@ -40,12 +52,13 @@ def spmm_ell_cuda(ids: torch.Tensor, w: torch.Tensor,
     n, h = ids.shape
     b = z.shape[1]
     out = torch.empty((n, b), dtype=torch.float32, device=z.device)
+    cw, vec = column_plan(b, z.data_ptr(), out.data_ptr())
     lib = _build.lib(NAME)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.launch_spmm_ell(
             ids.data_ptr(), w.data_ptr(), z.data_ptr(), out.data_ptr(),
-            n, h, b, stream)
+            n, h, b, cw, int(vec), stream)
     _build.check(code, NAME)
     _build.LAUNCHES[NAME] += 1
     return out

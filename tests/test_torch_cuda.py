@@ -689,6 +689,139 @@ def test_segment_spmm_kernel_matches_plain(cuda):
     assert bool((got[:-1][~alive] == 0).all()) and bool((got[-1] == 0).all())
 
 
+def _graph(g, n, e, *, hub=0, first_empty=False, sink=300, isolated=0.05):
+    """Edges sorted by dst: uniform rows but a share of degree-0 rows, an
+    optional hub row of ``hub`` more edges, row 0 without an edge if
+    ``first_empty``, and ``sink`` padding edges (rad 0) to the last row."""
+    alive = torch.rand(n - 1, generator=g) >= isolated
+    if first_empty:
+        alive[0] = False
+    cand = alive.nonzero()[:, 0].to(torch.int32)
+    dst = cand[torch.randint(0, cand.numel(), (e,), generator=g)]
+    if hub:
+        dst = torch.cat([dst, cand[cand.numel() // 2].repeat(hub)])
+    dst = torch.cat([torch.sort(dst).values,
+                     torch.full((sink,), n - 1, dtype=torch.int32)])
+    src = torch.randint(0, n, (dst.numel(),), generator=g, dtype=torch.int32)
+    rad = torch.rand(dst.numel(), generator=g) * 0.9 + 0.1
+    rad[dst.numel() - sink:] = 0.0
+    return src, dst, rad, alive
+
+
+def _segment_launch(src, dst, feat, rad, n_out, *, rows, off=None, vec=None):
+    """The kernel's launcher with a chosen rows-a-warp and optional offsets."""
+    out = torch.empty((n_out, feat.shape[1]), device=feat.device)
+    if vec is None:
+        vec = tseg.vector_width(feat.shape[1], feat.data_ptr(), out.data_ptr())
+    lib = _build.lib(tseg.NAME)
+    _build.check(lib.launch_segment_spmm(
+        src.data_ptr(), dst.data_ptr(), None if off is None else off.data_ptr(),
+        feat.data_ptr(), rad.data_ptr(), out.data_ptr(), n_out, src.numel(),
+        feat.shape[1], vec, rows, torch.cuda.current_stream().cuda_stream),
+        tseg.NAME)
+    return out
+
+
+@pytest.mark.parametrize("d", [1, 3, 100, 128, 129, 256])
+def test_segment_spmm_kernel_bit_equal_at_any_width(cuda, d):
+    """Degree-0 rows, a hub row of 50,000 edges, the sink row's padding
+    edges and a first row with no edge, at widths of both routes (16-byte
+    loads where d % 4 == 0), each bit-equal to the CPU plain version."""
+    g = torch.Generator().manual_seed(d)
+    n = 3000
+    src, dst, rad, alive = _graph(g, n, 40_000, hub=50_000, first_empty=True)
+    feat = torch.randn(n, d, generator=g)
+    want = tseg.segment_spmm_plain(src, dst, feat, rad, n)
+    args = [x.to(cuda) for x in (src, dst, feat, rad)]
+    got = tseg.segment_spmm_cuda(*args, n).cpu()
+    assert torch.equal(got, want)
+    assert not got[0].any() and not got[-1].any()
+    assert not got[:-1][~alive].any()
+    # other warp ranges and the wrapper's row offsets read in place of the
+    # kernel's search: the same sums
+    off = tseg.row_offsets(args[1], n)
+    for rows, o in ((1, None), (7, off), (tseg.ROWS_PER_WARP, off)):
+        assert torch.equal(_segment_launch(*args, n, rows=rows, off=o).cpu(),
+                           want)
+
+
+def test_segment_spmm_kernel_scalar_route_and_empty_graphs(cuda):
+    """A feat 16-byte misaligned takes the 4-byte route at D = 100; a graph
+    whose edges reach only the last row, and one with no edge at all."""
+    g = torch.Generator().manual_seed(3)
+    n, d = 2000, 100
+    src, dst, rad, _ = _graph(g, n, 20_000)
+    buf = torch.randn(n * d + 1, generator=g)
+    feat = buf.to(cuda)[1:].view(n, d)
+    assert tseg.vector_width(d, feat.data_ptr()) == 1
+    want = tseg.segment_spmm_plain(src, dst, buf[1:].view(n, d), rad, n)
+    got = tseg.segment_spmm_cuda(src.to(cuda), dst.to(cuda), feat,
+                                 rad.to(cuda), n)
+    assert torch.equal(got.cpu(), want)
+    feat = torch.randn(n, d, generator=g)
+    for src, dst, rad in (
+            (torch.arange(5, dtype=torch.int32), torch.full((5,), n - 1,
+             dtype=torch.int32), torch.ones(5)),
+            (torch.zeros(0, dtype=torch.int32),) * 2 + (torch.zeros(0),)):
+        want = tseg.segment_spmm_plain(src, dst, feat, rad, n)
+        got = tseg.segment_spmm_cuda(src.to(cuda), dst.to(cuda), feat.to(cuda),
+                                     rad.to(cuda), n).cpu()
+        assert torch.equal(got, want)
+
+
+def _blocked_case(rng, n, h, v, b):
+    """An ELL set with rows of no valid slot, ids 0 and v - 1 in use, and a
+    Z that is finite; padding slots anywhere in a row."""
+    ids, w = _ell(rng, n, h, v, pad=0.5)
+    ids[::5, 0], ids[1::5, -1] = 0, v - 1
+    w[::7] = 0.0                      # rows with no valid slot
+    z = torch.tensor(rng.normal(size=(v, b)).astype(np.float32))
+    return ids, w, z
+
+
+@pytest.mark.parametrize("h", [1, 31, 33, 48, 160])
+@pytest.mark.parametrize("b", [1, 20, 64, 65, 130])
+def test_spmm_blocked_kernel_bit_equal_to_naive_and_fused_topk(cuda, b, h):
+    """B2 at every lane plan (1, 2 or 4 columns a lane, vector or 4-byte
+    loads, column chunks past 128) and ELL widths of one, two and three
+    64-slot pieces: within 1e-5 of the plain version, bit-equal to the seed
+    kernel (B6b) and to the fused top-k's values (B3)."""
+    rng = np.random.default_rng(b * 1000 + h)
+    ids, w, z = (x.to(cuda) for x in _blocked_case(rng, 4001, h, 900, b))
+    d = tsp.spmm_ell_cuda(ids, w, z)
+    torch.testing.assert_close(d, tsp.spmm_ell_plain(ids, w, z), rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(d, tsp.spmm_ell_naive_cuda(ids, w, z))
+    assert not d[::7].any()
+    v, i = tfs.phase2_topk_cuda(ids, w, z, 16)
+    assert torch.equal(v, d.T.gather(1, i.long()))
+
+
+def test_spmm_blocked_kernel_unaligned_z_and_chunk_shape(cuda):
+    """A Z 8-byte misaligned at B = 64 (2 columns a lane, 4-byte loads), and
+    the vocabulary-chunk call's shape: chunk-relative ids into a Z of
+    (512, 64), most slots zero-weight."""
+    rng = np.random.default_rng(11)
+    ids, w, z = _blocked_case(rng, 3000, 48, 900, 64)
+    ids, w = ids.to(cuda), w.to(cuda)
+    buf = torch.zeros(900 * 64 + 1, device=cuda)
+    zu = buf[1:].view(900, 64)
+    zu.copy_(z.to(cuda))
+    assert tsp.column_plan(64, zu.data_ptr()) == (2, False)
+    d = tsp.spmm_ell_cuda(ids, w, zu)
+    assert torch.equal(d, tsp.spmm_ell_naive_cuda(ids, w, zu))
+    assert torch.equal(d, tsp.spmm_ell_cuda(ids, w, z.to(cuda)))
+    r_ids = torch.tensor(rng.integers(0, 73_123, size=(20_000, 48)).astype(
+        np.int32), device=cuda)
+    r_w = torch.rand(20_000, 48, device=cuda)
+    zc = torch.rand(512, 64, device=cuda)
+    c_ids, c_w = tfs.chunk_relative(r_ids, r_w, 36_352, 512)
+    d = tsp.spmm_ell_cuda(c_ids, c_w, zc)
+    assert torch.equal(d, tsp.spmm_ell_naive_cuda(c_ids, c_w, zc))
+    torch.testing.assert_close(d, tsp.spmm_ell_plain(c_ids, c_w, zc),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_transformer_prefill_runs_b8_and_matches_plain_attention(cuda,
                                                                 monkeypatch):
     cfg = tconfig.TransformerConfig(

@@ -1521,6 +1521,175 @@ def test_segment_spmm_zero_degree_rows_and_sink_padding():
     assert off.tolist() == [0, 2, 2, 3, 3, 3, 3, 3, 5]
 
 
+def _lower_bound_warp(dst, lo, hi, key):
+    """B9's search of the sorted dst on the CPU: each step probes the last
+    element of 32 equal buckets (one a lane) and keeps the first bucket
+    whose last element reaches ``key``.  Returns (index, steps)."""
+    steps = 0
+    while hi - lo > 32:
+        length = hi - lo
+        step = (length + 31) // 32
+        k = sum(int(dst[lo + min((lane + 1) * step, length) - 1] < key)
+                for lane in range(32))
+        nlo = lo + k * step
+        hi = min(nlo + step, hi)
+        lo = min(nlo, hi)
+        steps += 1
+    return lo + sum(int(lo + lane < hi and dst[lo + lane] < key)
+                    for lane in range(32)), steps
+
+
+def _segment_kernel_order(src, dst, feat, rad, n_out, rows):
+    """B9's walk on the CPU, in float32: a warp owns ``rows`` rows, finds
+    its first edge by the search and walks on until an edge's dst reaches
+    the next warp's rows, adds each edge's rad * feat row to its row's sum
+    in edge order (product and sum rounded apart), stores a row when the
+    dst changes and writes 0 to the rows no edge reaches.  The UNROLL rows
+    in flight do not change that order.  Returns the output and how many
+    times each row was written."""
+    f32 = np.float32
+    out = np.full((n_out, feat.shape[1]), np.nan, f32)
+    writes = np.zeros(n_out, np.int64)
+
+    def store(r, v):
+        out[r] = v
+        writes[r] += 1
+
+    for r0 in range(0, n_out, rows):
+        r1 = min(r0 + rows, n_out)
+        e = _lower_bound_warp(dst, 0, len(dst), r0)[0]
+        acc, row, nxt = None, -1, r0
+        for e in range(e, len(dst)):
+            if dst[e] >= r1:
+                break
+            if dst[e] != row:
+                if row >= 0:
+                    store(row, acc)
+                    nxt = row + 1
+                for r in range(nxt, dst[e]):
+                    store(r, 0.0)
+                row, acc = dst[e], np.zeros(feat.shape[1], f32)
+            acc = acc + f32(rad[e]) * feat[src[e]]
+        if row >= 0:
+            store(row, acc)
+            nxt = row + 1
+        for r in range(nxt, r1):
+            store(r, 0.0)
+    return out, writes
+
+
+@pytest.mark.parametrize("kind", ["runs", "sparse_keys", "empty"])
+def test_segment_lower_bound_warp_matches_searchsorted(kind):
+    """The kernel's search (the first edge it finds in place of the
+    wrapper's row_offsets pass) against np.searchsorted, with keys below, inside,
+    between and above the values, and long runs of one value."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "runs":      # a hub of 5,000 edges among short rows
+        dst = np.sort(np.concatenate([rng.integers(0, 400, 3000),
+                                      np.full(5000, 123)]))
+    elif kind == "sparse_keys":
+        dst = np.sort(rng.integers(0, 10**6, 20_000) * 7)
+    else:
+        dst = np.zeros(0, np.int64)
+    keys = np.unique(np.concatenate([
+        [-1, 0, 1, 123, 124], rng.integers(-5, int(dst.max(initial=0)) + 5, 200),
+        [int(dst.max(initial=0)) + 1]]))
+    for key in keys:
+        want = int(np.searchsorted(dst, key, side="left"))
+        got, steps = _lower_bound_warp(dst, 0, len(dst), int(key))
+        assert got == want
+        assert steps <= max(1, int(np.ceil(np.log(max(len(dst), 2)) / np.log(32))))
+        lo = want // 2   # a search from a known lower end, as for e1
+        assert _lower_bound_warp(dst, lo, len(dst), int(key))[0] == want
+
+
+@pytest.mark.parametrize("rows", [1, 3, 32])
+@pytest.mark.parametrize("d", [1, 5])
+def test_segment_kernel_order_matches_plain(rows, d):
+    """B9's walk writes every row once and equals the plain version bit for
+    bit (the CPU adds in edge order): degree-0 rows, a first row with no
+    edge, a hub row and the sink row's padding edges."""
+    rng = np.random.default_rng(rows * 10 + d)
+    n = 97
+    alive = rng.random(n - 1) > 0.2
+    alive[0] = False
+    rows_alive = np.flatnonzero(alive)
+    dst = np.sort(np.concatenate([rng.choice(rows_alive, 600),
+                                  np.full(300, rows_alive[len(rows_alive) // 2])]))
+    dst = np.concatenate([dst, np.full(20, n - 1)]).astype(np.int32)
+    src = rng.integers(0, n, len(dst)).astype(np.int32)
+    rad = rng.uniform(0.1, 1, len(dst)).astype(np.float32)
+    rad[-20:] = 0.0
+    feat = rng.normal(size=(n, d)).astype(np.float32)
+    got, writes = _segment_kernel_order(src, dst, feat, rad, n, rows)
+    assert (writes == 1).all()
+    want = tseg.segment_spmm_plain(*map(_t, (src, dst, feat, rad)), n).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert not got[0].any() and not got[-1].any()
+
+
+def test_segment_vector_width():
+    """16-byte loads only for D % 4 == 0 and 16-byte aligned pointers."""
+    assert tseg.vector_width(100, 0, 256) == 4
+    assert tseg.vector_width(128) == 4
+    for d, ptrs in ((1, ()), (3, ()), (129, ()), (100, (4,)), (100, (0, 8))):
+        assert tseg.vector_width(d, *ptrs) == 1
+
+
+@pytest.mark.parametrize("b", [1, 2, 20, 32, 33, 63, 64, 65, 127, 128, 130, 256,
+                               301])
+def test_spmm_column_plan_covers_every_column_once(b):
+    """The blocked kernel's lanes: each column of B in exactly one lane's
+    cw adjacent columns of one chunk of 32 * cw; vector loads only where B
+    is a multiple of cw and the pointers are aligned to cw floats."""
+    for ptrs in ((0, 256), (4, 0), (8, 16)):
+        cw, vec = tsp.column_plan(b, *ptrs)
+        assert cw == (1 if b <= 32 else 2 if b <= 64 else 4)
+        assert vec == (b % cw == 0 and all(p % (4 * cw) == 0 for p in ptrs))
+        cols = [c0 + lane * cw + j for c0 in range(0, b, 32 * cw)
+                for lane in range(32) for j in range(cw) if c0 + lane * cw + j < b]
+        assert sorted(cols) == list(range(b))
+        assert -(-b // (32 * cw)) == (1 if b <= 128 else -(-b // 128))
+
+
+def _blocked_kernel_order(ids, w, z, slots=64, unroll=8):
+    """B2's order on the CPU: per row, the nonzero slots of each 64-slot
+    piece listed (the ballot), taken ``unroll`` at a time in slot order,
+    each an fmaf into the columns' chains."""
+    n, h = ids.shape
+    out = np.zeros((n, z.shape[1]), np.float32)
+    for i in range(n):
+        acc = np.zeros(z.shape[1], np.float32)
+        for p0 in range(0, h, slots):
+            listed = [p for p in range(p0, min(p0 + slots, h)) if w[i, p] != 0]
+            for g in range(0, len(listed), unroll):
+                for p in listed[g:g + unroll]:
+                    acc = _fma(w[i, p], z[ids[i, p]], acc)
+        out[i] = acc
+    return out
+
+
+def test_spmm_blocked_kernel_order_equals_the_full_fmaf_chain():
+    """Skipping the zero-weight slots leaves every fmaf chain as it is (Z
+    finite), so B2 equals the seed kernel's chain over all slots (B6b) bit
+    for bit; both match the Pallas kernel within rounding."""
+    rng = np.random.default_rng(23)
+    ids, w = _mk_ell(rng, 40, 150, 300, pad=0.6)
+    w[::4] = 0.0
+    z = rng.normal(size=(300, 7)).astype(np.float32)
+    got = _blocked_kernel_order(ids, w, z)
+    full = np.zeros_like(got)
+    for p in range(ids.shape[1]):
+        full = _fma(w[:, p:p + 1], z[ids[:, p]], full)
+    np.testing.assert_array_equal(got, full)
+    want = np.asarray(jops.spmm_ell(jnp.asarray(ids), jnp.asarray(w),
+                                    jnp.asarray(z), mode="blocked",
+                                    interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tsp.spmm_ell_naive_plain(*map(_t, (ids, w, z))),
+                               got, rtol=1e-5, atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # Dispatch: CPU tensors take the plain versions and launch nothing
 # ---------------------------------------------------------------------------
