@@ -14,17 +14,7 @@ Phases, each of which exits non-zero on failure:
 2. small: a small corpus through the engine on the card and on the CPU
    (plain versions): one-sided, dense symmetric, both streaming top-ks,
    the rerank and the pruned cascade must agree.
-3. gather-scale-scatter (before the corpus): ``ops.segment_spmm`` at the
-   ogb_products cell (2,449,029 nodes, 61,859,140 edges, 100 features)
-   with degree-0 rows and padding edges, against its plain version on the
-   card, bit for bit against the CPU plain version on the first rows, and
-   beside
-   ``torch.sparse.mm`` of the CSR adjacency; the kernel given the
-   wrapper's row offsets (no search of dst) at 16, 32 and 64 rows a warp,
-   bit-equal; the feat bytes gathered and their rate, the 32-byte sectors
-   they cover and that floor at the HBM rate; the call's time when one row
-   holds 1% of the edges (a hub); a whole trace of the call.
-4. kernels: on the slice's corpus, each kernel at the shapes the main path
+3. kernels: on the slice's corpus, each kernel at the shapes the main path
    gives it against its plain PyTorch version on the card, with the stated
    tolerance; its time beside the plain version's, the library yardstick's
    where one PyTorch call computes the same function, and its bound on an
@@ -48,7 +38,7 @@ Phases, each of which exits non-zero on failure:
    ``max_iters = 0`` (its cost tile and final plan alone) beside the full
    run, with its mean iterations and their agreement with the plain
    version's.
-5. slice: the synthetic corpus at the paper's Table IV set 2 statistics
+4. slice: the synthetic corpus at the paper's Table IV set 2 statistics
    (h_max 48, mean h 27.5, m 300) resident in one engine; a batch of 64
    resident docs goes through the README quickstart (one-sided streaming
    top-32, Sinkhorn rerank to top-5, every query's top-1 is itself),
@@ -62,7 +52,7 @@ Phases, each of which exits non-zero on failure:
    device time of one
    ``symmetric_topk_streaming`` call split into B1 / d21 / B3 / other (it
    fails if a cuBLAS GEMM ran there), and a whole trace of ``one_sided``.
-6. comparison: the paper's comparison path on the same corpus, with the
+5. comparison: the paper's comparison path on the same corpus, with the
    counts reset just before and read just after: phase 2 by each SpMM
    formulation (blocked, dense, naive) on the engine's Z, the vocab-streamed
    one-sided LC-RWMD (``fuse="kernel"`` and ``"scan"``, vocab chunk 512), the
@@ -78,8 +68,8 @@ Phases, each of which exits non-zero on failure:
    the ELL SpMM's launches and device time inside one ``"scan"`` call
    (``torch.profiler``); one line compares the quadratic RWMD's time with
    LC-RWMD's.  The
-   engine of phases 4-6 is freed before the next phases.
-7. flash attention: the kernel against its plain version at llama3.2-1b's
+   engine of phases 3-5 is freed before the next phases.
+6. flash attention: the kernel against its plain version at llama3.2-1b's
    heads (B=4, S=T=4,096, 32 query and 8 KV heads, dh 64), causal in bf16
    and f32, non-causal, at a length that is not a tile multiple, and with
    S=4,000 queries over T=4,096 keys, non-causal (a ragged KV tail; bf16
@@ -87,6 +77,17 @@ Phases, each of which exits non-zero on failure:
    largest error over its row's largest output), and on the probe whose
    output shows that p is rounded to bf16; its time and TFLOP/s beside
    ``scaled_dot_product_attention``'s (bf16, and f32 with TF32 off).
+7. gather-scale-scatter: ``ops.segment_spmm`` at the ogb_products cell
+   (2,449,029 nodes, 61,859,140 edges, 100 features) with degree-0 rows
+   and padding edges, against its plain version on the card, bit for bit
+   against the CPU plain version on the first rows, and beside
+   ``torch.sparse.mm`` of the CSR adjacency; the feat bytes gathered and
+   their rate, the 32-byte sectors they cover and that floor at the HBM
+   rate; three witnesses of what the card gives such gathers: a Triton
+   kernel that sums the same rows in no order (``tools/gather_witness.py``),
+   the bare gather ``feat[src]`` (``index_select``) and ``embedding_bag``'s
+   weighted sums over the same rows; the call's time when one row holds
+   1% of the edges (a hub); a whole trace of the call.
 8. llama3.2-1b at full width (random weights from a seed): one 32,768-token
    prompt through ``forward_with_cache`` (flash attention in all 16 layers,
    counted) and 32 greedy ``decode_step``s; prefill and decode times, peak
@@ -207,7 +208,7 @@ KERNEL_SOURCES = {
 
 # Figures beyond the contract's that the kernels line carries for a kernel:
 # B2's gathers and its time at the vocabulary-chunk shape, B9's gathers,
-# sector floor and time given row offsets.
+# sector floor and the gather witnesses' times.
 EXTRA = {"spmm_ell": ("nnz", "gathered_gb", "gathered_tbps", "hot_share",
                       "scan_chunks", "scan_call"),
          "segment_spmm": ("info",)}
@@ -1263,30 +1264,32 @@ def segment_phase(frac: float, dev) -> dict:
         library_ms=time_ms(lambda: torch.sparse.mm(csr, feat)),
         bound_ms=bnd, bound_by=by, launches=launches)
     del csr
-    # The kernel given the wrapper's row offsets (no search of dst) at a few
-    # rows a warp, each bit-equal to the entry point's output.
-    lib = _build.lib(sg.NAME)
-    stream = torch.cuda.current_stream().cuda_stream
-    alt = torch.empty_like(out)
-    vec = sg.vector_width(d, feat.data_ptr(), alt.data_ptr())
+    # Witnesses of what the card gives gathers of these rows: a Triton
+    # kernel that reads them in no order and sums them with no chain
+    # (tools/gather_witness.py), the bare gather feat[src] (reads the rows,
+    # writes them out in order), and embedding_bag's weighted sums of the
+    # same rows by CSR row (the same function, its own order of work).
+    sys.path.insert(0, str(ROOT / "tools"))
+    import gather_witness
 
-    def launch(rows_w, offsets):
-        _build.check(lib.launch_segment_spmm(
-            src.data_ptr(), dst.data_ptr(), offsets, feat.data_ptr(),
-            rad.data_ptr(), alt.data_ptr(), n, e, d, vec, rows_w, stream),
-            sg.NAME)
+    # its first programs' sums against the rows', within 1e-5 of the sums
+    # of their magnitudes
+    k = min(e // gather_witness.BLOCK, 1 << 16)
+    sums = gather_witness.gather_sum(src, feat)[:k].double()
+    rows_k = feat[src[:k * gather_witness.BLOCK].long()].double().view(k, -1)
+    if bool(((sums - rows_k.sum(1)).abs() > 1e-5 * rows_k.abs().sum(1)).any()):
+        fail("gather witness: a program's sum is not its rows' sum")
+    del sums, rows_k
+    witness_ms = time_ms(lambda: gather_witness.gather_sum(src, feat))
+    gather_ms = time_ms(lambda: feat.index_select(0, src), 2)
 
-    given = {}
-    for rows_w in (16, sg.ROWS_PER_WARP, 64):
-        for name, offsets in (("search", None), ("offsets", off.data_ptr())):
-            alt.fill_(float("nan"))
-            launch(rows_w, offsets)
-            if not torch.equal(alt, out):
-                fail(f"segment_spmm at {rows_w} rows a warp ({name}) differs "
-                     "from the entry point's output")
-            given[f"{name}_rows{rows_w}_ms"] = time_ms(
-                lambda: launch(rows_w, offsets))
-    del alt
+    def bag():
+        return torch.nn.functional.embedding_bag(
+            src, feat, off, mode="sum", per_sample_weights=rad,
+            include_last_offset=True)
+
+    bag_err = (bag() - out).abs().max().item()
+    bag_ms = time_ms(bag)
     # A skewed degree distribution: one row (a hub) takes a contiguous 1% of
     # the sorted edges, which stay sorted.  Its sum is one warp's chain.
     k_hub = e // 100
@@ -1303,28 +1306,35 @@ def segment_phase(frac: float, dev) -> dict:
     del s64
     info = dict(n_nodes=n, n_edges=e, d=d, max_degree=int(deg.max()),
                 degree0_rows=int((deg == 0).sum()),
-                row_offsets_ms=time_ms(lambda: sg.row_offsets(dst, n)),
-                kernel_given_offsets_ms=given[
-                    f"offsets_rows{sg.ROWS_PER_WARP}_ms"],
-                rows_sweep=given, vector_width=vec, hub_edges=k_hub,
-                hub_ms=hub_ms,
+                vector_width=sg.vector_width(d, feat.data_ptr(), out.data_ptr()),
+                hub_edges=k_hub, hub_ms=hub_ms,
                 gathered_gb=e * row_b / 1e9,
                 gathered_tbps=e * row_b / 1e9 / rep["ms"],
                 sector_gb=sectors * 32 / 1e9,
                 sector_floor_ms=sectors * 32 / HBM_BYTES_PER_S * 1e3,
+                witness_ms=witness_ms,
+                witness_tbps=e * row_b / 1e9 / witness_ms,
+                gather_ms=gather_ms,
+                gather_tbps=2 * e * row_b / 1e9 / gather_ms,
+                embedding_bag_ms=bag_ms,
+                embedding_bag_tbps=e * row_b / 1e9 / bag_ms,
+                embedding_bag_vs_kernel=bag_err,
                 sparse_mm_vs_kernel=lib_err)
     log("segment_spmm: " + json.dumps(info))
-    log(f"kernel segment_spmm: {rep['ms']:.3f} ms (the kernel's own search "
-        f"of dst), {info['kernel_given_offsets_ms']:.3f} ms given row offsets "
-        f"(their pass {info['row_offsets_ms']:.3f} ms); gathers "
+    log(f"kernel segment_spmm: {rep['ms']:.3f} ms; gathers "
         f"{info['gathered_gb']:.2f} GB at {info['gathered_tbps']:.2f} TB/s, "
         f"{info['sector_gb']:.2f} GB in sectors: floor "
         f"{info['sector_floor_ms']:.3f} ms at the HBM rate; bound {bnd:.3f} ms "
-        f"({by}, each input once); sparse.mm {rep['library_ms']:.3f} ms; with "
-        f"one row of {k_hub} edges (1%) {hub_ms:.3f} ms")
+        f"({by}, each input once); sparse.mm {rep['library_ms']:.3f} ms; "
+        f"gather witness {witness_ms:.3f} ms ({info['witness_tbps']:.2f} TB/s "
+        f"of rows); feat[src] {gather_ms:.3f} ms ({info['gather_tbps']:.2f} TB/s read "
+        f"and written); embedding_bag {bag_ms:.3f} ms "
+        f"({info['embedding_bag_tbps']:.2f} TB/s of rows); with one row of "
+        f"{k_hub} edges (1%) {hub_ms:.3f} ms")
+    # one kernel: a trace that holds it is whole, however short the call
     _, dev_us, top, launched = profile_whole(
         lambda: ops.segment_spmm(src, dst, feat, rad, n), "ops.segment_spmm",
-        {"segment_spmm": ("segment_spmm_kernel",)})
+        {"segment_spmm": ("segment_spmm_kernel",)}, busy=False)
     info["profile"] = dict(device_ms=dev_us / 1e3, top=[
         dict(name=k, device_ms=us / 1e3, count=c) for us, k, c in top[:4]])
     log(f"profile ops.segment_spmm: device {dev_us / 1e3:.3f} ms: " + ", ".join(
@@ -1824,21 +1834,17 @@ def main() -> int:
     # 2. small-size agreement, card vs CPU (cheap; before the big corpus)
     small_phase()
 
-    # 3. gather-scale-scatter (B9), early: its profile is one kernel
-    frac = min(1.0, args.scale / 0.25)
-    dev = torch.device("cuda")
-    seg = segment_phase(frac, dev)
-    torch.cuda.empty_cache()
-
-    # 4-6. the LC-RWMD slice and comparison path; the engine is freed after
+    # 3-5. the LC-RWMD slice and comparison path; the engine is freed after
     report = lcrwmd_phases(args.scale)
-    report.update(seg)
     torch.cuda.empty_cache()
     log(f"LC-RWMD phases freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         "still allocated")
 
-    # 7-8. attention (B8), llama3.2-1b serving
+    # 6-8. attention (B8), gather-scale-scatter (B9), llama3.2-1b serving
+    frac = min(1.0, args.scale / 0.25)
+    dev = torch.device("cuda")
     report.update(flash_phase(frac, dev))
+    report.update(segment_phase(frac, dev))
     lm = llama_phase(frac, dev)
     report["flash_attention"]["launches"] = lm["launches"]["flash_attention"]
 

@@ -18,25 +18,25 @@
 // percent of one another, and L2 prefetch hints of 128 or 256 bytes ran
 // slower (more bytes).
 //
-// Design: one warp owns ROWS (an argument) consecutive destination rows.
-// It finds its first edge itself, by a lane-parallel search of the sorted
-// dst (32 probes a step), and walks from there until an edge's dst
-// reaches the next warp's rows, so no offsets pass runs before the kernel
-// (a caller may still pass row offsets, which the kernel then reads in
-// place of the search).  The warp walks its edges in order, 32 at a time
-// (lane p holds edge p's src, dst and rad; the next 32 are loaded ahead),
-// and gathers the feat rows of UNROLL edges before it adds any of them,
-// across row boundaries.  The lanes run over the columns: 16-byte loads
-// (float4) when D % 4 == 0 and the tensors are 16-byte aligned (25 of 32
-// lanes at D = 100, one pass), 4-byte loads otherwise, up to NV vectors a
-// lane per pass over the row.  When the edge's dst changes the finished
-// row is stored and the rows that no edge reaches are written 0, so every
-// row of the warp's range is written once, with no memset.  The sum of a
-// row runs in ascending edge order, the TPU grid's order, as
-// out = out + rad * feat with a separately rounded multiply and add
-// (__fmul_rn, __fadd_rn), from 0.  No atomics: the result is
-// deterministic.  A long row (a hub, or the sink row of the padding edges)
-// stays one warp's serial chain, UNROLL rows in flight at a time.
+// Design: one warp owns ROWS (32) consecutive destination rows.  It finds
+// its first edge itself, by a lane-parallel search of the sorted dst (32
+// probes a step), and walks from there until an edge's dst reaches the
+// next warp's rows, so no offsets pass runs before the kernel.  The warp
+// walks its edges in order, 32 at a time (lane p holds edge p's src, dst
+// and rad; the next 32 are loaded ahead), and gathers the feat rows of
+// UNROLL edges before it adds any of them, across row boundaries.  The
+// lanes run over the columns: 16-byte loads (float4) when D % 4 == 0 and
+// the tensors are 16-byte aligned (25 of 32 lanes at D = 100, one pass),
+// 4-byte loads otherwise, up to NV vectors a lane per pass over the row.
+// When the edge's dst changes the finished row is stored and the rows that
+// no edge reaches are written 0, so every row of the warp's range is
+// written once, with no memset.  The sum of a row runs in ascending edge
+// order, the TPU grid's order, as out = out + rad * feat with a separately
+// rounded multiply and add (__fmul_rn, __fadd_rn), from 0.  No atomics:
+// the result is deterministic.  A long row (a hub, or the sink row of the
+// padding edges) stays one warp's serial chain, UNROLL rows in flight at a
+// time.  Edge indices are 64-bit where a lane or the look-ahead adds to
+// them, so any E < 2^31 is walked without overflow.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -47,6 +47,7 @@ namespace {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 8;   // warps per CTA
 constexpr int UNROLL = 8;  // edges whose feat rows are in flight per warp
+constexpr int ROWS = 32;   // destination rows per warp
 
 // First index e in [lo, hi) with dst[e] >= key, or hi; dst ascending.  Each
 // step probes the last element of 32 equal buckets, one per lane, and keeps
@@ -62,7 +63,7 @@ __device__ int lower_bound_warp(const int* __restrict__ dst, int lo, int hi,
     hi = (int)min(nlo + step, (long long)hi);
     lo = (int)min(nlo, (long long)hi);
   }
-  const bool below = lo + lane < hi && __ldg(dst + lo + lane) < key;
+  const bool below = (long long)lo + lane < hi && __ldg(dst + lo + lane) < key;
   return lo + __popc(__ballot_sync(FULL, below));
 }
 
@@ -84,20 +85,18 @@ template <typename T, int NV>
 __global__ void __launch_bounds__(WARPS * 32)
 segment_spmm_kernel(const int* __restrict__ src,     // (E,)
                     const int* __restrict__ dst,     // (E,), ascending
-                    const int* __restrict__ off,     // (n_out + 1,) or null
                     const T* __restrict__ feat,      // (N, nv)
                     const float* __restrict__ rad,   // (E,)
                     T* __restrict__ out,             // (n_out, nv)
-                    int n_out, int n_edges, int nv, int rows) {
+                    int n_out, int n_edges, int nv) {
   const int lane = threadIdx.x % 32;
-  const long long r0l = ((long long)blockIdx.x * WARPS + threadIdx.x / 32) * rows;
+  const long long r0l = ((long long)blockIdx.x * WARPS + threadIdx.x / 32) * ROWS;
   if (r0l >= n_out) return;
   const int r0 = (int)r0l;
-  const int r1 = (int)min(r0l + rows, (long long)n_out);
+  const int r1 = (int)min(r0l + ROWS, (long long)n_out);
   // the warp's first edge; its last is found by walking: the first edge
   // whose dst reaches r1 ends the range
-  const int e0 = off != nullptr ? off[r0]
-                                : lower_bound_warp(dst, 0, n_edges, r0, lane);
+  const long long e0 = lower_bound_warp(dst, 0, n_edges, r0, lane);
 
   for (int c0 = 0; c0 < nv; c0 += 32 * NV) {
     T acc[NV];
@@ -126,10 +125,10 @@ segment_spmm_kernel(const int* __restrict__ src,     // (E,)
       n_dst = __ldg(dst + e0 + lane);
       n_rad = __ldg(rad + e0 + lane);
     }
-    for (int b0 = e0; b0 < n_edges; b0 += 32) {
+    for (long long b0 = e0; b0 < n_edges; b0 += 32) {
       const int my_src = n_src, my_dst = n_dst;
       const float my_rad = n_rad;
-      const int e = b0 + 32 + lane;
+      const long long e = b0 + 32 + lane;
       n_dst = INT_MAX;
       if (e < n_edges) {
         n_src = __ldg(src + e);
@@ -181,40 +180,37 @@ segment_spmm_kernel(const int* __restrict__ src,     // (E,)
 }
 
 template <typename T, int NV>
-cudaError_t launch(const void* src, const void* dst, const void* off,
-                   const void* feat, const void* rad, void* out, int n_out,
-                   int n_edges, int nv, int rows, cudaStream_t stream) {
-  const long long warps = ((long long)n_out + rows - 1) / rows;
+cudaError_t launch(const void* src, const void* dst, const void* feat,
+                   const void* rad, void* out, int n_out, int n_edges, int nv,
+                   cudaStream_t stream) {
+  const long long warps = ((long long)n_out + ROWS - 1) / ROWS;
   const long long grid = (warps + WARPS - 1) / WARPS;
   segment_spmm_kernel<T, NV><<<(unsigned)grid, WARPS * 32, 0, stream>>>(
-      (const int*)src, (const int*)dst, (const int*)off, (const T*)feat,
-      (const float*)rad, (T*)out, n_out, n_edges, nv, rows);
+      (const int*)src, (const int*)dst, (const T*)feat, (const float*)rad,
+      (T*)out, n_out, n_edges, nv);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // vec: 4 for the float4 route (d % 4 == 0, feat and out 16-byte aligned),
-// 1 for 4-byte loads; rows: destination rows per warp; off: row offsets
-// (n_out + 1,) or null, for the kernel to search dst itself.
+// 1 for 4-byte loads.
 extern "C" int launch_segment_spmm(const void* src, const void* dst,
-                                   const void* off, const void* feat,
-                                   const void* rad, void* out, int n_out,
-                                   int n_edges, int d, int vec, int rows,
+                                   const void* feat, const void* rad, void* out,
+                                   int n_out, int n_edges, int d, int vec,
                                    void* stream) {
   if (n_out <= 0 || d <= 0) return (int)cudaGetLastError();
-  if (rows < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (vec == 4) {
     if (d % 4 != 0 || (uintptr_t)feat % 16 != 0 || (uintptr_t)out % 16 != 0)
       return (int)cudaErrorInvalidValue;
     const int nv = d / 4;
     return (int)(nv <= 32
-        ? launch<float4, 1>(src, dst, off, feat, rad, out, n_out, n_edges, nv, rows, s)
-        : launch<float4, 2>(src, dst, off, feat, rad, out, n_out, n_edges, nv, rows, s));
+        ? launch<float4, 1>(src, dst, feat, rad, out, n_out, n_edges, nv, s)
+        : launch<float4, 2>(src, dst, feat, rad, out, n_out, n_edges, nv, s));
   }
   if (vec != 1) return (int)cudaErrorInvalidValue;
   return (int)(d <= 32
-      ? launch<float, 1>(src, dst, off, feat, rad, out, n_out, n_edges, d, rows, s)
-      : launch<float, 4>(src, dst, off, feat, rad, out, n_out, n_edges, d, rows, s));
+      ? launch<float, 1>(src, dst, feat, rad, out, n_out, n_edges, d, s)
+      : launch<float, 4>(src, dst, feat, rad, out, n_out, n_edges, d, s));
 }

@@ -96,9 +96,9 @@ SIGNATURES = {
         "launch_flash_attention": [P, P, P, P, I, I, I, I, I, I, I, I, I, F, P],
     },
     "segment_spmm": {
-        # src, dst, row offsets (or null: searched in dst), feat, rad, out,
-        # n_out, n_edges, d, floats a load (4 or 1), rows a warp, stream
-        "launch_segment_spmm": [P, P, P, P, P, P, I, I, I, I, I, P],
+        # src, dst, feat, rad, out, n_out, n_edges, d, floats a load (4 or
+        # 1), stream
+        "launch_segment_spmm": [P, P, P, P, P, I, I, I, I, P],
     },
 }
 

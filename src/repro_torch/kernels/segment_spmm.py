@@ -3,7 +3,7 @@
 Replaces ``segment_spmm_pallas`` (``_seg_kernel``), whose sequential grid
 walks the edges one at a time and accumulates into the output row that the
 sorted ``dst`` steers.  The CUDA kernel (``csrc/segment_spmm.cu``) gives
-each warp ``ROWS_PER_WARP`` destination rows: it finds its first edge by
+each warp 32 destination rows: it finds its first edge by
 searching the sorted ``dst`` itself (no offsets pass) and walks on until
 an edge's ``dst`` leaves its rows, summing each row's edges in ascending
 edge order (the TPU grid's order) with no atomics, eight feat rows in
@@ -22,7 +22,6 @@ import torch
 from repro_torch.kernels import _build
 
 NAME = "segment_spmm"
-ROWS_PER_WARP = 32  # destination rows one warp of the kernel owns
 
 
 def segment_spmm_plain(src: torch.Tensor, dst: torch.Tensor,
@@ -37,7 +36,8 @@ def segment_spmm_plain(src: torch.Tensor, dst: torch.Tensor,
 
 
 def row_offsets(dst: torch.Tensor, n_out: int) -> torch.Tensor:
-    """(n_out + 1,) int32: the edges of row ``n`` are ``[off[n], off[n+1])``."""
+    """(n_out + 1,) int32: the edges of row ``n`` are ``[off[n], off[n+1])``
+    (the CSR row pointer; the kernel finds its rows' edges itself)."""
     rows = torch.arange(n_out + 1, dtype=dst.dtype, device=dst.device)
     return torch.searchsorted(dst, rows, out_int32=True)
 
@@ -69,10 +69,9 @@ def segment_spmm_cuda(src: torch.Tensor, dst: torch.Tensor,
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.launch_segment_spmm(
-            src.data_ptr(), dst.data_ptr(), None, feat.data_ptr(),
-            rad.data_ptr(), out.data_ptr(), n_out, e, d,
-            vector_width(d, feat.data_ptr(), out.data_ptr()), ROWS_PER_WARP,
-            stream)
+            src.data_ptr(), dst.data_ptr(), feat.data_ptr(), rad.data_ptr(),
+            out.data_ptr(), n_out, e, d,
+            vector_width(d, feat.data_ptr(), out.data_ptr()), stream)
     _build.check(code, NAME)
     _build.LAUNCHES[NAME] += 1
     return out

@@ -708,20 +708,6 @@ def _graph(g, n, e, *, hub=0, first_empty=False, sink=300, isolated=0.05):
     return src, dst, rad, alive
 
 
-def _segment_launch(src, dst, feat, rad, n_out, *, rows, off=None, vec=None):
-    """The kernel's launcher with a chosen rows-a-warp and optional offsets."""
-    out = torch.empty((n_out, feat.shape[1]), device=feat.device)
-    if vec is None:
-        vec = tseg.vector_width(feat.shape[1], feat.data_ptr(), out.data_ptr())
-    lib = _build.lib(tseg.NAME)
-    _build.check(lib.launch_segment_spmm(
-        src.data_ptr(), dst.data_ptr(), None if off is None else off.data_ptr(),
-        feat.data_ptr(), rad.data_ptr(), out.data_ptr(), n_out, src.numel(),
-        feat.shape[1], vec, rows, torch.cuda.current_stream().cuda_stream),
-        tseg.NAME)
-    return out
-
-
 @pytest.mark.parametrize("d", [1, 3, 100, 128, 129, 256])
 def test_segment_spmm_kernel_bit_equal_at_any_width(cuda, d):
     """Degree-0 rows, a hub row of 50,000 edges, the sink row's padding
@@ -737,12 +723,23 @@ def test_segment_spmm_kernel_bit_equal_at_any_width(cuda, d):
     assert torch.equal(got, want)
     assert not got[0].any() and not got[-1].any()
     assert not got[:-1][~alive].any()
-    # other warp ranges and the wrapper's row offsets read in place of the
-    # kernel's search: the same sums
-    off = tseg.row_offsets(args[1], n)
-    for rows, o in ((1, None), (7, off), (tseg.ROWS_PER_WARP, off)):
-        assert torch.equal(_segment_launch(*args, n, rows=rows, off=o).cpu(),
-                           want)
+
+
+def test_segment_spmm_kernel_edges_near_the_int32_limit(cuda):
+    """E = 2^31 - 1 edges, 32 a row: the last warp's look-ahead passes
+    2^31 and must not wrap round (src, dst and rad take 25.8 GB)."""
+    e = 2**31 - 1
+    dst = torch.arange(e, dtype=torch.int32, device=cuda).div_(
+        32, rounding_mode="floor")
+    n = int(dst[-1]) + 1
+    src = torch.zeros(e, dtype=torch.int32, device=cuda)
+    rad = torch.ones(e, device=cuda)
+    got = tseg.segment_spmm_cuda(src, dst, torch.ones((1, 1), device=cuda),
+                                 rad, n)
+    del src, dst, rad
+    want = torch.full((n, 1), 32.0, device=cuda)
+    want[-1] = e % 32
+    assert torch.equal(got, want)
 
 
 def test_segment_spmm_kernel_scalar_route_and_empty_graphs(cuda):
