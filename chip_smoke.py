@@ -66,8 +66,10 @@ Phases, each of which exits non-zero on failure:
    and ``wmd_one_vs_many`` against the Sinkhorn-WMD kernel (at settings
    where they converge), and the kernel's gap to the exact EMD on 16 pairs;
    the ELL SpMM's launches and device time inside one ``"scan"`` call
-   (``torch.profiler``); one line compares the quadratic RWMD's time with
-   LC-RWMD's.  The
+   (``torch.profiler``); the seed SpMM (B6b) beside the blocked one (B2),
+   alternated and bit-equal, at the main shape, the ``"scan"`` chunk shape,
+   Table IV set 1's h_max (160) and B = 256, with its Z-row ring variant;
+   one line compares the quadratic RWMD's time with LC-RWMD's.  The
    engine of phases 3-5 is freed before the next phases.
 6. flash attention: the kernel against its plain version at llama3.2-1b's
    heads (B=4, S=T=4,096, 32 query and 8 KV heads, dh 64), causal in bf16
@@ -143,6 +145,8 @@ CHECK_ROWS = 65536    # rows held against the plain versions that gather (n, h, 
 RWMD_QUERY_CHUNK = 4  # queries per GEMM block of core/rwmd.py's check
 N_LP = 16             # pairs solved exactly by the LP
 SET1_H, SET1_DOCS, SET1_QUERIES = 160, 1024, 16  # B7 at Table IV set 1's h_max
+NAIVE_H160_ROWS = 200_000  # B6b and B2 at set 1's h_max, 80% of slots nonzero
+NAIVE_WIDE_B = 256         # B6b and B2 at B = 256: Z of (v_e, 256) past the L2
 # The WMD solvers are held to each other on the pairs where both stopped on
 # tol at every level (total iterations < max_iters): at the rerank's
 # settings (eps 0.05 against costs of ~30) most pairs stop at max_iters,
@@ -207,10 +211,11 @@ KERNEL_SOURCES = {
 
 
 # Figures beyond the contract's that the kernels line carries for a kernel:
-# B2's gathers and its time at the vocabulary-chunk shape, B9's gathers,
-# sector floor and the gather witnesses' times.
+# B2's gathers and its time at the vocabulary-chunk shape, B6b beside B2 at
+# four shapes, B9's gathers, sector floor and the gather witnesses' times.
 EXTRA = {"spmm_ell": ("nnz", "gathered_gb", "gathered_tbps", "hot_share",
                       "scan_chunks", "scan_call"),
+         "spmm_ell_naive": ("shapes",),
          "segment_spmm": ("info",)}
 
 
@@ -639,6 +644,71 @@ def kernel_phase(engine, q, report):
         f"{SFU_OPS_PER_S:.3e}/s: {by} bound {bnd:.3f} ms")
 
 
+def naive_shapes(docs, v, r_ids, r_w, z1) -> dict:
+    """B6b beside B2 on one card, alternated, at the main path's shape, the
+    ``"scan"`` chunk shape (chunk 0 and a mid chunk), Table IV set 1's
+    h_max and B = 256, each bit-equal to B2; the bound by B2's rule (every
+    weight, the ids of nonzero slots, Z and D once); B6b's Z-row ring timed
+    where it applies (B a multiple of 4, one column chunk)."""
+    import torch
+
+    from repro_torch.kernels import fused_stream as fs
+    from repro_torch.kernels import spmm_ell as sp
+
+    dev = z1.device
+    v_e = z1.shape[0]
+    g = torch.Generator(device=dev).manual_seed(19)
+    zc = torch.rand(VOCAB_CHUNK, B, device=dev, generator=g)
+    shapes = {"main": (r_ids, r_w, z1)}
+    for name, lo in (("chunk0", 0), ("mid", (v // VOCAB_CHUNK // 2) * VOCAB_CHUNK)):
+        shapes[name] = (*fs.chunk_relative(docs.ids, docs.weights, lo,
+                                           VOCAB_CHUNK), zc)
+    ids160 = torch.randint(0, v_e, (NAIVE_H160_ROWS, SET1_H), device=dev,
+                           generator=g, dtype=torch.int32)
+    w160 = torch.rand(ids160.shape, device=dev, generator=g)
+    w160 = w160 * (torch.rand(ids160.shape, device=dev, generator=g) > 0.2)
+    shapes["h160"] = (ids160, w160 / w160.sum(1, keepdim=True), z1)
+    shapes["b256"] = (r_ids, r_w, torch.rand(v_e, NAIVE_WIDE_B, device=dev,
+                                             generator=g))
+    out = {}
+    for name, (ids, w, z) in shapes.items():
+        n_, h_ = ids.shape
+        v_, b_ = z.shape
+        d6 = sp.spmm_ell_naive_cuda(ids, w, z)
+        if not torch.equal(d6, sp.spmm_ell_cuda(ids, w, z)):
+            fail(f"spmm_ell_naive at the {name} shape: not bit-equal to the "
+                 f"blocked kernel")
+        nnz = int((w != 0).sum())
+        bnd, by = bound_ms(n_ * h_ * 4 + nnz * 4 + v_ * b_ * 4 + n_ * b_ * 4,
+                           2.0 * nnz * b_)
+        runs = {"naive": [], "blocked": []}
+        for k in ("naive", "blocked", "blocked", "naive"):
+            fn = sp.spmm_ell_naive_cuda if k == "naive" else sp.spmm_ell_cuda
+            runs[k].append(time_ms(lambda: fn(ids, w, z), 10))
+        ms, b2_ms = sum(runs["naive"]) / 2, sum(runs["blocked"]) / 2
+        row = dict(n=n_, h=h_, b=b_, nnz=nnz, ms=ms, blocked_ms=b2_ms,
+                   runs_ms=runs, bound_ms=bnd, bound_by=by,
+                   gathered_tbps=nnz * b_ * 4 / ms / 1e9,
+                   blocked_gathered_tbps=nnz * b_ * 4 / b2_ms / 1e9)
+        if b_ % 4 == 0 and b_ <= 128:
+            if not torch.equal(sp.spmm_ell_naive_cuda(ids, w, z, z_ring=True),
+                               d6):
+                fail(f"spmm_ell_naive's Z-row ring at the {name} shape: not "
+                     f"bit-equal")
+            row["z_ring_ms"] = time_ms(
+                lambda: sp.spmm_ell_naive_cuda(ids, w, z, z_ring=True), 10)
+        out[name] = row
+        log(f"spmm_ell_naive at the {name} shape (n {n_}, h {h_}, B {b_}, "
+            f"{nnz} nonzero slots): {ms:.4f} ms ({runs['naive'][0]:.4f} / "
+            f"{runs['naive'][1]:.4f}), blocked {b2_ms:.4f} ms; {by} bound "
+            f"{bnd:.4f} ms; Z rows at {row['gathered_tbps']:.2f} TB/s "
+            f"(blocked {row['blocked_gathered_tbps']:.2f})"
+            + (f"; Z-row ring {row['z_ring_ms']:.4f} ms" if "z_ring_ms" in row
+               else "") + "; bit-equal to blocked")
+        del d6
+    return out
+
+
 def comparison_phase(engine, q, cand, report):
     """The paper's comparison path on the slice's corpus, then its checks.
 
@@ -725,7 +795,10 @@ def comparison_phase(engine, q, cand, report):
         if not bool((err <= 1e-5 + 1e-5 * want.abs()).all()):
             fail(f"{name}: |dD| exceeds 1e-5 + 1e-5*|D| on the first {rows} "
                  f"rows (max {err.max().item()})")
-        bnd, by = bound_ms(n * h1 * 8 + v_e * b * 4 + n * b * 4, 2.0 * nnz * b)
+        # B6a reads every id; B6b, as B2, needs the ids of nonzero slots only
+        ids_bytes = n * h1 * 4 if mode == "dense" else nnz * 4
+        bnd, by = bound_ms(n * h1 * 4 + ids_bytes + v_e * b * 4 + n * b * 4,
+                           2.0 * nnz * b)
         report[name] = dict(
             max_abs_err=err.max().item(),
             tol=f"1e-5 + 1e-5*|D| (first {rows} rows)",
@@ -738,15 +811,17 @@ def comparison_phase(engine, q, cand, report):
             f"1e-5 + 1e-5*|D| on the first {rows} rows")
     blocked = d_sp["blocked"]
     e_nb = (d_sp["naive"] - blocked).abs().max().item()
-    if not e_nb <= 1e-6:
-        fail(f"spmm_ell_naive: differs from the blocked kernel by {e_nb} > 1e-6")
+    if not torch.equal(d_sp["naive"], blocked):
+        fail(f"spmm_ell_naive: not bit-equal to the blocked kernel (max |dD| "
+             f"{e_nb})")
     e_db = (d_sp["dense"] - blocked).abs()
     if not bool((e_db <= 1e-5 + 1e-5 * blocked.abs()).all()):
         fail(f"spmm_ell_dense: differs from the blocked kernel by "
              f"{e_db.max().item()} > 1e-5 + 1e-5*|D|")
-    log(f"all {n} rows: naive vs blocked max |dD| {e_nb:.3e} (<= 1e-6), dense "
-        f"vs blocked {e_db.max().item():.3e} (<= 1e-5 + 1e-5*|D|)")
+    log(f"all {n} rows: naive bit-equal to blocked, dense vs blocked "
+        f"{e_db.max().item():.3e} (<= 1e-5 + 1e-5*|D|)")
     del csr, d_sp, e_db
+    report["spmm_ell_naive"]["shapes"] = naive_shapes(docs, v, r_ids, r_w, z1)
 
     # --- streaming LC-RWMD against one_sided; B5 against its plain version ---
     d1 = engine.one_sided(q)
@@ -1556,6 +1631,9 @@ PROFILE_TRIES = 4
 # lost records idles 4 times longer than the last, up to PROFILE_PAD_MAX_S.
 PROFILE_PAD_S = 0.5
 PROFILE_PAD_MAX_S = 8.0
+# Traces judged whole or not (profile_whole), and those that lost records:
+# first traces, and retries.
+PROFILE_STATS = {"calls": 0, "first_lost": 0, "retries": 0}
 
 
 def profile_one(fn, match: str, pad: float = 0.0):
@@ -1601,6 +1679,7 @@ def profile_whole(fn, what: str, families: dict, busy: bool = True):
     marks a loss."""
     from repro_torch.kernels import _build
 
+    PROFILE_STATS["calls"] += 1
     for attempt in range(1, PROFILE_TRIES + 1):
         before = dict(_build.LAUNCHES)
         pad = min(PROFILE_PAD_S * 4 ** (attempt - 1), PROFILE_PAD_MAX_S)
@@ -1613,6 +1692,7 @@ def profile_whole(fn, what: str, families: dict, busy: bool = True):
         share = dev_us / wall_us
         if (share >= DROP_SHARE or not busy) and not lost:
             return wall_us, dev_us, top, launched
+        PROFILE_STATS["first_lost" if attempt == 1 else "retries"] += 1
         log(f"{what} profile, trace {attempt} of at most {PROFILE_TRIES} "
             f"({pad} s idle at each end) lost "
             f"records: {dev_us / 1e3:.2f} device ms of a {wall_us / 1e3:.1f} ms "
@@ -1861,6 +1941,9 @@ def main() -> int:
             kernels[-1]["extra"] = {k: r[k] for k in EXTRA[name]}
     log("llama3.2-1b: " + json.dumps(lm))
     log("tolerances: " + json.dumps({k: r["tol"] for k, r in report.items()}))
+    log(f"profiler: {PROFILE_STATS['calls']} traces judged whole or not, "
+        f"{PROFILE_STATS['first_lost']} first traces and "
+        f"{PROFILE_STATS['retries']} retries lost records")
     log(f"total after the build: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -63,14 +63,51 @@
 //
 // spmm_ell_naive_kernel also replaces the TPU kernel
 // src/repro/kernels/spmm_ell.py, spmm_ell_naive_pallas (_spmm_naive_kernel),
-// the seed kernel with one doc x one slot per grid step.  It stays naive on
-// purpose, as the recorded baseline: one CTA per doc, the slots in sequence,
-// the threads over the B columns, every slot (weight 0 or not) one fmaf.
-// The result equals the blocked kernel's bit for bit: both take the fmaf
-// chain in slot order from 0, and a zero-weight slot leaves it unchanged.
+// the seed kernel with one doc x one slot per grid step, where scalar
+// prefetch brought each slot's id ahead of its Z-row DMA.  What bounds it
+// here: the blocked kernel's bytes (every weight, the ids of nonzero slots,
+// Z and D once); the seed formulation's first port (a CTA per doc, every
+// slot's weight and id loaded by all threads before its Z row, one fmaf
+// chain) waited on HBM for each id and gathered a Z row for every
+// zero-weight slot too.
+//
+// Design: persistent CTAs of NAIVE_WARPS consumer warps and one producer
+// warp walk tiles of `rows` doc rows (a multiple of NAIVE_WARPS, so of 4;
+// the wrapper's naive_tile_rows) in a static stride.  A tile's ids and
+// weights are each one contiguous block of rows * h slots, which streams
+// through a ring of NAIVE_STAGES stages of NAIVE_CAP slots.  The producer
+// copies a stage's two blocks into shared memory by cp.async.bulk,
+// completing on the stage's "full" mbarrier (lane 0 arrives with the byte
+// count); the up to 3 slots before a block's first 16-byte boundary and
+// after its last come by ordinary loads of other lanes, which arrive too.
+// The consumers release a stage on its "empty" mbarrier (one arrival a
+// warp), and the producer waits on it before refilling: the next stage's
+// ids and weights land while this one's Z rows are gathered.  A consumer
+// warp owns the tile's rows i with i % NAIVE_WARPS == warp: it lists a
+// row's nonzero slots 64 at a time from shared memory (ballot and rank,
+// each entry keyed by its Z row's offset), and gathers their Z rows
+// NAIVE_U, then 4, at a time, each lane its CW adjacent columns (one 8- or
+// 16-byte load where B allows), added to the columns' fmaf chains in slot
+// order from +0.  A row wider than what is left of its stage goes on in
+// the next stage: its partial sums wait in its D row, reloaded by the same
+// lanes.  Skipping zero-weight slots is exact because Z is finite, so the
+// result equals the blocked kernel's bit for bit; the load paths stay
+// separate.  On the H100 the Z loads are hidden: the kernel takes as long
+// when every one hits a single cached row, so it is bound by the
+// instructions it issues a row, with fewer warps an SM than the blocked
+// kernel (40 against 64).  Staging costs every slot's id (the blocked
+// kernel reads the nonzero slots' only).  Larger stages, a third stage, 4
+// or 16 rows in flight and 12 or 16 consumer warps were no faster.  ZRING:
+// the nonzero slots' Z rows come by cp.async.bulk too, into a ring of two
+// groups of NAIVE_ZU rows a warp (B % 4 == 0, one column chunk); it runs at
+// about half the speed of the L1-cached loads and is not the default.
 
 #include <cuda_runtime.h>
 #include <limits.h>
+#include <stddef.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -366,21 +403,367 @@ spmm_ell_dense_kernel(const int* __restrict__ ids,   // (n, h)
   dense_row(fetch, nz, z, orow, b, lane);
 }
 
-__global__ void spmm_ell_naive_kernel(const int* __restrict__ ids,   // (n, h)
-                                      const float* __restrict__ w,   // (n, h)
-                                      const float* __restrict__ z,   // (v, B)
-                                      float* __restrict__ out,       // (n, B)
-                                      int h, int b) {
-  const int row = blockIdx.x;
-  for (int c = threadIdx.x; c < b; c += blockDim.x) {
-    float acc = 0.f;
-    for (int p = 0; p < h; ++p) {
-      const float wv = w[(size_t)row * h + p];
-      const int id = ids[(size_t)row * h + p];
-      acc = fmaf(wv, z[(size_t)id * b + c], acc);
-    }
-    out[(size_t)row * b + c] = acc;
+constexpr int NAIVE_WARPS = 8;     // consumer warps a CTA, one row at a time
+constexpr int NAIVE_STAGES = 2;    // ring stages of ids and weights
+constexpr int NAIVE_CAP = 1024;    // slots a stage (a multiple of 4)
+constexpr int NAIVE_PAD = NAIVE_CAP + 4;  // room for a block's misaligned head
+constexpr int NAIVE_U = 8;         // Z rows in flight a warp
+constexpr int NAIVE_ZU = 4;        // ZRING: Z rows a group, two groups a warp
+constexpr int NAIVE_THREADS = (NAIVE_WARPS + 1) * 32;
+static_assert(NAIVE_U % 4 == 0 && NAIVE_CAP % 4 == 0, "pairs, then fours; aligned stages");
+
+struct NaiveSmem {
+  int ids[NAIVE_STAGES][NAIVE_PAD];
+  float w[NAIVE_STAGES][NAIVE_PAD];
+  int2 listed[NAIVE_WARPS][SLOTS];   // a warp's nonzero slots by rank (16-byte aligned)
+  unsigned long long full[NAIVE_STAGES], empty[NAIVE_STAGES];
+  unsigned long long zbar[NAIVE_WARPS][2];  // ZRING: one a group
+};
+static_assert(sizeof(NaiveSmem) % 16 == 0, "the Z-row groups follow, 16-byte aligned");
+static_assert(offsetof(NaiveSmem, listed) % 16 == 0, "entries are read in pairs");
+
+// Bytes of dynamic shared memory: the ring, then (ZRING) the Z-row groups.
+int naive_smem(int b, bool zring) {
+  return (int)sizeof(NaiveSmem) + (zring ? NAIVE_WARPS * 2 * NAIVE_ZU * b * 4 : 0);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n\t.reg .b64 st;\n\t"
+               "mbarrier.arrive.shared::cta.b64 st, [%0];\n\t}\n" ::"r"(bar)
+               : "memory");
+}
+
+// Arrive and add `bytes` to the transactions the phase waits for.
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("{\n\t.reg .b64 st;\n\t"
+               "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n\t}\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile("{\n\t.reg .pred p;\n\t"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+                 "selp.u32 %0, 1, 0, p;\n\t}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
+                                         uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+               " [%0], [%1], %2, [%3];\n" ::"r"(dst), "l"(src), "r"(bytes),
+               "r"(bar) : "memory");
+}
+
+// Orders this CTA's earlier shared-memory accesses before its next bulk
+// copies into shared memory.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A block of cnt 4-byte slots at p, as staged: slot j lands at buf[shift +
+// j], shift = p's 4-byte words past a 16-byte boundary, so the bulk copy's
+// both ends are aligned.  The first `head` slots (up to 3, before p's next
+// 16-byte boundary) and the last ones after `body` (a multiple of 4, the
+// bulk copy) come by ordinary loads.
+struct Block {
+  int shift, head, body;
+};
+
+__device__ __forceinline__ Block block_of(const void* p, int cnt) {
+  const int shift = (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+  const int head = min(cnt, (4 - shift) & 3);
+  return {shift, head, (cnt - head) & ~3};
+}
+
+// Producer lane e (0..7 of the lanes given to this block) loads head slot
+// e (e < 4) or tail slot e - 4 of the block, where there is one.
+__device__ __forceinline__ void stage_edges(const int* __restrict__ src,
+                                            int* buf, int cnt, Block k,
+                                            int e) {
+  if (e < 0 || e >= 8) return;
+  const int j = e < 4 ? e : k.head + k.body + (e - 4);
+  if (e < 4 ? e < k.head : j < cnt) buf[k.shift + j] = __ldg(src + j);
+}
+
+// The tiles of `rows` rows a CTA walks, and each tile's stages: calls
+// visit(stage index, tile, its first slot in the tile, slots) in ring
+// order.  A tile's slots (rows * h, under 2^31) stream in stages of
+// NAIVE_CAP.
+template <class Visit>
+__device__ __forceinline__ void walk_stages(int n, int h, int rows, Visit visit) {
+  const int n_tiles = (int)(((long long)n + rows - 1) / rows);
+  int it = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int slots = min(rows, n - t * rows) * h;
+    for (int l0 = 0; l0 < slots; l0 += NAIVE_CAP, ++it)
+      visit(it, t, l0, min(NAIVE_CAP, slots - l0));
   }
+}
+
+// A listed slot's key: its Z row's offset id * B, which fits 32 bits
+// unless WIDE (v * B >= 2^32), where it is the id.
+template <bool WIDE>
+__device__ __forceinline__ unsigned slot_key(int id, int b) {
+  return WIDE ? (unsigned)id : (unsigned)id * (unsigned)b;
+}
+
+template <bool WIDE>
+__device__ __forceinline__ const float* z_row(const float* z, unsigned key,
+                                              int b) {
+  return WIDE ? z + (size_t)key * b : z + key;
+}
+
+// The Z rows (zc: Z at the lane's first column) of cnt (1..NU) listed
+// slots at e (16-byte aligned), all loads in flight before the first fmaf,
+// added in list order; the entries read two at a time.  Past cnt a lane
+// loads the last slot's row again and adds nothing: no branches.  cnt ==
+// NU where the caller knows it, so the tests fold away.
+template <int NU, int CW, bool VEC, bool WIDE>
+__device__ __forceinline__ void gather_group(const int2* e, int cnt,
+                                             const float* zc, int col, int b,
+                                             float (&acc)[CW]) {
+  float wv[NU], zv[NU][CW];
+  const unsigned last = cnt < NU ? (unsigned)e[cnt - 1].x : 0u;
+#pragma unroll
+  for (int u = 0; u < NU; u += 2) {
+    const int4 p = reinterpret_cast<const int4*>(e)[u / 2];
+    wv[u] = __int_as_float(p.y);
+    wv[u + 1] = __int_as_float(p.w);
+    load_cols<CW, VEC>(z_row<WIDE>(zc, u < cnt ? (unsigned)p.x : last, b), col,
+                       b, zv[u]);
+    load_cols<CW, VEC>(z_row<WIDE>(zc, u + 1 < cnt ? (unsigned)p.z : last, b),
+                       col, b, zv[u + 1]);
+  }
+#pragma unroll
+  for (int u = 0; u < NU; ++u)
+#pragma unroll
+    for (int j = 0; j < CW; ++j)
+      if (u < cnt) acc[j] = fmaf(wv[u], zv[u][j], acc[j]);
+}
+
+// One piece of a row: len slots in slot order at si / sw in the stage; its
+// D row's partial sums carried in orow when the row goes on from an
+// earlier stage (!first).
+template <int CW, bool VEC, bool ONE, bool ZRING, bool WIDE>
+__device__ __forceinline__ void naive_piece(
+    const int* si, const float* sw, int len, bool first,
+    const float* __restrict__ z, float* __restrict__ orow, int b, int lane,
+    int2* buf, float* zr, uint32_t zbar, int& zg) {
+  const unsigned below = (1u << lane) - 1;
+  for (int c0 = 0; ONE ? c0 == 0 : c0 < b; c0 += 32 * CW) {
+    const int col = c0 + lane * CW;
+    float acc[CW];
+#pragma unroll
+    for (int j = 0; j < CW; ++j)
+      acc[j] = first || col + j >= b ? 0.f : orow[col + j];
+    for (int p0 = 0; ONE ? p0 == 0 : p0 < len; p0 += SLOTS) {
+      const int pa = p0 + lane, pb = pa + 32;
+      const float wa = pa < len ? sw[pa] : 0.f;
+      const float wb = pb < len ? sw[pb] : 0.f;
+      const unsigned ma = __ballot_sync(FULL, wa != 0.f);
+      const unsigned mb = __ballot_sync(FULL, wb != 0.f);
+      const int nz = __popc(ma) + __popc(mb);
+      if (nz == 0) continue;  // warp-uniform
+      if (wa != 0.f)
+        buf[__popc(ma & below)] =
+            make_int2(slot_key<WIDE>(si[pa], b), __float_as_int(wa));
+      if (wb != 0.f)
+        buf[__popc(ma) + __popc(mb & below)] =
+            make_int2(slot_key<WIDE>(si[pb], b), __float_as_int(wb));
+      __syncwarp();
+      if constexpr (ZRING) {
+        // groups of NAIVE_ZU rows, the next one in flight while this one
+        // is added; group q of the warp uses half q & 1 and zbar[q & 1]
+        const int groups = (nz + NAIVE_ZU - 1) / NAIVE_ZU;
+        auto issue = [&](int g) {
+          if (lane != 0) return;
+          const int q = zg + g, cnt = min(NAIVE_ZU, nz - g * NAIVE_ZU);
+          const uint32_t bar = zbar + 8 * (q & 1);
+          fence_proxy_async();
+          mbar_arrive_tx(bar, (uint32_t)(cnt * b * 4));
+          for (int u = 0; u < cnt; ++u)
+            bulk_g2s(smem_u32(zr + ((q & 1) * NAIVE_ZU + u) * b),
+                     z + (unsigned)buf[g * NAIVE_ZU + u].x, b * 4, bar);
+        };
+        issue(0);
+        for (int g = 0; g < groups; ++g) {
+          if (g + 1 < groups) issue(g + 1);
+          const int q = zg + g;
+          mbar_wait(zbar + 8 * (q & 1), (q >> 1) & 1);
+          const float* zh = zr + (q & 1) * NAIVE_ZU * b + col;
+          for (int u = 0; u < NAIVE_ZU && g * NAIVE_ZU + u < nz; ++u) {
+            const float wv = __int_as_float(buf[g * NAIVE_ZU + u].y);
+            float x[CW];
+            if constexpr (CW == 4) {
+              const float4 t = col < b ? *reinterpret_cast<const float4*>(zh + u * b)
+                                       : make_float4(0.f, 0.f, 0.f, 0.f);
+              x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+            } else if constexpr (CW == 2) {
+              const float2 t = col < b ? *reinterpret_cast<const float2*>(zh + u * b)
+                                       : make_float2(0.f, 0.f);
+              x[0] = t.x, x[1] = t.y;
+            } else {
+              x[0] = col < b ? zh[u * b] : 0.f;
+            }
+#pragma unroll
+            for (int j = 0; j < CW; ++j) acc[j] = fmaf(wv, x[j], acc[j]);
+          }
+          __syncwarp();  // the half is read before a later group refills it
+        }
+        zg += groups;
+      } else {
+        // whole groups of NAIVE_U, then of 4, then the last 1..3 slots
+        const float* zc = z + col;
+        int g = 0;
+        for (; g + NAIVE_U <= nz; g += NAIVE_U)
+          gather_group<NAIVE_U, CW, VEC, WIDE>(buf + g, NAIVE_U, zc, col, b, acc);
+        for (; g + 4 <= nz; g += 4)
+          gather_group<4, CW, VEC, WIDE>(buf + g, 4, zc, col, b, acc);
+        if (g < nz) gather_group<4, CW, VEC, WIDE>(buf + g, nz - g, zc, col, b, acc);
+      }
+      __syncwarp();  // the list is read before the next piece writes it
+    }
+    store_cols<CW, VEC>(orow + col, col, b, acc);
+  }
+}
+
+// ONE: rows of at most SLOTS slots and 32 * CW columns (a row is then one
+// piece of one stage), the loops gone at compile time.  ZRING and ONE only
+// where !WIDE.
+template <int CW, bool VEC, bool ONE, bool ZRING, bool WIDE>
+__global__ void __launch_bounds__(NAIVE_THREADS)
+spmm_ell_naive_kernel(const int* __restrict__ ids,   // (n, h)
+                      const float* __restrict__ w,   // (n, h)
+                      const float* __restrict__ z,   // (v, B)
+                      float* __restrict__ out,       // (n, B)
+                      int n, int h, int b, int rows) {
+  extern __shared__ __align__(128) unsigned char naive_raw[];
+  NaiveSmem& s = *reinterpret_cast<NaiveSmem*>(naive_raw);
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NAIVE_STAGES; ++i) {
+      mbar_init(smem_u32(&s.full[i]), 32);
+      mbar_init(smem_u32(&s.empty[i]), NAIVE_WARPS);
+    }
+    for (int i = 0; i < NAIVE_WARPS; ++i) {
+      mbar_init(smem_u32(&s.zbar[i][0]), 1);
+      mbar_init(smem_u32(&s.zbar[i][1]), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the only CTA-wide barrier
+
+  if (warp == NAIVE_WARPS) {  // the producer
+    walk_stages(n, h, rows, [&](int it, int t, int l0, int cnt) {
+      const int st = it % NAIVE_STAGES;
+      mbar_wait(smem_u32(&s.empty[st]), ((it / NAIVE_STAGES) & 1) ^ 1);
+      const size_t g0 = (size_t)t * rows * h + l0;
+      const Block bi = block_of(ids + g0, cnt), bw = block_of(w + g0, cnt);
+      const uint32_t full = smem_u32(&s.full[st]);
+      if (lane == 0) {
+        fence_proxy_async();
+        mbar_arrive_tx(full, (uint32_t)(bi.body + bw.body) * 4);
+        if (bi.body)
+          bulk_g2s(smem_u32(&s.ids[st][bi.shift + bi.head]), ids + g0 + bi.head,
+                   bi.body * 4, full);
+        if (bw.body)
+          bulk_g2s(smem_u32(&s.w[st][bw.shift + bw.head]), w + g0 + bw.head,
+                   bw.body * 4, full);
+      } else {
+        stage_edges(ids + g0, s.ids[st], cnt, bi, lane - 1);
+        stage_edges(reinterpret_cast<const int*>(w + g0),
+                    reinterpret_cast<int*>(s.w[st]), cnt, bw, lane - 9);
+        mbar_arrive(full);
+      }
+    });
+    return;
+  }
+
+  float* zr = ZRING ? reinterpret_cast<float*>(&s + 1) + warp * 2 * NAIVE_ZU * b
+                    : nullptr;
+  const uint32_t zbar = smem_u32(&s.zbar[warp][0]);
+  int zg = 0;
+  walk_stages(n, h, rows, [&](int it, int t, int l0, int cnt) {
+    const int st = it % NAIVE_STAGES;
+    mbar_wait(smem_u32(&s.full[st]), (it / NAIVE_STAGES) & 1);
+    const size_t g0 = (size_t)t * rows * h + l0;
+    const int si0 = (int)((reinterpret_cast<uintptr_t>(ids + g0) >> 2) & 3);
+    const int sw0 = (int)((reinterpret_cast<uintptr_t>(w + g0) >> 2) & 3);
+    // the tile's rows in this stage (ONE: a tile is one stage)
+    const int i0 = ONE ? 0 : l0 / h, i1 = ONE ? cnt / h - 1 : (l0 + cnt - 1) / h;
+    for (int i = i0 + ((warp - i0 % NAIVE_WARPS) + NAIVE_WARPS) % NAIVE_WARPS;
+         i <= i1; i += NAIVE_WARPS) {
+      const int rs = i * h;                        // the row's first slot
+      const int k0 = max(0, l0 - rs), k1 = min(h, l0 + cnt - rs);
+      const int at = rs + k0 - l0;                 // slot k0's place in the stage
+      naive_piece<CW, VEC, ONE, ZRING, WIDE>(
+          s.ids[st] + si0 + at, s.w[st] + sw0 + at, k1 - k0, ONE || k0 == 0,
+          z, out + ((size_t)t * rows + i) * b, b, lane, s.listed[warp], zr,
+          zbar, zg);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_u32(&s.empty[st]));
+  });
+}
+
+template <int CW, bool VEC, bool ONE, bool ZRING, bool WIDE>
+cudaError_t launch_naive(const void* ids, const void* w, const void* z,
+                         void* out, int n, int h, int b, int rows,
+                         cudaStream_t stream) {
+  auto kernel = spmm_ell_naive_kernel<CW, VEC, ONE, ZRING, WIDE>;
+  const int smem = naive_smem(b, ZRING);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+      cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, NAIVE_THREADS, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long tiles = ((long long)n + rows - 1) / rows;
+  const int grid = (int)std::min(tiles, (long long)per_sm * sms);
+  kernel<<<grid, NAIVE_THREADS, smem, stream>>>(
+      (const int*)ids, (const float*)w, (const float*)z, (float*)out, n, h, b,
+      rows);
+  return cudaGetLastError();
+}
+
+// The instance for a shape: ONE where a row is one piece and one column
+// chunk, WIDE where v * B >= 2^32.
+template <int CW, bool VEC, bool ZRING>
+cudaError_t launch_naive_for(const void* ids, const void* w, const void* z,
+                             void* out, int n, int h, int b, int rows,
+                             bool wide, cudaStream_t s) {
+  if constexpr (!ZRING) {
+    if (wide)
+      return launch_naive<CW, VEC, false, false, true>(ids, w, z, out, n, h, b,
+                                                       rows, s);
+  }
+  if (h <= SLOTS && b <= 32 * CW)
+    return launch_naive<CW, VEC, true, ZRING, false>(ids, w, z, out, n, h, b,
+                                                     rows, s);
+  return launch_naive<CW, VEC, false, ZRING, false>(ids, w, z, out, n, h, b,
+                                                    rows, s);
 }
 
 }  // namespace
@@ -419,11 +802,38 @@ extern "C" int launch_spmm_ell_dense(const void* ids, const void* w,
   return (int)cudaGetLastError();
 }
 
+// rows: doc rows a tile (a multiple of NAIVE_WARPS, whose rows fill at
+// most a stage unless rows == NAIVE_WARPS); cw, vec as for the blocked
+// kernel; zring: Z rows by bulk copies (B % 4 == 0, z 16-byte aligned, one
+// column chunk: B <= 32 * cw; v * B < 2^32).
 extern "C" int launch_spmm_ell_naive(const void* ids, const void* w,
                                      const void* z, void* out, int n, int h,
-                                     int b, void* stream) {
+                                     int v, int b, int rows, int cw, int vec,
+                                     int zring, void* stream) {
   if (n <= 0 || b <= 0) return (int)cudaGetLastError();
-  spmm_ell_naive_kernel<<<n, min(b, 128), 0, (cudaStream_t)stream>>>(
-      (const int*)ids, (const float*)w, (const float*)z, (float*)out, h, b);
-  return (int)cudaGetLastError();
+  if (h < 1 || v < 1 || rows < NAIVE_WARPS || rows % NAIVE_WARPS != 0 ||
+      (rows > NAIVE_WARPS && (long long)rows * h > NAIVE_CAP) ||
+      (long long)rows * h > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (vec && b % cw != 0) return (int)cudaErrorInvalidValue;
+  const bool wide = (long long)v * b >= (1LL << 32);
+  if (zring && (wide || b % 4 != 0 || b > 32 * cw || (uintptr_t)z % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define NAIVE_ARGS ids, w, z, out, n, h, b, rows, wide, s
+  if (zring) {
+    if (cw == 1) return (int)launch_naive_for<1, false, true>(NAIVE_ARGS);
+    if (cw == 2) return (int)launch_naive_for<2, true, true>(NAIVE_ARGS);
+    if (cw == 4) return (int)launch_naive_for<4, true, true>(NAIVE_ARGS);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (cw == 1) return (int)launch_naive_for<1, false, false>(NAIVE_ARGS);
+  if (cw == 2)
+    return (int)(vec ? launch_naive_for<2, true, false>(NAIVE_ARGS)
+                     : launch_naive_for<2, false, false>(NAIVE_ARGS));
+  if (cw == 4)
+    return (int)(vec ? launch_naive_for<4, true, false>(NAIVE_ARGS)
+                     : launch_naive_for<4, false, false>(NAIVE_ARGS));
+#undef NAIVE_ARGS
+  return (int)cudaErrorInvalidValue;
 }

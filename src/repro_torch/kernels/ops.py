@@ -73,8 +73,9 @@ def spmm_ell(
 
     ``mode``: "blocked" (a warp gathers each doc row's Z rows), "dense" (the
     TPU's one-hot formulation: each row's slots summed vocab subtile by
-    subtile, without the one-hot product's zeros) or
-    "naive" (the seed kernel, one doc per CTA, kept as the baseline).
+    subtile, without the one-hot product's zeros) or "naive" (the seed
+    formulation: a warp a doc row, its ids and weights staged into shared
+    memory by bulk copies, zero-weight slots skipped).
     """
     if mode not in _SPMM:
         raise ValueError(f"unknown spmm mode {mode!r}")

@@ -13,7 +13,11 @@ Three formulations, as in the reference, each a CUDA kernel in
   the row's (the one-hot product of the TPU kernel, without its zeros;
   a slot whose id lies outside [0, v) adds nothing, as there);
 * naive (:func:`spmm_ell_naive`), replacing ``spmm_ell_naive_pallas``: the
-  seed baseline, one doc per CTA, slots in sequence.
+  seed formulation, a warp a doc row, on persistent CTAs that walk tiles
+  of :func:`naive_tile_rows` rows; a producer warp stages each tile's ids
+  and weights into shared memory by bulk copies in an mbarrier ring, and
+  the consumer warps skip zero-weight slots and gather the nonzero slots'
+  Z rows eight at a time.
 """
 
 from __future__ import annotations
@@ -27,6 +31,9 @@ DENSE_NAME = "spmm_ell_dense"
 NAIVE_NAME = "spmm_ell_naive"
 DENSE_BV = 512  # vocab rows per subtile, as in the kernel
 DENSE_MAX_H = 2048  # the dense kernel's widest ELL row (its shared memory)
+NAIVE_WARPS = 8     # the naive kernel's consumer warps a CTA, as in the kernel
+NAIVE_CAP = 1024    # slots a stage of its ring, as in the kernel
+NAIVE_MAX_ROWS = 64  # rows a tile at most
 
 
 def spmm_ell_plain(ids: torch.Tensor, w: torch.Tensor,
@@ -76,6 +83,9 @@ def _check(ids: torch.Tensor, w: torch.Tensor, z: torch.Tensor) -> None:
     _build.require(z, torch.float32, 2, "z")
     if ids.shape != w.shape:
         raise ValueError(f"ids {tuple(ids.shape)} != w {tuple(w.shape)}")
+    if not ids.device == w.device == z.device:
+        raise ValueError(f"ids, w and z must be on one device, got "
+                         f"{ids.device}, {w.device}, {z.device}")
 
 
 def _route(cuda_fn, plain_fn, ids, w, z):
@@ -143,21 +153,50 @@ def spmm_ell_naive_plain(ids: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def spmm_ell_naive_cuda(ids: torch.Tensor, w: torch.Tensor,
-                        z: torch.Tensor) -> torch.Tensor:
-    """Launch the naive kernel: ids int32 / w f32 (n, h), z f32 (v, B)."""
+def naive_tile_rows(h: int) -> int:
+    """Doc rows a tile of the naive kernel: the most whole rows, in warps'
+    worth (so a multiple of 4), that fill one stage of ``NAIVE_CAP`` slots,
+    at most ``NAIVE_MAX_ROWS``; rows wider than a warp's share of a stage
+    take a tile of ``NAIVE_WARPS`` rows that streams through several
+    stages."""
+    rows = NAIVE_CAP // h // NAIVE_WARPS * NAIVE_WARPS
+    return min(max(rows, NAIVE_WARPS), NAIVE_MAX_ROWS)
+
+
+def spmm_ell_naive_cuda(ids: torch.Tensor, w: torch.Tensor, z: torch.Tensor,
+                        *, z_ring: bool = False) -> torch.Tensor:
+    """Launch the naive kernel: ids int32 / w f32 (n, h), z f32 (v, B);
+    any n below 2**31, h >= 1, B >= 1.
+
+    ``D[i] = Σ_p w[i, p] · Z[ids[i, p]]`` as one fmaf chain a column in
+    slot order from +0 that skips zero-weight slots: for a finite Z that is
+    the sum over every slot bit for bit (the blocked kernel's D), but where
+    Z holds an inf or a NaN a zero-weight slot adds nothing here while the
+    reference adds ``0 · inf`` = NaN.  ``z_ring``: the Z rows come into
+    shared memory by bulk copies instead of L1-cached loads (B a multiple of
+    4 up to the lanes' one column chunk, z 16-byte aligned, v·B < 2**32),
+    the variant the card measurements compare; not the default."""
     _check(ids, w, z)
     n, h = ids.shape
-    b = z.shape[1]
+    v, b = z.shape
     if n > 2**31 - 1:
         raise ValueError(f"at most 2**31 - 1 docs, got {n}")
+    if h < 1 or h * naive_tile_rows(h) >= 2**31:
+        raise ValueError(f"ELL width must be in 1..{2**31 // NAIVE_WARPS - 1}, "
+                         f"got {h}")
     out = torch.empty((n, b), dtype=torch.float32, device=z.device)
+    cw, vec = column_plan(b, z.data_ptr(), out.data_ptr())
+    if z_ring and not (b % 4 == 0 and b <= 32 * cw and z.data_ptr() % 16 == 0
+                       and v * b < 2**32):
+        raise ValueError(f"z_ring needs B a multiple of 4 up to {32 * cw}, a "
+                         f"16-byte aligned z and v * B < 2**32, got z "
+                         f"{tuple(z.shape)}")
     lib = _build.lib(NAME)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.launch_spmm_ell_naive(
             ids.data_ptr(), w.data_ptr(), z.data_ptr(), out.data_ptr(),
-            n, h, b, stream)
+            n, h, v, b, naive_tile_rows(h), cw, int(vec), int(z_ring), stream)
     _build.check(code, NAIVE_NAME)
     _build.LAUNCHES[NAIVE_NAME] += 1
     return out

@@ -819,6 +819,110 @@ def test_spmm_blocked_kernel_unaligned_z_and_chunk_shape(cuda):
                                rtol=1e-5, atol=1e-5)
 
 
+def _naive_vs_blocked(ids, w, z):
+    """B6b's D, bit-equal to B2's on the same inputs (contiguous copies for
+    B2), and within the sum's rounding (1e-5 of Σ|w·z| a row and column)
+    of its plain version."""
+    d = tsp.spmm_ell_naive_cuda(ids, w, z)
+    assert torch.equal(d, tsp.spmm_ell_cuda(ids.contiguous(), w.contiguous(), z))
+    mag = torch.einsum("nh,nhb->nb", w.abs(), z.abs()[ids.long()])
+    assert bool(((d - tsp.spmm_ell_naive_plain(ids, w, z)).abs()
+                 <= 1e-5 + 1e-5 * mag).all())
+    return d
+
+
+@pytest.mark.parametrize("h", [1, 3, 13, 48, 64, 65, 160, 300])
+@pytest.mark.parametrize("b", [3, 64, 256])
+def test_spmm_naive_kernel_bit_equal_to_blocked(cuda, b, h):
+    """B6b at one-stage tiles (h <= 128), tiles whose rows cross stages
+    (h 160, 300), one and several column chunks: bit-equal to B2, also
+    through the Z-row ring where it applies; n is not a multiple of a
+    tile's rows and every seventh row has no nonzero slot."""
+    rng = np.random.default_rng(b * 1000 + h)
+    n = 5 * tsp.naive_tile_rows(h) + 3
+    ids, w, z = (x.to(cuda) for x in _blocked_case(rng, n, h, 900, b))
+    d = _naive_vs_blocked(ids, w, z)
+    assert not d[::7].any()
+    if b % 4 == 0 and b <= 128:
+        assert torch.equal(tsp.spmm_ell_naive_cuda(ids, w, z, z_ring=True), d)
+
+
+@pytest.mark.parametrize("h", [1, 3, 13, 47, 300])
+def test_spmm_naive_kernel_misaligned_views(cuda, h):
+    """ids[1:] and a w two words into its buffer: blocks that start and end
+    off a 16-byte boundary, their heads and tails by ordinary loads."""
+    rng = np.random.default_rng(h)
+    n = 3 * tsp.naive_tile_rows(h) + 5
+    ids, w, z = (x.to(cuda) for x in _blocked_case(rng, n + 1, h, 700, 64))
+    buf = torch.zeros(n * h + 3, device=cuda)
+    w_view = buf[2:2 + n * h].view(n, h)
+    w_view.copy_(w[1:])
+    assert ids[1:].data_ptr() % 16 or h % 4 == 0
+    _naive_vs_blocked(ids[1:], w_view, z)
+    _naive_vs_blocked(ids[1:], w[1:], z)
+
+
+def test_spmm_naive_kernel_chunk_shape_and_wide_rows(cuda):
+    """The vocabulary-chunk call's shape (chunk-relative ids into a Z of
+    (512, 64), about one slot in 143 nonzero) and rows of 2,048 slots, each
+    two stages of its own."""
+    r_ids = torch.tensor(np.random.default_rng(5).integers(
+        0, 73_123, size=(20_000, 48)).astype(np.int32), device=cuda)
+    r_w = torch.rand(20_000, 48, device=cuda)
+    zc = torch.rand(512, 64, device=cuda)
+    for lo in (0, 36_352):
+        c_ids, c_w = tfs.chunk_relative(r_ids, r_w, lo, 512)
+        _naive_vs_blocked(c_ids, c_w, zc)
+    rng = np.random.default_rng(6)
+    ids, w, z = (x.to(cuda) for x in _blocked_case(rng, 301, 2048, 5000, 64))
+    _naive_vs_blocked(ids, w, z)
+
+
+def test_spmm_naive_kernel_z_past_2_32_entries(cuda):
+    """A Z of more than 2^32 floats (17.2 GB): the listed slots keep their
+    ids and the Z offsets go 64-bit (the WIDE instance); bit-equal to B2,
+    whose offsets are 64-bit always, on ids at both ends of Z."""
+    v, b = 2**32 // 64 + 16, 64
+    z = torch.zeros((v, b), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    z[-2048:] = torch.randn(2048, b, device=cuda, generator=g)
+    z[:2048] = torch.randn(2048, b, device=cuda, generator=g)
+    ids = torch.randint(0, 2048, (1000, 48), device=cuda, generator=g,
+                        dtype=torch.int32)
+    ids[::2] += v - 2048
+    w = torch.rand(1000, 48, device=cuda, generator=g)
+    w[w < 0.3] = 0.0
+    d = tsp.spmm_ell_naive_cuda(ids, w, z)
+    assert torch.equal(d, tsp.spmm_ell_cuda(ids, w, z))
+    assert bool(d[::2].abs().sum(1).gt(0).all())
+    with pytest.raises(ValueError, match="z_ring"):
+        tsp.spmm_ell_naive_cuda(ids, w, z, z_ring=True)
+    del z
+
+
+def test_spmm_naive_kernel_refuses_what_it_does_not_take(cuda):
+    """What the kernel cannot take raises before a launch, and counts none."""
+    rng = np.random.default_rng(8)
+    ids, w, z = (x.to(cuda) for x in _blocked_case(rng, 40, 12, 100, 64))
+    _build.reset_launches()
+    bad = [
+        (ids[:, :0].contiguous(), w[:, :0].contiguous(), z, {}),  # h = 0
+        (ids[:, ::2], w[:, ::2], z, {}),                          # not contiguous
+        (ids, w.double(), z, {}),                                 # w not f32
+        (ids.cpu(), w, z, {}),                                    # ids on the CPU
+        (ids, w, z[:, :63].contiguous(), dict(z_ring=True)),      # B % 4 != 0
+        (ids, w, torch.zeros(100 * 64 + 1, device=cuda)[1:].view(100, 64),
+         dict(z_ring=True)),                                      # z not 16-byte aligned
+        (ids, w, torch.zeros(100, 132, device=cuda), dict(z_ring=True)),  # two chunks
+    ]
+    for i, w_, z_, kw in bad:
+        with pytest.raises(ValueError):
+            tsp.spmm_ell_naive_cuda(i, w_, z_, **kw)
+    assert _build.LAUNCHES["spmm_ell_naive"] == 0
+    tsp.spmm_ell_naive_cuda(ids, w, z)
+    assert _build.LAUNCHES["spmm_ell_naive"] == 1
+
+
 def test_transformer_prefill_runs_b8_and_matches_plain_attention(cuda,
                                                                 monkeypatch):
     cfg = tconfig.TransformerConfig(

@@ -740,7 +740,8 @@ def _fma(a, b, c):
     (up to a double rounding that does not show at these tolerances); a
     sum past float32's range is inf, as on the card."""
     with np.errstate(over="ignore"):
-        return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+        r = np.add(np.multiply(a, b, dtype=np.float64), c, dtype=np.float64)
+        return r.astype(np.float32) if isinstance(r, np.ndarray) else np.float32(r)
 
 
 def _rwmd_kernel_order(emb, r_ids, r_w, q_ids, q_w, *, full, bf16=False,
@@ -1688,6 +1689,140 @@ def test_spmm_blocked_kernel_order_equals_the_full_fmaf_chain():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(tsp.spmm_ell_naive_plain(*map(_t, (ids, w, z))),
                                got, rtol=1e-5, atol=1e-5)
+
+
+def _staged(flat, g0, cnt, base_words, cap):
+    """One stage of a block as B6b's producer leaves it in shared memory:
+    slot j at buf[shift + j], where shift is the block's start in 4-byte
+    words past a 16-byte boundary (the array's base at ``base_words``);
+    the body by the bulk copy, the head and tail by ordinary loads.  Every
+    other place holds junk."""
+    shift = (base_words + g0) % 4
+    head = min(cnt, (4 - shift) % 4)
+    body = (cnt - head) // 4 * 4
+    assert (shift + head) % 4 == 0 or body == 0   # the copy's ends are aligned
+    buf = np.full(cap + 4, np.nan if flat.dtype == np.float32 else -7,
+                  flat.dtype)
+    buf[shift + head:shift + head + body] = flat[g0 + head:g0 + head + body]
+    for j in list(range(head)) + list(range(head + body, cnt)):
+        assert j < head or j - head - body < 4
+        buf[shift + j] = flat[g0 + j]
+    return buf, shift
+
+
+def _naive_kernel_order(ids, w, z, *, rows=None, cap=tsp.NAIVE_CAP,
+                        warps=tsp.NAIVE_WARPS, ctas=3, base_words=(0, 0),
+                        u=8):
+    """B6b's walk on the CPU: CTAs take tiles of ``rows`` rows in a static
+    stride, each tile's flat slots in stages of ``cap`` as ``_staged`` leaves
+    them; warp ``i % warps`` takes a tile's row i: its slots in the stage,
+    64 at a time, the nonzero ones listed and added ``u`` at a time, each an
+    fmaf in slot order from +0; a row that goes on into the next stage
+    carries its partial sums in its D row."""
+    n, h = ids.shape
+    rows = rows or tsp.naive_tile_rows(h)
+    fi, fw = ids.reshape(-1), w.reshape(-1)
+    out = np.full((n, z.shape[1]), np.nan, np.float32)
+    n_tiles = -(-n // rows)
+    for cta in range(ctas):
+        for t in range(cta, n_tiles, ctas):
+            gs, ge = t * rows * h, min(n, (t + 1) * rows) * h
+            for g0 in range(gs, ge, cap):
+                cnt = min(cap, ge - g0)
+                si, shi = _staged(fi, g0, cnt, base_words[0], cap)
+                sw, shw = _staged(fw, g0, cnt, base_words[1], cap)
+                l0, l1 = g0 - gs, g0 - gs + cnt
+                i0, i1 = l0 // h, (l1 - 1) // h
+                for warp in range(warps):
+                    for i in range(i0 + (warp - i0) % warps, i1 + 1, warps):
+                        rs = i * h
+                        k0, k1 = max(0, l0 - rs), min(h, l1 - rs)
+                        at = rs + k0 - l0
+                        row = t * rows + i
+                        acc = (np.zeros(z.shape[1], np.float32) if k0 == 0
+                               else out[row].copy())
+                        for p0 in range(0, k1 - k0, 64):
+                            listed = [(si[shi + at + p], sw[shw + at + p])
+                                      for p in range(p0, min(p0 + 64, k1 - k0))
+                                      if sw[shw + at + p] != 0]
+                            for g in range(0, len(listed), u):
+                                for i_d, wv in listed[g:g + u]:
+                                    acc = _fma(wv, z[i_d], acc)
+                        out[row] = acc
+    return out
+
+
+def _slot_order(ids, w, z):
+    """The fmaf chain over every slot in order from +0 (the seed's sum)."""
+    full = np.zeros((ids.shape[0], z.shape[1]), np.float32)
+    for p in range(ids.shape[1]):
+        full = _fma(w[:, p:p + 1], z[ids[:, p]], full)
+    return full
+
+
+def _naive_case(h, b, seed):
+    """An ELL set of n rows (not a multiple of the tile's), a third of its
+    slots zero-weight, all-zero rows, ids 0 and v - 1 in use."""
+    rng = np.random.default_rng(seed)
+    rows = tsp.naive_tile_rows(h)
+    n, v = rows + rows // 2 + 3, 97
+    ids, w = _mk_ell(rng, n, h, v, pad=0.35)
+    ids[::4, 0], ids[1::4, -1] = 0, v - 1
+    w[::5] = 0.0
+    z = rng.normal(size=(v, b)).astype(np.float32)
+    return ids, w, z
+
+
+@pytest.mark.parametrize("b", [1, 3, 64, 65, 130])
+@pytest.mark.parametrize("h", [1, 3, 48, 160, 300])
+def test_spmm_naive_kernel_order_matches_slot_order_and_pallas(h, b):
+    """B6b's walk with the kernel's tiles and stages (at h = 160 and 300 a
+    tile of 8 rows takes two and three stages, rows split between them),
+    both arrays' bases misaligned: bit-equal to the slot-order fmaf chain
+    over every slot, all-zero rows +0; within 1e-5 of the Pallas seed
+    kernel."""
+    ids, w, z = _naive_case(h, b, seed=h * 1000 + b)
+    got = _naive_kernel_order(ids, w, z, base_words=(1, 3))
+    np.testing.assert_array_equal(got, _slot_order(ids, w, z))
+    assert not got[::5].any() and not np.signbit(got[::5]).any()
+    want = np.asarray(jops.spmm_ell(jnp.asarray(ids), jnp.asarray(w),
+                                    jnp.asarray(z), mode="naive",
+                                    interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("cap,warps,rows,h", [
+    (16, 2, 2, 13),     # rows of 13 slots over stages of 16: most split
+    (64, 4, 4, 150),    # a row spans three stages, pieces of 64 inside
+    (12, 2, 2, 3),      # a stage of whole rows, the tile's last one short
+    (tsp.NAIVE_CAP, tsp.NAIVE_WARPS, tsp.NAIVE_WARPS, 700),  # the kernel's own
+])
+@pytest.mark.parametrize("base_words", [(0, 0), (2, 1), (3, 3)])
+def test_spmm_naive_kernel_order_any_stage_split(cap, warps, rows, h,
+                                                 base_words):
+    """The walk at stages that cut rows anywhere, misaligned heads and
+    tails on both arrays: still the slot-order chain bit for bit."""
+    rng = np.random.default_rng(cap + h + sum(base_words))
+    ids, w = _mk_ell(rng, 2 * rows * 3 + 1, h, 50, pad=0.4)
+    w[1::3] = 0.0
+    z = rng.normal(size=(50, 5)).astype(np.float32)
+    got = _naive_kernel_order(ids, w, z, rows=rows, cap=cap, warps=warps,
+                              ctas=2, base_words=base_words)
+    np.testing.assert_array_equal(got, _slot_order(ids, w, z))
+
+
+@pytest.mark.parametrize("h", [1, 3, 4, 47, 48, 64, 160, 255, 256, 257, 300,
+                               2048, 5000])
+def test_spmm_naive_tile_rows(h):
+    """Tiles of whole warps' worth of rows (so a multiple of 4: one
+    contiguous block a tile, aligned when the base is), filling at most a
+    stage unless a warp's share of a stage is narrower than a row."""
+    rows = tsp.naive_tile_rows(h)
+    assert rows % tsp.NAIVE_WARPS == 0 and rows % 4 == 0
+    assert tsp.NAIVE_WARPS <= rows <= tsp.NAIVE_MAX_ROWS
+    assert rows * h <= tsp.NAIVE_CAP or rows == tsp.NAIVE_WARPS
+    if rows < tsp.NAIVE_MAX_ROWS:
+        assert (rows + tsp.NAIVE_WARPS) * h > tsp.NAIVE_CAP
 
 
 # ---------------------------------------------------------------------------
