@@ -68,7 +68,7 @@ Phases, each of which exits non-zero on failure:
    the ELL SpMM's launches and device time inside one ``"scan"`` call
    (``torch.profiler``); the seed SpMM (B6b) beside the blocked one (B2),
    alternated and bit-equal, at the main shape, the ``"scan"`` chunk shape,
-   Table IV set 1's h_max (160) and B = 256, with its Z-row ring variant;
+   Table IV set 1's h_max (160) and B = 256;
    one line compares the quadratic RWMD's time with LC-RWMD's.  The
    engine of phases 3-5 is freed before the next phases.
 6. flash attention: the kernel against its plain version at llama3.2-1b's
@@ -644,16 +644,14 @@ def kernel_phase(engine, q, report):
         f"{SFU_OPS_PER_S:.3e}/s: {by} bound {bnd:.3f} ms")
 
 
-def naive_shapes(docs, v, r_ids, r_w, z1) -> dict:
-    """B6b beside B2 on one card, alternated, at the main path's shape, the
-    ``"scan"`` chunk shape (chunk 0 and a mid chunk), Table IV set 1's
-    h_max and B = 256, each bit-equal to B2; the bound by B2's rule (every
-    weight, the ids of nonzero slots, Z and D once); B6b's Z-row ring timed
-    where it applies (B a multiple of 4, one column chunk)."""
+def naive_shape_inputs(docs, v, r_ids, r_w, z1) -> dict:
+    """B6b's shapes as ``{name: (ids, w, z)}``: the main path's (r_ids, r_w,
+    z1), the ``"scan"`` chunk shape (chunk 0 and a mid chunk, Z (512, B)),
+    Table IV set 1's h_max (seeded, 80% of slots nonzero) and B = 256 (the
+    main rows against a seeded Z of (v_e, 256))."""
     import torch
 
     from repro_torch.kernels import fused_stream as fs
-    from repro_torch.kernels import spmm_ell as sp
 
     dev = z1.device
     v_e = z1.shape[0]
@@ -670,8 +668,20 @@ def naive_shapes(docs, v, r_ids, r_w, z1) -> dict:
     shapes["h160"] = (ids160, w160 / w160.sum(1, keepdim=True), z1)
     shapes["b256"] = (r_ids, r_w, torch.rand(v_e, NAIVE_WIDE_B, device=dev,
                                              generator=g))
+    return shapes
+
+
+def naive_shapes(docs, v, r_ids, r_w, z1) -> dict:
+    """B6b beside B2 on one card, alternated, at :func:`naive_shape_inputs`'
+    shapes, each bit-equal to B2; the bound by B2's rule (every weight, the
+    ids of nonzero slots, Z and D once)."""
+    import torch
+
+    from repro_torch.kernels import spmm_ell as sp
+
     out = {}
-    for name, (ids, w, z) in shapes.items():
+    for name, (ids, w, z) in naive_shape_inputs(docs, v, r_ids, r_w,
+                                                z1).items():
         n_, h_ = ids.shape
         v_, b_ = z.shape
         d6 = sp.spmm_ell_naive_cuda(ids, w, z)
@@ -690,21 +700,13 @@ def naive_shapes(docs, v, r_ids, r_w, z1) -> dict:
                    runs_ms=runs, bound_ms=bnd, bound_by=by,
                    gathered_tbps=nnz * b_ * 4 / ms / 1e9,
                    blocked_gathered_tbps=nnz * b_ * 4 / b2_ms / 1e9)
-        if b_ % 4 == 0 and b_ <= 128:
-            if not torch.equal(sp.spmm_ell_naive_cuda(ids, w, z, z_ring=True),
-                               d6):
-                fail(f"spmm_ell_naive's Z-row ring at the {name} shape: not "
-                     f"bit-equal")
-            row["z_ring_ms"] = time_ms(
-                lambda: sp.spmm_ell_naive_cuda(ids, w, z, z_ring=True), 10)
         out[name] = row
         log(f"spmm_ell_naive at the {name} shape (n {n_}, h {h_}, B {b_}, "
             f"{nnz} nonzero slots): {ms:.4f} ms ({runs['naive'][0]:.4f} / "
             f"{runs['naive'][1]:.4f}), blocked {b2_ms:.4f} ms; {by} bound "
             f"{bnd:.4f} ms; Z rows at {row['gathered_tbps']:.2f} TB/s "
-            f"(blocked {row['blocked_gathered_tbps']:.2f})"
-            + (f"; Z-row ring {row['z_ring_ms']:.4f} ms" if "z_ring_ms" in row
-               else "") + "; bit-equal to blocked")
+            f"(blocked {row['blocked_gathered_tbps']:.2f}); bit-equal to "
+            f"blocked")
         del d6
     return out
 

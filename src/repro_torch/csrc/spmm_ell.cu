@@ -92,15 +92,14 @@
 // the next stage: its partial sums wait in its D row, reloaded by the same
 // lanes.  Skipping zero-weight slots is exact because Z is finite, so the
 // result equals the blocked kernel's bit for bit; the load paths stay
-// separate.  On the H100 the Z loads are hidden: the kernel takes as long
-// when every one hits a single cached row, so it is bound by the
-// instructions it issues a row, with fewer warps an SM than the blocked
-// kernel (40 against 64).  Staging costs every slot's id (the blocked
-// kernel reads the nonzero slots' only).  Larger stages, a third stage, 4
-// or 16 rows in flight and 12 or 16 consumer warps were no faster.  ZRING:
-// the nonzero slots' Z rows come by cp.async.bulk too, into a ring of two
-// groups of NAIVE_ZU rows a warp (B % 4 == 0, one column chunk); it runs at
-// about half the speed of the L1-cached loads and is not the default.
+// separate.  On the H100 the Z loads are not hidden: with every gather
+// aimed at one cached row the kernel takes 0.72 of its time at the main
+// path's shape (PERF.md), and it runs fewer warps an SM than the blocked
+// kernel.  Staging costs every slot's id (the blocked
+// kernel reads the nonzero slots' only).  A variant whose Z rows came by
+// cp.async.bulk too, past L1, ran at about half the speed.
+// tools/naive_probe.py times the NAIVE_* constants below, the 32-bit keys
+// and the loop-free instance against their alternatives (PERF.md).
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -408,7 +407,6 @@ constexpr int NAIVE_STAGES = 2;    // ring stages of ids and weights
 constexpr int NAIVE_CAP = 1024;    // slots a stage (a multiple of 4)
 constexpr int NAIVE_PAD = NAIVE_CAP + 4;  // room for a block's misaligned head
 constexpr int NAIVE_U = 8;         // Z rows in flight a warp
-constexpr int NAIVE_ZU = 4;        // ZRING: Z rows a group, two groups a warp
 constexpr int NAIVE_THREADS = (NAIVE_WARPS + 1) * 32;
 static_assert(NAIVE_U % 4 == 0 && NAIVE_CAP % 4 == 0, "pairs, then fours; aligned stages");
 
@@ -417,15 +415,8 @@ struct NaiveSmem {
   float w[NAIVE_STAGES][NAIVE_PAD];
   int2 listed[NAIVE_WARPS][SLOTS];   // a warp's nonzero slots by rank (16-byte aligned)
   unsigned long long full[NAIVE_STAGES], empty[NAIVE_STAGES];
-  unsigned long long zbar[NAIVE_WARPS][2];  // ZRING: one a group
 };
-static_assert(sizeof(NaiveSmem) % 16 == 0, "the Z-row groups follow, 16-byte aligned");
 static_assert(offsetof(NaiveSmem, listed) % 16 == 0, "entries are read in pairs");
-
-// Bytes of dynamic shared memory: the ring, then (ZRING) the Z-row groups.
-int naive_smem(int b, bool zring) {
-  return (int)sizeof(NaiveSmem) + (zring ? NAIVE_WARPS * 2 * NAIVE_ZU * b * 4 : 0);
-}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -559,11 +550,11 @@ __device__ __forceinline__ void gather_group(const int2* e, int cnt,
 // One piece of a row: len slots in slot order at si / sw in the stage; its
 // D row's partial sums carried in orow when the row goes on from an
 // earlier stage (!first).
-template <int CW, bool VEC, bool ONE, bool ZRING, bool WIDE>
+template <int CW, bool VEC, bool ONE, bool WIDE>
 __device__ __forceinline__ void naive_piece(
     const int* si, const float* sw, int len, bool first,
     const float* __restrict__ z, float* __restrict__ orow, int b, int lane,
-    int2* buf, float* zr, uint32_t zbar, int& zg) {
+    int2* buf) {
   const unsigned below = (1u << lane) - 1;
   for (int c0 = 0; ONE ? c0 == 0 : c0 < b; c0 += 32 * CW) {
     const int col = c0 + lane * CW;
@@ -586,56 +577,14 @@ __device__ __forceinline__ void naive_piece(
         buf[__popc(ma) + __popc(mb & below)] =
             make_int2(slot_key<WIDE>(si[pb], b), __float_as_int(wb));
       __syncwarp();
-      if constexpr (ZRING) {
-        // groups of NAIVE_ZU rows, the next one in flight while this one
-        // is added; group q of the warp uses half q & 1 and zbar[q & 1]
-        const int groups = (nz + NAIVE_ZU - 1) / NAIVE_ZU;
-        auto issue = [&](int g) {
-          if (lane != 0) return;
-          const int q = zg + g, cnt = min(NAIVE_ZU, nz - g * NAIVE_ZU);
-          const uint32_t bar = zbar + 8 * (q & 1);
-          fence_proxy_async();
-          mbar_arrive_tx(bar, (uint32_t)(cnt * b * 4));
-          for (int u = 0; u < cnt; ++u)
-            bulk_g2s(smem_u32(zr + ((q & 1) * NAIVE_ZU + u) * b),
-                     z + (unsigned)buf[g * NAIVE_ZU + u].x, b * 4, bar);
-        };
-        issue(0);
-        for (int g = 0; g < groups; ++g) {
-          if (g + 1 < groups) issue(g + 1);
-          const int q = zg + g;
-          mbar_wait(zbar + 8 * (q & 1), (q >> 1) & 1);
-          const float* zh = zr + (q & 1) * NAIVE_ZU * b + col;
-          for (int u = 0; u < NAIVE_ZU && g * NAIVE_ZU + u < nz; ++u) {
-            const float wv = __int_as_float(buf[g * NAIVE_ZU + u].y);
-            float x[CW];
-            if constexpr (CW == 4) {
-              const float4 t = col < b ? *reinterpret_cast<const float4*>(zh + u * b)
-                                       : make_float4(0.f, 0.f, 0.f, 0.f);
-              x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
-            } else if constexpr (CW == 2) {
-              const float2 t = col < b ? *reinterpret_cast<const float2*>(zh + u * b)
-                                       : make_float2(0.f, 0.f);
-              x[0] = t.x, x[1] = t.y;
-            } else {
-              x[0] = col < b ? zh[u * b] : 0.f;
-            }
-#pragma unroll
-            for (int j = 0; j < CW; ++j) acc[j] = fmaf(wv, x[j], acc[j]);
-          }
-          __syncwarp();  // the half is read before a later group refills it
-        }
-        zg += groups;
-      } else {
-        // whole groups of NAIVE_U, then of 4, then the last 1..3 slots
-        const float* zc = z + col;
-        int g = 0;
-        for (; g + NAIVE_U <= nz; g += NAIVE_U)
-          gather_group<NAIVE_U, CW, VEC, WIDE>(buf + g, NAIVE_U, zc, col, b, acc);
-        for (; g + 4 <= nz; g += 4)
-          gather_group<4, CW, VEC, WIDE>(buf + g, 4, zc, col, b, acc);
-        if (g < nz) gather_group<4, CW, VEC, WIDE>(buf + g, nz - g, zc, col, b, acc);
-      }
+      // whole groups of NAIVE_U, then of 4, then the last 1..3 slots
+      const float* zc = z + col;
+      int g = 0;
+      for (; g + NAIVE_U <= nz; g += NAIVE_U)
+        gather_group<NAIVE_U, CW, VEC, WIDE>(buf + g, NAIVE_U, zc, col, b, acc);
+      for (; g + 4 <= nz; g += 4)
+        gather_group<4, CW, VEC, WIDE>(buf + g, 4, zc, col, b, acc);
+      if (g < nz) gather_group<4, CW, VEC, WIDE>(buf + g, nz - g, zc, col, b, acc);
       __syncwarp();  // the list is read before the next piece writes it
     }
     store_cols<CW, VEC>(orow + col, col, b, acc);
@@ -643,9 +592,8 @@ __device__ __forceinline__ void naive_piece(
 }
 
 // ONE: rows of at most SLOTS slots and 32 * CW columns (a row is then one
-// piece of one stage), the loops gone at compile time.  ZRING and ONE only
-// where !WIDE.
-template <int CW, bool VEC, bool ONE, bool ZRING, bool WIDE>
+// piece of one stage), the loops gone at compile time; only where !WIDE.
+template <int CW, bool VEC, bool ONE, bool WIDE>
 __global__ void __launch_bounds__(NAIVE_THREADS)
 spmm_ell_naive_kernel(const int* __restrict__ ids,   // (n, h)
                       const float* __restrict__ w,   // (n, h)
@@ -660,10 +608,6 @@ spmm_ell_naive_kernel(const int* __restrict__ ids,   // (n, h)
     for (int i = 0; i < NAIVE_STAGES; ++i) {
       mbar_init(smem_u32(&s.full[i]), 32);
       mbar_init(smem_u32(&s.empty[i]), NAIVE_WARPS);
-    }
-    for (int i = 0; i < NAIVE_WARPS; ++i) {
-      mbar_init(smem_u32(&s.zbar[i][0]), 1);
-      mbar_init(smem_u32(&s.zbar[i][1]), 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -695,10 +639,6 @@ spmm_ell_naive_kernel(const int* __restrict__ ids,   // (n, h)
     return;
   }
 
-  float* zr = ZRING ? reinterpret_cast<float*>(&s + 1) + warp * 2 * NAIVE_ZU * b
-                    : nullptr;
-  const uint32_t zbar = smem_u32(&s.zbar[warp][0]);
-  int zg = 0;
   walk_stages(n, h, rows, [&](int it, int t, int l0, int cnt) {
     const int st = it % NAIVE_STAGES;
     mbar_wait(smem_u32(&s.full[st]), (it / NAIVE_STAGES) & 1);
@@ -712,22 +652,21 @@ spmm_ell_naive_kernel(const int* __restrict__ ids,   // (n, h)
       const int rs = i * h;                        // the row's first slot
       const int k0 = max(0, l0 - rs), k1 = min(h, l0 + cnt - rs);
       const int at = rs + k0 - l0;                 // slot k0's place in the stage
-      naive_piece<CW, VEC, ONE, ZRING, WIDE>(
+      naive_piece<CW, VEC, ONE, WIDE>(
           s.ids[st] + si0 + at, s.w[st] + sw0 + at, k1 - k0, ONE || k0 == 0,
-          z, out + ((size_t)t * rows + i) * b, b, lane, s.listed[warp], zr,
-          zbar, zg);
+          z, out + ((size_t)t * rows + i) * b, b, lane, s.listed[warp]);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(smem_u32(&s.empty[st]));
   });
 }
 
-template <int CW, bool VEC, bool ONE, bool ZRING, bool WIDE>
+template <int CW, bool VEC, bool ONE, bool WIDE>
 cudaError_t launch_naive(const void* ids, const void* w, const void* z,
                          void* out, int n, int h, int b, int rows,
                          cudaStream_t stream) {
-  auto kernel = spmm_ell_naive_kernel<CW, VEC, ONE, ZRING, WIDE>;
-  const int smem = naive_smem(b, ZRING);
+  auto kernel = spmm_ell_naive_kernel<CW, VEC, ONE, WIDE>;
+  const int smem = (int)sizeof(NaiveSmem);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -750,20 +689,15 @@ cudaError_t launch_naive(const void* ids, const void* w, const void* z,
 
 // The instance for a shape: ONE where a row is one piece and one column
 // chunk, WIDE where v * B >= 2^32.
-template <int CW, bool VEC, bool ZRING>
+template <int CW, bool VEC>
 cudaError_t launch_naive_for(const void* ids, const void* w, const void* z,
                              void* out, int n, int h, int b, int rows,
                              bool wide, cudaStream_t s) {
-  if constexpr (!ZRING) {
-    if (wide)
-      return launch_naive<CW, VEC, false, false, true>(ids, w, z, out, n, h, b,
-                                                       rows, s);
-  }
+  if (wide)
+    return launch_naive<CW, VEC, false, true>(ids, w, z, out, n, h, b, rows, s);
   if (h <= SLOTS && b <= 32 * CW)
-    return launch_naive<CW, VEC, true, ZRING, false>(ids, w, z, out, n, h, b,
-                                                     rows, s);
-  return launch_naive<CW, VEC, false, ZRING, false>(ids, w, z, out, n, h, b,
-                                                    rows, s);
+    return launch_naive<CW, VEC, true, false>(ids, w, z, out, n, h, b, rows, s);
+  return launch_naive<CW, VEC, false, false>(ids, w, z, out, n, h, b, rows, s);
 }
 
 }  // namespace
@@ -804,12 +738,11 @@ extern "C" int launch_spmm_ell_dense(const void* ids, const void* w,
 
 // rows: doc rows a tile (a multiple of NAIVE_WARPS, whose rows fill at
 // most a stage unless rows == NAIVE_WARPS); cw, vec as for the blocked
-// kernel; zring: Z rows by bulk copies (B % 4 == 0, z 16-byte aligned, one
-// column chunk: B <= 32 * cw; v * B < 2^32).
+// kernel.
 extern "C" int launch_spmm_ell_naive(const void* ids, const void* w,
                                      const void* z, void* out, int n, int h,
                                      int v, int b, int rows, int cw, int vec,
-                                     int zring, void* stream) {
+                                     void* stream) {
   if (n <= 0 || b <= 0) return (int)cudaGetLastError();
   if (h < 1 || v < 1 || rows < NAIVE_WARPS || rows % NAIVE_WARPS != 0 ||
       (rows > NAIVE_WARPS && (long long)rows * h > NAIVE_CAP) ||
@@ -817,23 +750,15 @@ extern "C" int launch_spmm_ell_naive(const void* ids, const void* w,
     return (int)cudaErrorInvalidValue;
   if (vec && b % cw != 0) return (int)cudaErrorInvalidValue;
   const bool wide = (long long)v * b >= (1LL << 32);
-  if (zring && (wide || b % 4 != 0 || b > 32 * cw || (uintptr_t)z % 16 != 0))
-    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
 #define NAIVE_ARGS ids, w, z, out, n, h, b, rows, wide, s
-  if (zring) {
-    if (cw == 1) return (int)launch_naive_for<1, false, true>(NAIVE_ARGS);
-    if (cw == 2) return (int)launch_naive_for<2, true, true>(NAIVE_ARGS);
-    if (cw == 4) return (int)launch_naive_for<4, true, true>(NAIVE_ARGS);
-    return (int)cudaErrorInvalidValue;
-  }
-  if (cw == 1) return (int)launch_naive_for<1, false, false>(NAIVE_ARGS);
+  if (cw == 1) return (int)launch_naive_for<1, false>(NAIVE_ARGS);
   if (cw == 2)
-    return (int)(vec ? launch_naive_for<2, true, false>(NAIVE_ARGS)
-                     : launch_naive_for<2, false, false>(NAIVE_ARGS));
+    return (int)(vec ? launch_naive_for<2, true>(NAIVE_ARGS)
+                     : launch_naive_for<2, false>(NAIVE_ARGS));
   if (cw == 4)
-    return (int)(vec ? launch_naive_for<4, true, false>(NAIVE_ARGS)
-                     : launch_naive_for<4, false, false>(NAIVE_ARGS));
+    return (int)(vec ? launch_naive_for<4, true>(NAIVE_ARGS)
+                     : launch_naive_for<4, false>(NAIVE_ARGS));
 #undef NAIVE_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -63,8 +63,8 @@ SIGNATURES = {
         # ids, w, z, out, n, h, v, b, stream
         "launch_spmm_ell_dense": [P, P, P, P, I, I, I, I, P],
         # ids, w, z, out, n, h, v, b, rows a tile, columns a lane, vector
-        # loads, Z rows by bulk copies, stream
-        "launch_spmm_ell_naive": [P, P, P, P, I, I, I, I, I, I, I, I, P],
+        # loads, stream
+        "launch_spmm_ell_naive": [P, P, P, P, I, I, I, I, I, I, I, P],
     },
     "fused_topk": {
         # ids, w, z, row_valid, q_gid, d21 (each may be null), part_vals,

@@ -163,40 +163,34 @@ def naive_tile_rows(h: int) -> int:
     return min(max(rows, NAIVE_WARPS), NAIVE_MAX_ROWS)
 
 
-def spmm_ell_naive_cuda(ids: torch.Tensor, w: torch.Tensor, z: torch.Tensor,
-                        *, z_ring: bool = False) -> torch.Tensor:
+def spmm_ell_naive_cuda(ids: torch.Tensor, w: torch.Tensor,
+                        z: torch.Tensor) -> torch.Tensor:
     """Launch the naive kernel: ids int32 / w f32 (n, h), z f32 (v, B);
-    any n below 2**31, h >= 1, B >= 1.
+    any n below 2**31, any h and B (h = 0 gives zeros, as the other modes).
 
     ``D[i] = Σ_p w[i, p] · Z[ids[i, p]]`` as one fmaf chain a column in
     slot order from +0 that skips zero-weight slots: for a finite Z that is
     the sum over every slot bit for bit (the blocked kernel's D), but where
     Z holds an inf or a NaN a zero-weight slot adds nothing here while the
-    reference adds ``0 · inf`` = NaN.  ``z_ring``: the Z rows come into
-    shared memory by bulk copies instead of L1-cached loads (B a multiple of
-    4 up to the lanes' one column chunk, z 16-byte aligned, v·B < 2**32),
-    the variant the card measurements compare; not the default."""
+    reference adds ``0 · inf`` = NaN."""
     _check(ids, w, z)
     n, h = ids.shape
     v, b = z.shape
     if n > 2**31 - 1:
         raise ValueError(f"at most 2**31 - 1 docs, got {n}")
-    if h < 1 or h * naive_tile_rows(h) >= 2**31:
-        raise ValueError(f"ELL width must be in 1..{2**31 // NAIVE_WARPS - 1}, "
+    if h * naive_tile_rows(max(h, 1)) >= 2**31:
+        raise ValueError(f"ELL width must be below {2**31 // NAIVE_WARPS}, "
                          f"got {h}")
     out = torch.empty((n, b), dtype=torch.float32, device=z.device)
+    if h == 0:
+        return out.zero_()
     cw, vec = column_plan(b, z.data_ptr(), out.data_ptr())
-    if z_ring and not (b % 4 == 0 and b <= 32 * cw and z.data_ptr() % 16 == 0
-                       and v * b < 2**32):
-        raise ValueError(f"z_ring needs B a multiple of 4 up to {32 * cw}, a "
-                         f"16-byte aligned z and v * B < 2**32, got z "
-                         f"{tuple(z.shape)}")
     lib = _build.lib(NAME)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.launch_spmm_ell_naive(
             ids.data_ptr(), w.data_ptr(), z.data_ptr(), out.data_ptr(),
-            n, h, v, b, naive_tile_rows(h), cw, int(vec), int(z_ring), stream)
+            n, h, v, b, naive_tile_rows(h), cw, int(vec), stream)
     _build.check(code, NAIVE_NAME)
     _build.LAUNCHES[NAIVE_NAME] += 1
     return out

@@ -835,16 +835,14 @@ def _naive_vs_blocked(ids, w, z):
 @pytest.mark.parametrize("b", [3, 64, 256])
 def test_spmm_naive_kernel_bit_equal_to_blocked(cuda, b, h):
     """B6b at one-stage tiles (h <= 128), tiles whose rows cross stages
-    (h 160, 300), one and several column chunks: bit-equal to B2, also
-    through the Z-row ring where it applies; n is not a multiple of a
-    tile's rows and every seventh row has no nonzero slot."""
+    (h 160, 300), one and several column chunks: bit-equal to B2; n is not
+    a multiple of a tile's rows and every seventh row has no nonzero
+    slot."""
     rng = np.random.default_rng(b * 1000 + h)
     n = 5 * tsp.naive_tile_rows(h) + 3
     ids, w, z = (x.to(cuda) for x in _blocked_case(rng, n, h, 900, b))
     d = _naive_vs_blocked(ids, w, z)
     assert not d[::7].any()
-    if b % 4 == 0 and b <= 128:
-        assert torch.equal(tsp.spmm_ell_naive_cuda(ids, w, z, z_ring=True), d)
 
 
 @pytest.mark.parametrize("h", [1, 3, 13, 47, 300])
@@ -895,29 +893,29 @@ def test_spmm_naive_kernel_z_past_2_32_entries(cuda):
     d = tsp.spmm_ell_naive_cuda(ids, w, z)
     assert torch.equal(d, tsp.spmm_ell_cuda(ids, w, z))
     assert bool(d[::2].abs().sum(1).gt(0).all())
-    with pytest.raises(ValueError, match="z_ring"):
-        tsp.spmm_ell_naive_cuda(ids, w, z, z_ring=True)
     del z
 
 
 def test_spmm_naive_kernel_refuses_what_it_does_not_take(cuda):
-    """What the kernel cannot take raises before a launch, and counts none."""
+    """What the kernel cannot take raises before a launch, and counts none;
+    an empty ELL (h = 0) gives zeros, as the blocked kernel does, with no
+    launch."""
     rng = np.random.default_rng(8)
     ids, w, z = (x.to(cuda) for x in _blocked_case(rng, 40, 12, 100, 64))
     _build.reset_launches()
     bad = [
-        (ids[:, :0].contiguous(), w[:, :0].contiguous(), z, {}),  # h = 0
-        (ids[:, ::2], w[:, ::2], z, {}),                          # not contiguous
-        (ids, w.double(), z, {}),                                 # w not f32
-        (ids.cpu(), w, z, {}),                                    # ids on the CPU
-        (ids, w, z[:, :63].contiguous(), dict(z_ring=True)),      # B % 4 != 0
-        (ids, w, torch.zeros(100 * 64 + 1, device=cuda)[1:].view(100, 64),
-         dict(z_ring=True)),                                      # z not 16-byte aligned
-        (ids, w, torch.zeros(100, 132, device=cuda), dict(z_ring=True)),  # two chunks
+        (ids[:, ::2], w[:, ::2], z),              # not contiguous
+        (ids, w.double(), z),                     # w not f32
+        (ids.cpu(), w, z),                        # ids on the CPU
+        (ids, w[:-1].contiguous(), z),            # w not ids' shape
     ]
-    for i, w_, z_, kw in bad:
+    for i, w_, z_ in bad:
         with pytest.raises(ValueError):
-            tsp.spmm_ell_naive_cuda(i, w_, z_, **kw)
+            tsp.spmm_ell_naive_cuda(i, w_, z_)
+    empty = (ids[:, :0].contiguous(), w[:, :0].contiguous(), z)
+    d0 = tsp.spmm_ell_naive_cuda(*empty)
+    assert d0.shape == (40, 64) and not d0.any()
+    assert torch.equal(d0, tsp.spmm_ell_cuda(*empty))
     assert _build.LAUNCHES["spmm_ell_naive"] == 0
     tsp.spmm_ell_naive_cuda(ids, w, z)
     assert _build.LAUNCHES["spmm_ell_naive"] == 1

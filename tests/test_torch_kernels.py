@@ -1825,6 +1825,35 @@ def test_spmm_naive_tile_rows(h):
         assert (rows + tsp.NAIVE_WARPS) * h > tsp.NAIVE_CAP
 
 
+def _naive_probe():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / "naive_probe.py"
+    spec = importlib.util.spec_from_file_location("naive_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["one_row", "general", "id_keys", "warps12",
+                                  "warps16", "cap2048", "stages3", "u4"])
+def test_naive_probe_variants_apply_to_the_source(name):
+    """Each variant ``tools/naive_probe.py`` times changes the kernel source
+    where it means to (every substitution matches once), and its tile rows
+    are ones the launcher takes; the tree's constants give the wrapper's."""
+    probe = _naive_probe()
+    subs, warps, cap = probe.VARIANTS[name]
+    src = (_build.CSRC / "spmm_ell.cu").read_text()
+    for old, _ in subs:
+        assert src.count(old) == 1
+    for h in (1, 3, 48, 160, 300, 2048):
+        rows = probe.tile_rows(h, warps, cap)
+        assert rows % warps == 0 and (rows * h <= cap or rows == warps)
+        assert probe.tile_rows(h, tsp.NAIVE_WARPS, tsp.NAIVE_CAP) == \
+            tsp.naive_tile_rows(h)
+
+
 # ---------------------------------------------------------------------------
 # Dispatch: CPU tensors take the plain versions and launch nothing
 # ---------------------------------------------------------------------------
