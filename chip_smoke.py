@@ -71,7 +71,26 @@ Phases, each of which exits non-zero on failure:
    Table IV set 1's h_max (160) and B = 256;
    one line compares the quadratic RWMD's time with LC-RWMD's.  The
    engine of phases 3-5 is freed before the next phases.
-6. flash attention: the kernel against its plain version at llama3.2-1b's
+6. segments and the serve step: the same corpus, held on the card, as a
+   ``SegmentedEngine`` of a 688,000-doc base and three 4,000-doc deltas
+   (the last ends with an exact copy of doc 5), with
+   7,000 seeded deletions and the queries 60-63 deleted; with the counts
+   reset just before and read just after, ``topk_streaming`` k=32,
+   ``symmetric_topk_streaming`` k=20, ``rerank_topk`` k=5, ``one_sided``
+   and ``build_serve_step`` (refine, rerank at a budget of 32) at tiers
+   0-2 and with ``self_exclude``: B1, B2, B3, B4 and the d21 mode must
+   each have run.  Checks: every live query first at tier 0, the copy of
+   doc 5 right after it, no dead doc, filler or id past the corpus in a
+   result, no self-match under ``self_exclude``, tier 1 the first k of
+   ``topk_streaming``, the ids of a monolithic ``LCRWMDEngine`` over the
+   live docs (distances within 1e-5 (1 + |d|), the bit-equal share
+   printed), the same answers after ``compact``, no host-to-device copy
+   in a serve call at an unchanged version.  Per-call times, an append, a
+   delete with the first serve after it, ``compact``, the segments' bytes
+   and the phase's peak memory are printed.  (The small phase holds the
+   segmented engine and the serve step, the engine-less and
+   ``streaming=False`` steps and ``build_allpairs_d1`` against the CPU.)
+7. flash attention: the kernel against its plain version at llama3.2-1b's
    heads (B=4, S=T=4,096, 32 query and 8 KV heads, dh 64), causal in bf16
    and f32, non-causal, at a length that is not a tile multiple, and with
    S=4,000 queries over T=4,096 keys, non-causal (a ragged KV tail; bf16
@@ -79,7 +98,7 @@ Phases, each of which exits non-zero on failure:
    largest error over its row's largest output), and on the probe whose
    output shows that p is rounded to bf16; its time and TFLOP/s beside
    ``scaled_dot_product_attention``'s (bf16, and f32 with TF32 off).
-7. gather-scale-scatter: ``ops.segment_spmm`` at the ogb_products cell
+8. gather-scale-scatter: ``ops.segment_spmm`` at the ogb_products cell
    (2,449,029 nodes, 61,859,140 edges, 100 features) with degree-0 rows
    and padding edges, against its plain version on the card, bit for bit
    against the CPU plain version on the first rows, and beside
@@ -90,7 +109,7 @@ Phases, each of which exits non-zero on failure:
    the bare gather ``feat[src]`` (``index_select``) and ``embedding_bag``'s
    weighted sums over the same rows; the call's time when one row holds
    1% of the edges (a hub); a whole trace of the call.
-8. llama3.2-1b at full width (random weights from a seed): one 32,768-token
+9. llama3.2-1b at full width (random weights from a seed): one 32,768-token
    prompt through ``forward_with_cache`` (flash attention in all 16 layers,
    counted) and 32 greedy ``decode_step``s; prefill and decode times, peak
    memory, the attention kernel's share of the prefill and its TFLOP/s
@@ -314,6 +333,7 @@ def kernel_phase(engine, q, report):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
 
+    from repro_torch.core.lc_rwmd import doc_targets
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_stream as fs
     from repro_torch.kernels import lc_rwmd_phase1 as p1
@@ -577,8 +597,7 @@ def kernel_phase(engine, q, report):
 
     # --- B4: Sinkhorn-WMD on the rerank's pairs ---
     flat = i_k.reshape(-1).long()
-    t1 = engine._t_r.reshape(n, h1, m).index_select(0, flat)
-    w1 = engine.resident.weights.index_select(0, flat)
+    t1, w1 = doc_targets(engine.resident, engine.emb_full, flat)
     t2 = t.repeat_interleave(kk, dim=0)
     w2 = q.weights.repeat_interleave(kk, dim=0)
     c_k, it_k = sk.sinkhorn_cuda(t1, w1, t2, w2, **KW_RERANK)
@@ -723,7 +742,7 @@ def comparison_phase(engine, q, cand, report):
     from repro_torch.core import rwmd as trw
     from repro_torch.core import wmd as twmd
     from repro_torch.core.distances import dists, pair_dists
-    from repro_torch.core.lc_rwmd import lc_rwmd_streaming
+    from repro_torch.core.lc_rwmd import doc_targets, lc_rwmd_streaming
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import fused_stream as fs
     from repro_torch.kernels import rwmd_pairwise as rw
@@ -745,7 +764,7 @@ def comparison_phase(engine, q, cand, report):
     flat = cand.indices.reshape(-1).long()
     ids1 = docs.ids.index_select(0, flat)
     w1 = docs.weights.index_select(0, flat)
-    t1 = engine._t_r.reshape(n, h1, m).index_select(0, flat)
+    t1 = doc_targets(docs, emb, flat)[0]
     ids2 = q.ids.repeat_interleave(K_CAND, dim=0)
     w2 = q.weights.repeat_interleave(K_CAND, dim=0)
     t2 = t_q.repeat_interleave(K_CAND, dim=0)
@@ -1157,6 +1176,96 @@ def small_phase():
         "topk_streaming, symmetric_topk_streaming, rerank_topk, "
         "pruned_wmd_topk, lc_rwmd_streaming (kernel, scan) and rwmd_pairwise "
         "agree with the CPU plain versions")
+    small_serve_phase(c, eng_c, eng_g, q, atol)
+
+
+def small_serve_phase(c, eng_c, eng_g, q, atol):
+    """The segmented engine and the serve step at the small size: card
+    against CPU, ids equal where the gaps are clear, values within atol."""
+    import torch
+
+    from repro_torch.core.lc_rwmd import SegmentedEngine
+    from repro_torch.distributed.lcrwmd_dist import (build_allpairs_d1,
+                                                     build_serve_step)
+
+    dead = list(range(100, 1800, 29)) + [14, 15]
+    engines = []
+    for dev in ("cpu", "cuda"):
+        e = SegmentedEngine(c.docs[:1800], c.emb, device=dev)
+        e.append(c.docs[1800:1900])
+        e.append(c.docs[1900:])
+        e.delete(dead)
+        engines.append(e)
+    sc, sg = engines
+    for name, k in (("topk_streaming", 10), ("symmetric_topk_streaming", 10)):
+        a = getattr(sg, name)(q, k)
+        b = getattr(sc, name)(q, k + 1)
+        check_topk(f"small segmented {name}", a.dists.cpu(), a.indices.cpu(),
+                   b.dists, b.indices, atol)
+    for name in ("one_sided", "symmetric"):
+        a = getattr(sg, name)(q).cpu()
+        b = getattr(sc, name)(q)
+        if not torch.allclose(a, b, rtol=1e-4, atol=atol):
+            fail(f"small segmented {name}: card and CPU differ")
+    cand = sc.topk_streaming(q, 16).indices
+    a = sg.rerank_topk(q, cand, 5, sinkhorn_kw=KW_RERANK)
+    b = sc.rerank_topk(q, cand, 5, sinkhorn_kw=KW_RERANK)
+    if not torch.allclose(a.dists.cpu(), b.dists, rtol=1e-4, atol=atol):
+        fail("small segmented rerank_topk: card and CPU differ")
+    kw = dict(refine=True, rerank_wmd=True, rerank_budget=16,
+              wmd_kw=KW_RERANK, bf16_matmul=False)
+    ids = torch.arange(16, dtype=torch.int32)
+    for self_exclude in (False, True):
+        x = dict(query_ids=ids) if self_exclude else {}
+        xg = dict(query_ids=ids.cuda()) if self_exclude else {}
+        for tier in (1, 2, 0):
+            a = build_serve_step(engine=sg, k=5, self_exclude=self_exclude,
+                                 **kw)(q, tier=tier, **xg).topk
+            b = build_serve_step(engine=sc, k=6 if tier else 5,
+                                 self_exclude=self_exclude, **kw)(
+                q, tier=tier, **x).topk
+            if tier:
+                check_topk(f"small serve tier {tier}", a.dists.cpu(),
+                           a.indices.cpu(), b.dists, b.indices, atol)
+                continue
+            # the rerank's inputs are the 16 candidates: compare the queries
+            # whose candidate sets agree (near ties at the cutoff may not)
+            cg, cc = (build_serve_step(engine=e, k=16, self_exclude=self_exclude,
+                                       **kw)(q, tier=1, **xx).topk.indices.cpu()
+                      for e, xx in ((sg, xg), (sc, x)))
+            same = torch.tensor([set(u.tolist()) == set(v.tolist())
+                                 for u, v in zip(cg, cc)])
+            if float(same.float().mean()) < 0.75 or not torch.allclose(
+                    a.dists.cpu()[same], b.dists[same], rtol=1e-4, atol=atol):
+                fail(f"small serve tier 0 (self_exclude {self_exclude}): "
+                     f"card and CPU differ ({int(same.sum())} of 16 queries "
+                     "with the same candidates)")
+            if self_exclude and bool((a.indices.cpu() == ids[:, None]).any()):
+                fail("small serve self_exclude: a query found itself")
+    # the monolithic engine's materialized step and the engine-less step
+    for label, (ga, ca) in {
+            "streaming=False": (
+                build_serve_step(engine=eng_g, k=7, streaming=False,
+                                 bf16_matmul=False)(q),
+                build_serve_step(engine=eng_c, k=8, streaming=False,
+                                 bf16_matmul=False)(q)),
+            "engine-less": (
+                build_serve_step(k=7, bf16_matmul=False)(c.docs, q, c.emb),
+                build_serve_step(k=8, bf16_matmul=False, device="cpu")(
+                    c.docs, q, c.emb))}.items():
+        check_topk(f"small serve {label}", ga.topk.dists.cpu(),
+                   ga.topk.indices.cpu(), ca.topk.dists, ca.topk.indices, atol)
+        if not torch.allclose(ga.d_local.cpu(), ca.d_local, rtol=1e-4,
+                              atol=atol):
+            fail(f"small serve {label}: d_local differs")
+    a = build_allpairs_d1()(c.docs, q, c.emb).cpu()
+    b = build_allpairs_d1(device="cpu")(c.docs, q, c.emb)
+    if not torch.allclose(a, b, rtol=1e-4, atol=atol):
+        fail("small build_allpairs_d1: card and CPU differ")
+    log("small segmented engine (3 segments, "
+        f"{len(dead)} deleted) and serve step (tiers 0-2, self_exclude, "
+        "streaming=False, engine-less, build_allpairs_d1) agree with the "
+        "CPU plain versions")
 
 
 def flash_phase(frac: float, dev) -> dict:
@@ -1750,11 +1859,244 @@ def _gap(a, b) -> dict:
     return dict(rel_rms=rel, max_abs=float(d.abs().max()), top1_agree=top1)
 
 
-def lcrwmd_phases(scale: float) -> dict:
-    """Phases 4-6 on one LC-RWMD corpus; returns the kernel report of B1-B7.
+# The segmented phase at scale 0.25: a 688,000-doc base and three deltas of
+# 4,000 (the last 3,999 docs and a copy of doc 5); 7,000 seeded deletions
+# from 64..n-2 and the queries 60..63.  Other scales take these in
+# proportion.
+SEG_DELTA = 4000
+SEG_DELETES = 7000
+SEG_DEAD_QUERIES = (60, 61, 62, 63)
+SEG_REL_TOL = 1e-5    # a monolithic rebuild: |d - d_mono| <= 1e-5 (1 + |d|)
 
-    Everything the phases build (the 40 GB engine above all) is freed when
-    this returns.
+
+def segmented_phase(docs, emb, smi: str) -> dict:
+    """The corpus as a segmented engine and the single-GPU serve step.
+
+    Counts reset just before the calls and read just after: B1, B2, B3, B4
+    and the d21 mode must each have run.  Checks: self-queries first at
+    tier 0, the copy of doc 5 right after it, no dead doc, filler or id
+    past the corpus in any result, no self-match under self_exclude,
+    tier 1 = the first k of ``topk_streaming``, the same ids as a
+    monolithic ``LCRWMDEngine`` over the live docs (distances within
+    ``SEG_REL_TOL``), the same answers after ``compact``, and no
+    host-to-device copy in a serve call at an unchanged version.
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch.core.lc_rwmd import LCRWMDEngine, SegmentedEngine
+    from repro_torch.data.docs import DocSet
+    from repro_torch.distributed.lcrwmd_dist import build_serve_step
+    from repro_torch.kernels import _build
+
+    n = docs.n_docs
+    f = n / 700_000
+    delta = max(32, round(SEG_DELTA * f))
+    base = n - 3 * delta
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sync = torch.cuda.synchronize
+
+    def clock(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    eng, build_ms = clock(lambda: SegmentedEngine(docs[:base], emb))
+    copy5 = DocSet(torch.cat([docs.ids[n - delta:n - 1], docs.ids[5:6]]),
+                   torch.cat([docs.weights[n - delta:n - 1],
+                              docs.weights[5:6]]))
+    append_ms = []
+    for part in (docs[base:base + delta], docs[base + delta:base + 2 * delta],
+                 copy5):
+        _, ms = clock(lambda part=part: eng.append(part))
+        append_ms.append(ms)
+    v_e = [s.tensors.emb_r.shape[0] for s in eng.segments]
+    if (eng.n_docs, eng.n_segments) != (n, 4) or any(
+            s.n_rows != delta for s in eng.segments[1:]):
+        fail(f"segments: n_docs {eng.n_docs}, {eng.n_segments} segments, "
+             f"rows {[s.n_rows for s in eng.segments]}")
+    rng = np.random.default_rng(20)
+    dead = np.concatenate([rng.choice(np.arange(64, n - 1),
+                                      max(1, round(SEG_DELETES * f)),
+                                      replace=False), SEG_DEAD_QUERIES])
+    q = docs[:B]
+    ids = torch.arange(B, dtype=torch.int32, device="cuda")
+    kw = dict(k=K_FINAL, refine=True, rerank_wmd=True, rerank_budget=K_CAND,
+              wmd_kw=KW_RERANK, bf16_matmul=False)
+    step = build_serve_step(engine=eng, **kw)
+    step_x = build_serve_step(engine=eng, self_exclude=True, **kw)
+    step(q)                      # warm the step before the timed delete
+    sync()
+    t0 = time.perf_counter()
+    removed = eng.delete(dead)
+    step(q)
+    sync()
+    delete_serve_ms = (time.perf_counter() - t0) * 1e3
+    if removed != len(dead) or eng.n_live != n - len(dead):
+        fail(f"delete: removed {removed} of {len(dead)}, n_live {eng.n_live}")
+    dead_t = torch.as_tensor(dead, device="cuda")
+
+    def run_all():
+        out = dict(stream=eng.topk_streaming(q, K_CAND),
+                   sym=eng.symmetric_topk_streaming(q, 4 * K_FINAL))
+        out["rerank"] = eng.rerank_topk(q, out["stream"].indices, K_FINAL,
+                                        sinkhorn_kw=KW_RERANK)
+        out["one_sided"] = eng.one_sided(q)
+        for tier in (0, 1, 2):
+            out[f"tier{tier}"] = step(q, tier=tier)
+        out["self_exclude"] = step_x(q, query_ids=ids)
+        return out
+
+    sync()
+    _build.reset_launches()
+    res = run_all()
+    sync()
+    launches = dict(_build.LAUNCHES)
+    log(f"segmented path launches: {launches}")
+    for name in ("lc_rwmd_phase1", "spmm_ell", "fused_topk", "sinkhorn_wmd",
+                 "rwmd_d21"):
+        if launches.get(name, 0) < 1:
+            fail(f"kernel {name} was not launched on the segmented path")
+    peak_serve_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # checks
+    tops = {k: (v.topk if hasattr(v, "topk") else v) for k, v in res.items()
+            if k != "one_sided"}
+    for name, tk in tops.items():
+        i = tk.indices
+        if bool((i < 0).any()) or bool((i >= n).any()) or bool(
+                torch.isin(i.long(), dead_t).any()) or not bool(
+                torch.isfinite(tk.dists).all()):
+            fail(f"segmented {name}: a dead doc, filler or id "
+                 f"past {n} in the result")
+    live_q = torch.tensor([j for j in range(B) if j not in SEG_DEAD_QUERIES],
+                          device="cuda")
+    t0i = res["tier0"].topk.indices
+    if not bool((t0i[live_q, 0] == live_q).all()):
+        fail("segmented tier 0: a live query's top-1 is not itself")
+    if bool((res["self_exclude"].topk.indices == ids[:, None]).any()):
+        fail("segmented self_exclude: a query found itself")
+    for name in ("stream", "sym"):
+        row = tops[name].indices[5].tolist()
+        if n - 1 not in row or row.index(n - 1) != row.index(5) + 1 or (
+                tops[name].dists[5, row.index(5)]
+                != tops[name].dists[5, row.index(n - 1)]):
+            fail(f"segmented {name}: the copy of doc 5 does not tie right "
+                 f"after it: {row[:4]}")
+    t1 = res["tier1"].topk
+    if not (torch.equal(t1.indices, res["stream"].indices[:, :K_FINAL])
+            and torch.equal(t1.dists, res["stream"].dists[:, :K_FINAL])):
+        fail("segmented tier 1 is not the first k of topk_streaming")
+    d1 = res["one_sided"]
+    if tuple(d1.shape) != (n, B) or not bool(torch.isinf(d1[dead_t]).all()) \
+            or not bool(torch.isfinite(d1[eng.live_mask_device()]).all()):
+        fail("segmented one_sided: bad shape, or a dead row finite, or a "
+             "live row not")
+    del d1, res["one_sided"]
+    pe = res["tier0"].pruned_exact
+    exact_share = float(pe.float().mean())
+
+    # per-call times after warm-up (host clock, ending in a synchronize)
+    cand = tops["stream"].indices
+    times = {
+        "topk_streaming_k32": wall_ms(lambda: eng.topk_streaming(q, K_CAND)),
+        "symmetric_topk_streaming_k20": wall_ms(
+            lambda: eng.symmetric_topk_streaming(q, 4 * K_FINAL), 2),
+        "rerank_topk_k5": wall_ms(lambda: eng.rerank_topk(
+            q, cand, K_FINAL, sinkhorn_kw=KW_RERANK)),
+        "one_sided": wall_ms(lambda: eng.one_sided(q)),
+        "serve_tier0": wall_ms(lambda: step(q)),
+        "serve_tier1": wall_ms(lambda: step(q, tier=1)),
+        "serve_tier2": wall_ms(lambda: step(q, tier=2)),
+        "serve_self_exclude": wall_ms(lambda: step_x(q, query_ids=ids)),
+    }
+    profiles = profile_calls({
+        "serve_tier0": lambda: step(q),
+        "serve_self_exclude": lambda: step_x(q, query_ids=ids)})
+    for name, p in profiles.items():
+        if p["htod_copies"]:
+            fail(f"segmented {name}: host-to-device copies at an unchanged "
+                 f"version: {p}")
+
+    # a monolithic engine over the live docs, ids mapped back
+    live_ids = torch.nonzero(eng.live_mask_device())[:, 0]
+    res_docs = eng.resident
+    mono, mono_ms = clock(lambda: LCRWMDEngine(
+        DocSet(res_docs.ids[live_ids].contiguous(),
+               res_docs.weights[live_ids].contiguous()), emb))
+    mono_cmp = {}
+    for name, fn, k in (("stream", "topk_streaming", K_CAND),
+                        ("sym", "symmetric_topk_streaming", 4 * K_FINAL)):
+        a = tops[name]
+        b = getattr(mono, fn)(q, k)
+        if not torch.equal(a.indices.long(), live_ids[b.indices.long()]):
+            fail(f"segmented {fn}: ids differ from the monolithic rebuild's")
+        err = (a.dists - b.dists).abs()
+        if not bool((err <= SEG_REL_TOL * (1 + b.dists.abs())).all()):
+            fail(f"segmented {fn}: distances differ from the monolithic "
+                 f"rebuild's by {float(err.max())}")
+        mono_cmp[fn] = dict(max_abs=float(err.max()),
+                            bit_equal_share=float((a.dists == b.dists)
+                                                  .float().mean()))
+    del mono
+    torch.cuda.empty_cache()
+    log(f"segmented vs monolithic rebuild over the {eng.n_live} live docs "
+        f"(built in {mono_ms:.0f} ms): ids equal; {json.dumps(mono_cmp)}")
+
+    # compact: one segment, the same ids and answers
+    nbytes_before = eng.nbytes
+    n_docs, n_live = eng.n_docs, eng.n_live
+    _, compact_ms = clock(eng.compact)
+    if (eng.n_segments, eng.n_docs, eng.n_live) != (1, n_docs, n_live):
+        fail(f"compact: {eng.n_segments} segments, n_docs {eng.n_docs}, "
+             f"n_live {eng.n_live}")
+    after = dict(stream=eng.topk_streaming(q, K_CAND),
+                 sym=eng.symmetric_topk_streaming(q, 4 * K_FINAL),
+                 tier0=step(q).topk, tier1=step(q, tier=1).topk,
+                 tier2=step(q, tier=2).topk,
+                 self_exclude=step_x(q, query_ids=ids).topk)
+    compact_cmp = {}
+    for name, b in after.items():
+        a = tops[name]
+        if not torch.equal(a.indices, b.indices):
+            fail(f"compact changed the {name} ids")
+        err = (a.dists - b.dists).abs()
+        if not bool((err <= SEG_REL_TOL * (1 + a.dists.abs())).all()):
+            fail(f"compact changed the {name} distances by {float(err.max())}")
+        compact_cmp[name] = float((a.dists == b.dists).float().mean())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    seg_bytes = [s.nbytes for s in eng.segments]
+    info = dict(
+        n_docs=n, base=base, delta=delta, deleted=len(dead),
+        v_e=v_e,
+        n_live=n_live, launches=launches, per_call_ms=times,
+        build_ms=build_ms, append_ms=append_ms,
+        delete_then_first_serve_ms=delete_serve_ms, compact_ms=compact_ms,
+        nbytes_segments=nbytes_before, nbytes_compacted=sum(seg_bytes),
+        peak_serve_gb=peak_serve_gb, peak_gb=peak_gb,
+        pruned_exact_share=exact_share, monolithic=mono_cmp,
+        compact_bit_equal_share=compact_cmp,
+        profiles=profiles, card=smi)
+    log(f"segmented per-call ms (B={B}, after warm-up; {smi}): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in times.items()))
+    log(f"segmented lifecycle ms: build {build_ms:.0f}, appends of {delta} "
+        + " / ".join(f"{ms:.1f}" for ms in append_ms)
+        + f", delete of {len(dead)} then the first serve {delete_serve_ms:.1f},"
+        f" compact {compact_ms:.0f}; segments {nbytes_before / 1e9:.3f} GB "
+        f"(compacted {sum(seg_bytes) / 1e9:.3f} GB); peak device memory "
+        f"{peak_serve_gb:.2f} GB serving, {peak_gb:.2f} GB with the "
+        f"monolithic rebuild (max_memory_allocated)")
+    log("segmented: " + json.dumps(info))
+    return info
+
+
+def lcrwmd_phases(scale: float, smi: str) -> dict:
+    """Phases 3-6 on one LC-RWMD corpus; returns the kernel report of B1-B7.
+
+    Everything the phases build is freed when this returns.
     """
     import torch
 
@@ -1774,17 +2116,16 @@ def lcrwmd_phases(scale: float) -> dict:
     engine = LCRWMDEngine(docs, corpus.emb, row_block=SYM_ROW_BLOCK)
     torch.cuda.synchronize()
     v_e = engine.emb_restricted.shape[0]
-    log(f"engine: v_e={v_e}, _t_r {tuple(engine._t_r.shape)} "
-        f"{engine._t_r.numel() * 4 / 1e9:.1f} GB, built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"engine: v_e={v_e}, built in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated on the card")
     q = docs[:B]
 
-    # 4. kernels against their plain versions
+    # 3. kernels against their plain versions
     report: dict = {}
     kernel_phase(engine, q, report)
     torch.cuda.empty_cache()
 
-    # 5. the slice: main path, counts reset just before and read just after
+    # 4. the slice: main path, counts reset just before and read just after
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -1865,12 +2206,21 @@ def lcrwmd_phases(scale: float) -> dict:
         f"{dev_us / 1e3:.3f} ms: " + ", ".join(
             f"{k[:50]} {us / 1e3:.3f} ms x{c}" for us, k, c in top[:6]))
 
-    # 6. the paper's comparison path (its own launch counts)
+    # 5. the paper's comparison path (its own launch counts)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     comp = comparison_phase(engine, q, cand, report)
     log(f"comparison phase: {time.perf_counter() - t0:.1f} s")
     log("comparison: " + json.dumps(comp))
+
+    # 6. the same corpus as segments, and the serve step (its own counts)
+    del engine, cand, top, res
+    torch.cuda.empty_cache()
+    log(f"monolithic engine freed: {torch.cuda.memory_allocated() / 1e9:.2f} "
+        "GB still allocated")
+    t0 = time.perf_counter()
+    segmented_phase(docs, corpus.emb, smi)
+    log(f"segmented phase: {time.perf_counter() - t0:.1f} s")
 
     slice_info = dict(
         n_docs=spec.n_docs, v_e=v_e, batch=B, per_call_ms=times,
@@ -1916,13 +2266,13 @@ def main() -> int:
     # 2. small-size agreement, card vs CPU (cheap; before the big corpus)
     small_phase()
 
-    # 3-5. the LC-RWMD slice and comparison path; the engine is freed after
-    report = lcrwmd_phases(args.scale)
+    # 3-6. the LC-RWMD slice, the comparison path and the segments
+    report = lcrwmd_phases(args.scale, smi)
     torch.cuda.empty_cache()
     log(f"LC-RWMD phases freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         "still allocated")
 
-    # 6-8. attention (B8), gather-scale-scatter (B9), llama3.2-1b serving
+    # 7-9. attention (B8), gather-scale-scatter (B9), llama3.2-1b serving
     frac = min(1.0, args.scale / 0.25)
     dev = torch.device("cuda")
     report.update(flash_phase(frac, dev))

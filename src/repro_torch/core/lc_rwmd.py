@@ -43,15 +43,26 @@ def as_f32(x, device: torch.device) -> torch.Tensor:
 
 
 class SegmentTensors(NamedTuple):
-    """Device tensors of one resident corpus, as the streaming fold reads them."""
+    """Device tensors of one resident corpus, as the streaming fold reads them.
+
+    No (n·h1, m) pre-gathered target tensor: the card's routes read ``emb``
+    by ``ids`` (the swapped-direction kernel), and the CPU slab fold
+    gathers each slab's targets from them.
+    """
 
     emb_r: torch.Tensor     # (v_e, m) restricted embedding rows (phase-1 input)
     r_ids: torch.Tensor     # (n, h1) restricted int32 word ids (ELL)
     r_w: torch.Tensor       # (n, h1) f32 weights (0 at padding slots)
-    t_r: torch.Tensor       # (n*h1, m) pre-gathered FULL-table word embeddings
-    valid_r: torch.Tensor   # (n*h1,) bool slot validity
-    emb: torch.Tensor       # (v, m) the FULL table (the swapped-direction kernel)
+    emb: torch.Tensor       # (v, m) the FULL table (the swapped direction)
     ids: torch.Tensor       # (n, h1) int32 word ids into the full table
+
+
+def doc_targets(docs: DocSet, emb: torch.Tensor, rows: torch.Tensor):
+    """Word embeddings (P, h, m) and weights (P, h) of docs ``rows`` (P,),
+    gathered from the full table ``emb`` by the docs' ids."""
+    ids = docs.ids.index_select(0, rows)
+    t = emb.index_select(0, ids.reshape(-1)).reshape(*ids.shape, -1)
+    return t, docs.weights.index_select(0, rows)
 
 
 # ---------------------------------------------------------------------------
@@ -157,10 +168,33 @@ def restrict_vocab(resident: DocSet, emb: torch.Tensor):
     return sub, emb[used].contiguous(), old_to_new
 
 
+def _phase1_from_t(emb_r: torch.Tensor, t_q: torch.Tensor, q_w: torch.Tensor,
+                   *, bf16_matmul: bool,
+                   vocab_chunk: int | None = None) -> torch.Tensor:
+    """Z1 (v_e, B) over ``emb_r`` from pre-gathered (B*h, m) query targets.
+
+    The phase-1 kernel on CUDA; on CPU its plain version, taken
+    ``vocab_chunk`` vocab rows at a time where given (the bound of the
+    (chunk, B·h) intermediate).
+    """
+    b, h = q_w.shape
+    t, valid = t_q.reshape(b, h, -1), q_w > 0
+    v = emb_r.shape[0]
+    if emb_r.is_cuda or vocab_chunk is None or vocab_chunk >= v:
+        return ops.lc_rwmd_phase1_pregathered(emb_r, t, valid,
+                                              bf16_matmul=bf16_matmul)
+    return torch.cat([
+        ops.lc_rwmd_phase1_pregathered(emb_r[lo:lo + vocab_chunk], t, valid,
+                                       bf16_matmul=bf16_matmul)
+        for lo in range(0, v, vocab_chunk)])
+
+
 def _topk_stream_from_z(seg: SegmentTensors, z1: torch.Tensor,
                         q_ids: torch.Tensor, t_q: torch.Tensor,
                         q_w: torch.Tensor, *, k: int, symmetric: bool,
-                        row_block: int, bf16_matmul: bool) -> topk_lib.TopK:
+                        row_block: int, bf16_matmul: bool,
+                        row_valid: torch.Tensor | None = None,
+                        q_gid: torch.Tensor | None = None) -> topk_lib.TopK:
     """The streaming top-k fold over the resident rows (after phase 1).
 
     One-sided: the fused phase-2 top-k (kernel on CUDA, slab fold on CPU).
@@ -168,23 +202,33 @@ def _topk_stream_from_z(seg: SegmentTensors, z1: torch.Tensor,
     RWMD kernel's d21 mode (full table, full ids), then the fused phase-2
     top-k with d21 maxed into each D entry; no slab is built.  Symmetric,
     on CPU: ``row_block`` slabs; D1 of a slab through the ELL SpMM wrapper,
-    the swapped direction from the pre-gathered resident targets by a plain
-    GEMM (as the reference leaves it outside its kernels), both folded into
-    a :class:`StreamingTopK` carry.  Exactly the top-k of the materialized
-    matrix, ties included.  An empty resident doc is +inf in the swapped
-    direction (a padded query word adds 0, not ``0 · inf``).
+    the swapped direction from the slab's targets (gathered from the full
+    table) by a plain GEMM (as the reference leaves it outside its
+    kernels), both folded into a :class:`StreamingTopK` carry.  Exactly the
+    top-k of the materialized matrix, ties included.  An empty resident doc
+    is +inf in the swapped direction (a padded query word adds 0, not
+    ``0 · inf``).
+
+    ``row_valid`` (n,) bool: rows that are False (tombstones) are
+    +inf for every query; ``q_gid`` (B,): the pair (row ``q_gid[j]``, query
+    j) is +inf, rows counted from 0 here, so a caller with global ids
+    subtracts its offset.  On CUDA such entries never enter the top-k
+    (its unfilled tail is (3.4e38, -1)); the CPU fold keeps them at +inf.
     """
     b, h2 = q_w.shape
     n, h1 = seg.r_ids.shape
     kk = min(k, n)
     if not symmetric:
         d, i = ops.streaming_phase2_topk(seg.r_ids, seg.r_w, z1, kk,
-                                         row_block=row_block)
+                                         row_block=row_block, q_gid=q_gid,
+                                         row_valid=row_valid)
         return topk_lib.TopK(d, i)
     if z1.is_cuda:
         d21 = ops.rwmd_d21(seg.emb, seg.ids, seg.r_w, q_ids, q_w,
                            bf16_matmul=bf16_matmul)
-        d, i = ops.streaming_phase2_topk(seg.r_ids, seg.r_w, z1, kk, d21=d21)
+        d, i = ops.streaming_phase2_topk(seg.r_ids, seg.r_w, z1, kk,
+                                         q_gid=q_gid, row_valid=row_valid,
+                                         d21=d21)
         return topk_lib.TopK(d, i)
 
     r = max(1, min(row_block, n))
@@ -194,16 +238,58 @@ def _topk_stream_from_z(seg: SegmentTensors, z1: torch.Tensor,
         hi = min(lo + r, n)
         rr = hi - lo
         d1 = ops.spmm_ell(seg.r_ids[lo:hi], seg.r_w[lo:hi], z1)     # (R, B)
-        sq = sq_dists(t_q, seg.t_r[lo * h1:hi * h1], bf16_matmul=bf16_matmul)
+        t_r = seg.emb.index_select(0, seg.ids[lo:hi].reshape(-1))   # (R*h1, m)
+        sq = sq_dists(t_q, t_r, bf16_matmul=bf16_matmul)
         # In place: the (B*h2, R*h1) slab is the fold's largest tensor.
-        sq.masked_fill_(~seg.valid_r[lo * h1:hi * h1][None, :], _INF)
+        sq.masked_fill_(~(seg.r_w[lo:hi] > 0).reshape(1, -1), _INF)
         z2 = safe_sqrt(sq.reshape(b * h2, rr, h1).amin(dim=2))      # (B*h2, R)
         del sq
         d2 = _rw.d21_from_min(z2.reshape(b, h2, rr), q_w)           # (B, R)
         d_blk = torch.maximum(d1.T, d2)                             # (B, R)
         rows = torch.arange(lo, hi, dtype=torch.int32, device=z1.device)
+        if row_valid is not None:
+            d_blk = d_blk.masked_fill(~row_valid[None, lo:hi], _INF)
+        if q_gid is not None:
+            d_blk = d_blk.masked_fill(rows[None, :] == q_gid[:, None], _INF)
         carry = stk.update(carry, d_blk, rows[None, :].expand(b, rr))
     return carry
+
+
+def _segment_topk(seg: SegmentTensors, t_q: torch.Tensor, q_ids: torch.Tensor,
+                  q_w: torch.Tensor, *, k: int, symmetric: bool,
+                  row_block: int, bf16_matmul: bool,
+                  vocab_chunk: int | None = None,
+                  row_valid: torch.Tensor | None = None,
+                  q_gid: torch.Tensor | None = None) -> topk_lib.TopK:
+    """Phase 1 and the streaming top-k of one resident corpus (an engine's,
+    or one segment's): TopK (B, min(k, n_rows)), local ids."""
+    z1 = _phase1_from_t(seg.emb_r, t_q, q_w, bf16_matmul=bf16_matmul,
+                        vocab_chunk=vocab_chunk)
+    return _topk_stream_from_z(seg, z1, q_ids, t_q, q_w, k=k,
+                               symmetric=symmetric, row_block=row_block,
+                               bf16_matmul=bf16_matmul, row_valid=row_valid,
+                               q_gid=q_gid)
+
+
+def _segment_dense(seg: SegmentTensors, t_q: torch.Tensor, q_ids: torch.Tensor,
+                   q_w: torch.Tensor, *, symmetric: bool, bf16_matmul: bool,
+                   vocab_chunk: int | None = None,
+                   row_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Materialized one-sided / symmetric distances of one resident corpus:
+    (n_rows, B).
+
+    Phase 1 and the ELL SpMM, and for the symmetric bound the swapped
+    direction of the quadratic RWMD kernel's d21 mode (its plain version on
+    CPU, ``_PLAIN_DOCS`` docs at a time).  Rows whose ``row_valid`` is
+    False (tombstones) come out +inf.
+    """
+    z1 = _phase1_from_t(seg.emb_r, t_q, q_w, bf16_matmul=bf16_matmul,
+                        vocab_chunk=vocab_chunk)
+    d = ops.spmm_ell(seg.r_ids, seg.r_w, z1)
+    if symmetric:
+        d = torch.maximum(d, ops.rwmd_d21(seg.emb, seg.ids, seg.r_w, q_ids,
+                                          q_w, bf16_matmul=bf16_matmul))
+    return d if row_valid is None else d.masked_fill(~row_valid[:, None], _INF)
 
 
 class LCRWMDEngine:
@@ -217,10 +303,11 @@ class LCRWMDEngine:
       * the paper's ``v_e`` vocabulary restriction (phase 1 / phase 2 only
         touch resident-used vocab rows; queries still gather from the FULL
         table, so out-of-resident-vocab query words stay exact);
-      * the resident-side word-embedding gather ``emb[resident.ids]``
-        (``_t_r``, (n·h1, m) f32, built once by one ``index_select`` with no
-        second copy: at 700,000 docs × 48 words × 300 dims it is 40.3 GB);
       * float32 casts.
+
+    No (n·h1, m) gather of the resident docs' word embeddings is held: the
+    card's routes read the full table by the resident ids, and the rerank
+    and the centroids gather the rows they need.
 
     On CUDA, phase 1, the ELL SpMM, the fused phase-2 top-k, the
     symmetric bound's swapped direction and the Sinkhorn rerank launch the
@@ -242,11 +329,6 @@ class LCRWMDEngine:
         self.emb_restricted = emb_r
         self.old_to_new = old_to_new
 
-        # Pre-gathered side-2 targets: the resident docs' word embeddings.
-        self._t_r = self.emb_full.index_select(
-            0, self.resident.ids.reshape(-1))                 # (n*h1, m)
-        self._valid_r = (self.resident.weights > 0).reshape(-1)  # (n*h1,)
-
     # -- internals --------------------------------------------------------
     def _queries(self, queries: DocSet) -> DocSet:
         return queries.to(self.device)
@@ -264,58 +346,36 @@ class LCRWMDEngine:
     def _segment_tensors(self) -> SegmentTensors:
         return SegmentTensors(
             emb_r=self.emb_restricted, r_ids=self.resident_restricted.ids,
-            r_w=self.resident_restricted.weights, t_r=self._t_r,
-            valid_r=self._valid_r, emb=self.emb_full, ids=self.resident.ids)
+            r_w=self.resident_restricted.weights, emb=self.emb_full,
+            ids=self.resident.ids)
 
     def _phase1(self, t_q: torch.Tensor, q_w: torch.Tensor) -> torch.Tensor:
         """Z1 (v_e, B) over the restricted vocab from (B*h, m) targets."""
-        b, h = q_w.shape
-        return ops.lc_rwmd_phase1_pregathered(
-            self.emb_restricted, t_q.reshape(b, h, -1), q_w > 0,
+        return _phase1_from_t(self.emb_restricted, t_q, q_w,
+                              bf16_matmul=self.bf16_matmul)
+
+    def _dense(self, queries: DocSet, *, symmetric: bool) -> torch.Tensor:
+        queries = self._queries(queries)
+        return _segment_dense(
+            self._segment_tensors(), self._gather_flat(queries.ids),
+            queries.ids, queries.weights, symmetric=symmetric,
             bf16_matmul=self.bf16_matmul)
-
-    def _d1_from_t(self, t_q: torch.Tensor, q_w: torch.Tensor) -> torch.Tensor:
-        """Resident→query direction (n, B) from pre-gathered targets."""
-        z1 = self._phase1(t_q, q_w)
-        return ops.spmm_ell(self.resident_restricted.ids,
-                            self.resident_restricted.weights, z1)
-
-    def _symmetric_from_t(self, t_q: torch.Tensor,
-                          q_w: torch.Tensor) -> torch.Tensor:
-        """Symmetric bound from pre-gathered (B*h2, m) query targets.
-
-        Builds the dense (B·h2, n·h1) swapped-direction matrix: small
-        corpora only (the streaming methods never build it).
-        """
-        b, h2 = q_w.shape
-        n, h1 = self.resident.ids.shape
-        d1 = self._d1_from_t(t_q, q_w)                       # (n, B)
-        sq = sq_dists(t_q, self._t_r, bf16_matmul=self.bf16_matmul)
-        sq.masked_fill_(~self._valid_r[None, :], _INF)
-        z2 = safe_sqrt(sq.reshape(b * h2, n, h1).amin(dim=2))
-        d2 = _rw.d21_from_min(z2.reshape(b, h2, n), q_w)
-        return torch.maximum(d1, d2.T)
 
     def _topk_dispatch(self, queries: DocSet, k: int, symmetric: bool):
         queries = self._queries(queries)
-        t_q = self._gather_flat(queries.ids)
-        z1 = self._phase1(t_q, queries.weights)
-        return _topk_stream_from_z(
-            self._segment_tensors(), z1, queries.ids, t_q, queries.weights,
-            k=k, symmetric=symmetric, row_block=self.row_block,
-            bf16_matmul=self.bf16_matmul)
+        return _segment_topk(
+            self._segment_tensors(), self._gather_flat(queries.ids),
+            queries.ids, queries.weights, k=k, symmetric=symmetric,
+            row_block=self.row_block, bf16_matmul=self.bf16_matmul)
 
     # -- public entry points ----------------------------------------------
     def one_sided(self, queries: DocSet) -> torch.Tensor:
         """D1 (n, B): cost of moving each resident doc into each query."""
-        queries = self._queries(queries)
-        return self._d1_from_t(self._gather_flat(queries.ids), queries.weights)
+        return self._dense(queries, symmetric=False)
 
     def symmetric(self, queries: DocSet) -> torch.Tensor:
-        """Tight symmetric bound max(D1, D2ᵀ), shape (n, B); dense, small n."""
-        queries = self._queries(queries)
-        return self._symmetric_from_t(self._gather_flat(queries.ids),
-                                      queries.weights)
+        """Tight symmetric bound max(D1, D2ᵀ), shape (n, B)."""
+        return self._dense(queries, symmetric=True)
 
     def topk(self, queries: DocSet, k: int) -> topk_lib.TopK:
         """Per-query top-k smallest symmetric LC-RWMD: TopK (B, k)."""
@@ -344,7 +404,7 @@ class LCRWMDEngine:
 
         ``cand_indices`` (B, budget) resident doc ids; returns a TopK of
         (B, min(k, budget)): ascending WMD + global doc ids.  The
-        candidates' word embeddings come from the pre-gathered ``_t_r``.
+        candidates' word embeddings are gathered from the full table.
         """
         from repro_torch.core.wmd import wmd_candidate_values
 
@@ -362,7 +422,320 @@ class LCRWMDEngine:
         embeddings (P, h1, m) and weights (P, h1) of resident docs ``flat``
         (P,) long, and the embeddings (B, h2, m) of query word ids ``q_ids``
         (B, h2).  Nothing is copied to the device."""
-        n, h1 = self.resident.ids.shape
-        return (self._t_r.reshape(n, h1, -1).index_select(0, flat),
-                self.resident.weights.index_select(0, flat),
-                self.gather_queries(q_ids))
+        t1, w1 = doc_targets(self.resident, self.emb_full, flat)
+        return t1, w1, self.gather_queries(q_ids)
+
+
+# ---------------------------------------------------------------------------
+# Segmented corpora — incremental ingest / delete without a full rebuild
+# ---------------------------------------------------------------------------
+def _offset_topk(tk: topk_lib.TopK, offset: int) -> topk_lib.TopK:
+    """Local segment ids made global; an unfilled slot's -1 stays -1."""
+    return topk_lib.TopK(
+        tk.dists, torch.where(tk.indices >= 0, tk.indices + offset,
+                              tk.indices))
+
+
+class EngineSegment:
+    """One immutable unit of a :class:`SegmentedEngine`.
+
+    Owns a contiguous global doc-id range ``[offset, offset + n_rows)`` and
+    the state an :class:`LCRWMDEngine` would build for it: the per-segment
+    ``v_e`` vocab restriction, the remapped ELL resident matrix, and the
+    segment's ids into the full table.  The reference pads rows and the
+    restricted vocabulary so that repeated shapes reuse a compiled trace;
+    eager PyTorch compiles no trace and the kernels take any shape, so a
+    segment holds its docs unpadded.
+    """
+
+    def __init__(self, docs: DocSet, emb_full: torch.Tensor, *, offset: int):
+        self.docs = docs
+        self.offset = int(offset)
+        sub, emb_r, old_to_new = restrict_vocab(docs, emb_full)
+        self.old_to_new = old_to_new
+        self.tensors = SegmentTensors(emb_r=emb_r, r_ids=sub.ids,
+                                      r_w=sub.weights, emb=emb_full,
+                                      ids=docs.ids)
+
+    @property
+    def n_rows(self) -> int:
+        return self.docs.n_docs
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the tensors this segment owns (not the shared
+        full table): the restricted rows, both ELL id sets, the weights and
+        the vocab map."""
+        t = self.tensors
+        return sum(x.numel() * x.element_size()
+                   for x in (t.emb_r, t.r_ids, t.r_w, t.ids, self.old_to_new))
+
+
+class SegmentedEngine:
+    """LC-RWMD engine over a base + delta segment list: churn without rebuild.
+
+    The query surface of :class:`LCRWMDEngine` (``one_sided`` /
+    ``symmetric`` / streaming ``topk*`` / ``rerank_topk``) plus a corpus
+    lifecycle:
+
+      * :meth:`append` builds ONE small :class:`EngineSegment` over the new
+        docs (its own v_e restriction), cost O(delta), not O(corpus);
+        returns the assigned global doc ids.
+      * :meth:`delete` flips per-row tombstone bits on the host; the device
+        masks are copied once per corpus version, at the next call that
+        reads them.  Dead docs are +inf in every distance path and never
+        appear in a top-k.
+      * :meth:`compact` merges all segments into one base segment, re-running
+        the vocab restriction with tombstoned rows zero-weighted.  Global
+        doc ids are STABLE: dead rows keep their slots as empty histograms.
+
+    Built on ``device`` (``None`` → ``"cuda"``; without a card that raises
+    unless ``device="cpu"``).  On CUDA every segment runs phase 1, the
+    fused top-k (with its tombstone mask), the swapped direction's d21 mode
+    for the symmetric bound, the ELL SpMM for the dense methods and the
+    Sinkhorn rerank on the port's kernels; on CPU their plain versions run.
+    Per-segment (distance, global id) candidates merge in the shared
+    lexicographic order, so results equal a monolithic rebuild over the
+    merged live corpus.  No segment holds an (n·h1, m) gather of its
+    targets.
+    """
+
+    def __init__(self, resident: DocSet | None, emb, *, device=None,
+                 bf16_matmul: bool = False, vocab_chunk: int | None = None,
+                 row_block: int = 128):
+        dev = resolve_device(device)
+        self.device = dev
+        self.emb_full = as_f32(emb, dev).contiguous()
+        self.bf16_matmul = bf16_matmul
+        self.vocab_chunk = vocab_chunk
+        self.row_block = max(1, int(row_block))
+        self.segments: list[EngineSegment] = []
+        self._live: list[np.ndarray] = []
+        self.version = 0          # bumped on every append/delete/compact
+        self._cache: dict = {}    # device views of the current version
+        if resident is not None and resident.n_docs:
+            self._append_segment(resident.to(dev))
+
+    # -- lifecycle --------------------------------------------------------
+    def _append_segment(self, docs: DocSet) -> None:
+        self.segments.append(EngineSegment(docs, self.emb_full,
+                                           offset=self.n_docs))
+        self._live.append(np.ones(docs.n_docs, dtype=bool))
+        self._bump()
+
+    def _bump(self) -> None:
+        self.version += 1
+        self._cache = {}
+
+    def append(self, docs: DocSet) -> np.ndarray:
+        """Ingest ``docs`` as a new delta segment; returns their global ids."""
+        if docs.n_docs == 0:
+            return np.empty(0, dtype=np.int64)
+        docs = docs.to(self.device)
+        if self.segments:
+            h = self.h_max
+            if docs.h_max > h:
+                raise ValueError(
+                    f"appended docs have h_max={docs.h_max} > engine "
+                    f"h_max={h}; re-pad the corpus or rebuild")
+            if docs.h_max < h:
+                pad = (0, h - docs.h_max)
+                docs = DocSet(ids=torch.nn.functional.pad(docs.ids, pad),
+                              weights=torch.nn.functional.pad(docs.weights,
+                                                              pad))
+        lo = self.n_docs
+        self._append_segment(docs)
+        return np.arange(lo, lo + docs.n_docs, dtype=np.int64)
+
+    def delete(self, doc_ids) -> int:
+        """Tombstone global doc ids; returns how many were newly deleted."""
+        n = self.n_docs
+        g = np.atleast_1d(np.asarray(doc_ids, dtype=np.int64))
+        bad = (g < 0) | (g >= n)
+        if bad.any():
+            raise IndexError(f"doc id {int(g[bad][0])} out of range [0, {n})")
+        removed = 0
+        for seg, live in zip(self.segments, self._live):
+            own = (g >= seg.offset) & (g < seg.offset + seg.n_rows)
+            local = np.unique(g[own] - seg.offset)
+            removed += int(live[local].sum())
+            live[local] = False
+        if removed:
+            self._bump()
+        return removed
+
+    def compact(self) -> None:
+        """Merge every segment into one base segment (stable global ids).
+
+        Re-runs the v_e vocab restriction over the merged corpus with
+        tombstoned rows zero-weighted, so deleted docs' words leave the
+        restricted vocabulary; dead rows keep their (now empty) id slots.
+        """
+        if not self.segments:
+            return
+        if len(self.segments) == 1 and bool(self._live[0].all()):
+            return   # already one fully-live base segment
+        res = self.resident
+        live = self.live_mask()
+        merged = DocSet(
+            ids=res.ids.clone(),
+            weights=torch.where(self.live_mask_device()[:, None],
+                                res.weights, 0.0))
+        self.segments = [EngineSegment(merged, self.emb_full, offset=0)]
+        self._live = [live]
+        self._bump()
+
+    # -- corpus views ------------------------------------------------------
+    @property
+    def n_docs(self) -> int:
+        """Size of the global doc-id space (INCLUDING tombstoned docs)."""
+        return sum(s.n_rows for s in self.segments)
+
+    @property
+    def n_live(self) -> int:
+        """Docs that are actually queryable (excludes tombstones)."""
+        return int(sum(live.sum() for live in self._live))
+
+    @property
+    def n_segments(self) -> int:
+        return len(self.segments)
+
+    @property
+    def h_max(self) -> int:
+        return self.segments[0].docs.h_max if self.segments else 0
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes owned by the segments (not the shared full table)."""
+        return sum(seg.nbytes for seg in self.segments)
+
+    def _cached(self, key: str, make):
+        if key not in self._cache:
+            self._cache[key] = make()
+        return self._cache[key]
+
+    @property
+    def resident(self) -> DocSet:
+        """The merged corpus as one device DocSet, global doc id == row
+        (cached per version).  Tombstoned docs keep their rows and weights;
+        :meth:`live_mask` says which are dead."""
+        def make():
+            if len(self.segments) == 1:
+                return self.segments[0].docs
+            return DocSet(
+                ids=torch.cat([s.docs.ids for s in self.segments]),
+                weights=torch.cat([s.docs.weights for s in self.segments]))
+        return self._cached("resident", make)
+
+    def live_mask(self) -> np.ndarray:
+        """(n_docs,) host bool mask: True where the doc is not tombstoned."""
+        if not self.segments:
+            return np.zeros(0, dtype=bool)
+        return np.concatenate(self._live)
+
+    def live_mask_device(self) -> torch.Tensor:
+        """(n_docs,) device live mask (one copy per corpus version)."""
+        return self._cached("live", lambda: torch.from_numpy(
+            self.live_mask()).to(self.device))
+
+    def segment_live_device(self) -> tuple[torch.Tensor, ...]:
+        """Per-segment (n_rows,) device live masks (one copy per corpus
+        version)."""
+        return self._cached("seg_live", lambda: tuple(
+            torch.from_numpy(l).to(self.device) for l in self._live))
+
+    # -- query surface -----------------------------------------------------
+    def _gather_flat(self, q_ids: torch.Tensor) -> torch.Tensor:
+        """(B*h, m) query gather from the full table."""
+        return self.emb_full.index_select(
+            0, q_ids.to(self.device).reshape(-1))
+
+    def gather_queries(self, q_ids: torch.Tensor) -> torch.Tensor:
+        """(B, h, m) query word embeddings from the FULL table."""
+        b, h = q_ids.shape
+        return self._gather_flat(q_ids).reshape(b, h, -1)
+
+    def fold_topk(self, queries: DocSet, k: int, *, symmetric: bool,
+                  q_gid: torch.Tensor | None = None,
+                  bf16_matmul: bool | None = None) -> topk_lib.TopK:
+        """Per-segment streaming top-k, merged: TopK (B, min(k, n_docs)).
+
+        ``q_gid`` (B,) device int32 global ids to self-exclude (each
+        segment sees them shifted by its offset); ``bf16_matmul`` overrides
+        the engine's for phase 1 and the swapped direction (the serve
+        step's own flag).
+        """
+        queries = queries.to(self.device)
+        bf16 = self.bf16_matmul if bf16_matmul is None else bf16_matmul
+        t_q = self._gather_flat(queries.ids)
+        parts = []
+        for seg, live in zip(self.segments, self.segment_live_device()):
+            tk = _segment_topk(
+                seg.tensors, t_q, queries.ids, queries.weights,
+                row_valid=live, k=min(k, seg.n_rows), symmetric=symmetric,
+                row_block=max(1, min(self.row_block, seg.n_rows)),
+                bf16_matmul=bf16, vocab_chunk=self.vocab_chunk,
+                q_gid=None if q_gid is None else q_gid - seg.offset)
+            parts.append(_offset_topk(tk, seg.offset))
+        kk = min(k, self.n_docs)
+        if len(parts) == 1 and parts[0].dists.shape[-1] == kk:
+            return parts[0]
+        return topk_lib.merge_topk(parts, kk)
+
+    def topk(self, queries: DocSet, k: int) -> topk_lib.TopK:
+        """Top-k smallest symmetric LC-RWMD over all live docs: TopK (B, k)."""
+        return self.fold_topk(queries, k, symmetric=True)
+
+    def topk_streaming(self, queries: DocSet, k: int) -> topk_lib.TopK:
+        """Top-k smallest one-sided LC-RWMD (D1), segment-folded."""
+        return self.fold_topk(queries, k, symmetric=False)
+
+    def symmetric_topk_streaming(self, queries: DocSet,
+                                 k: int) -> topk_lib.TopK:
+        """Top-k smallest symmetric bound, segment-folded."""
+        return self.fold_topk(queries, k, symmetric=True)
+
+    def _dense(self, queries: DocSet, *, symmetric: bool) -> torch.Tensor:
+        queries = queries.to(self.device)
+        t_q = self._gather_flat(queries.ids)
+        return torch.cat([
+            _segment_dense(seg.tensors, t_q, queries.ids, queries.weights,
+                           row_valid=live, symmetric=symmetric,
+                           bf16_matmul=self.bf16_matmul,
+                           vocab_chunk=self.vocab_chunk)
+            for seg, live in zip(self.segments, self.segment_live_device())])
+
+    def one_sided(self, queries: DocSet) -> torch.Tensor:
+        """D1 (n_docs, B); tombstoned rows are +inf."""
+        return self._dense(queries, symmetric=False)
+
+    def symmetric(self, queries: DocSet) -> torch.Tensor:
+        """max(D1, D2ᵀ) (n_docs, B); tombstoned rows are +inf."""
+        return self._dense(queries, symmetric=True)
+
+    def rerank_topk(self, queries: DocSet, cand_indices: torch.Tensor, k: int,
+                    *, sinkhorn_kw: dict | None = None) -> topk_lib.TopK:
+        """Batched Sinkhorn-WMD re-rank of global candidate doc ids.
+
+        ``cand_indices`` (B, budget); returns a TopK of (B, min(k, budget)).
+        Empty (-1) and tombstoned candidates get +inf WMD.  Candidate
+        embeddings are gathered from the full table by the merged
+        corpus's ids; the solve is the Sinkhorn-WMD kernel on CUDA (the
+        reference runs its batched jnp solver here), its plain version on
+        CPU.
+        """
+        from repro_torch.core.wmd import wmd_candidate_values
+
+        queries = queries.to(self.device)
+        n = self.n_docs
+        cand = cand_indices.to(self.device)
+        t1, w1 = doc_targets(self.resident, self.emb_full,
+                             cand.reshape(-1).clamp(0, n - 1))
+        valid = (cand >= 0) & self.live_mask_device()[
+            cand.clamp(0, n - 1).long()]
+        vals = wmd_candidate_values(
+            t1, w1, self.gather_queries(queries.ids), queries.weights,
+            use_kernel=True, bf16_matmul=self.bf16_matmul,
+            **(sinkhorn_kw or {}))
+        vals = vals.masked_fill(~valid, _INF)
+        return topk_lib.topk_from_candidates(vals, cand, k)

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from repro_torch.core import topk as topk_lib
 from repro_torch.core.distances import dists
 from repro_torch.core.lc_rwmd import LCRWMDEngine, as_f32, lc_rwmd_symmetric
-from repro_torch.core.wcd import centroids_from_t
+from repro_torch.core.wcd import centroids_from_t, resident_centroids
 from repro_torch.core.wmd import wmd_candidate_values
 from repro_torch.data.docs import DocSet
 
@@ -59,16 +59,13 @@ def cascade_topk(
     """Single-host tiered cascade entry: top-k at the requested quality tier.
 
     Returns a (B, k) :class:`~repro_torch.core.topk.TopK` (ascending,
-    global doc ids).  Tier 2's resident centroids come from the engine's
-    pre-gathered resident targets (the same values as ``emb[ids]``, without
-    a second (n, h, m) gather).
+    global doc ids).  Tier 2's resident centroids are gathered from the
+    engine's full table in row chunks (never an (n, h, m) tensor).
     """
     tier = QualityTier(int(tier))
     queries = queries.to(engine.device)
     if tier >= QualityTier.WCD:
-        n, h1 = engine.resident.ids.shape
-        c_r = centroids_from_t(engine.resident.weights,
-                               engine._t_r.reshape(n, h1, -1))       # (n, m)
+        c_r = resident_centroids(engine.resident, engine.emb_full)  # (n, m)
         c_q = centroids_from_t(queries.weights,
                                engine.gather_queries(queries.ids))   # (B, m)
         return topk_lib.topk_smallest_cols(dists(c_r, c_q), k)

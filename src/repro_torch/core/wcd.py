@@ -11,6 +11,8 @@ import torch
 from repro_torch.core.distances import dists
 from repro_torch.data.docs import DocSet
 
+_CENTROID_ROWS = 8192   # docs per (rows, h, m) gather of resident_centroids
+
 
 def centroids(ds: DocSet, emb: torch.Tensor) -> torch.Tensor:
     """(n, m) f32 weighted-average embeddings (weights are L1-normalized)."""
@@ -18,12 +20,15 @@ def centroids(ds: DocSet, emb: torch.Tensor) -> torch.Tensor:
 
 
 def centroids_from_t(weights: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """Centroids from PRE-GATHERED word embeddings t (n, h, m), w (n, h).
-
-    Callers holding an engine's pre-gathered resident targets skip the
-    ``emb[ids]`` gather entirely.
-    """
+    """Centroids from PRE-GATHERED word embeddings t (n, h, m), w (n, h)."""
     return torch.einsum("nh,nhm->nm", weights, t)
+
+
+def resident_centroids(ds: DocSet, emb: torch.Tensor) -> torch.Tensor:
+    """(n, m) centroids of a resident corpus, gathered ``_CENTROID_ROWS``
+    docs at a time: never an (n, h, m) tensor."""
+    return torch.cat([centroids(ds[lo:lo + _CENTROID_ROWS], emb)
+                      for lo in range(0, ds.n_docs, _CENTROID_ROWS)])
 
 
 def wcd_many_vs_many(set1: DocSet, set2: DocSet, emb: torch.Tensor) -> torch.Tensor:

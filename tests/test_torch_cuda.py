@@ -940,3 +940,156 @@ def test_transformer_prefill_runs_b8_and_matches_plain_attention(cuda,
     torch.testing.assert_close(cache.k, cache_p.k, rtol=1e-4, atol=1e-4)
     lg, _ = TM.decode_step(params, cache, tokens[:, :1], cfg)
     assert lg.shape == (2, 1, 1000) and bool(torch.isfinite(lg).all())
+
+
+# ---------------------------------------------------------------------------
+# Segmented corpora and the serve step on the card
+# ---------------------------------------------------------------------------
+def test_fused_topk_kernel_d21_with_tombstones_and_shifted_gids(cuda):
+    """B3 with d21 and row_valid together (empty dead rows at the tail, as
+    a compacted segment holds its deleted docs) and q_gid shifted by a
+    segment offset, with
+    values below 0 and past n that must match no row."""
+    rng = np.random.default_rng(21)
+    n, n_real, b, off = 4096, 4000, 64, 688_000
+    ids, w = (x.to(cuda) for x in _ell(rng, n, 48, 900))
+    w[n_real:] = 0.0
+    ids[n_real:] = 0
+    z = torch.tensor(np.abs(rng.normal(size=(900, b))).astype(np.float32)).to(cuda)
+    d21 = torch.tensor(np.abs(rng.normal(size=(n, b)) * 8).astype(np.float32)).to(cuda)
+    live = torch.tensor(rng.random(n) > 0.2).to(cuda)
+    live[n_real:] = False
+    gids = np.concatenate([off + rng.integers(0, n_real, b - 8),
+                           [0, 5, off - 1, off + n, off + n + 7, 2 ** 30,
+                            off + n_real - 1, off]]).astype(np.int32)
+    q_gid = torch.tensor(gids).to(cuda) - off
+    for k in (20, 32, 256):
+        v, i = tfs.phase2_topk_cuda(ids, w, z, k, row_valid=live, q_gid=q_gid,
+                                    d21=d21)
+        pv, pi = tfs.phase2_topk_plain(ids, w, z, k, row_block=4096,
+                                       row_valid=live, q_gid=q_gid, d21=d21)
+        _assert_topk_matches_plain(v, i, pv, pi)
+        assert bool(live[i.long()].all()) and int(i.max()) < n_real
+        assert not bool((i == q_gid[:, None]).any())
+
+
+def _grown_pair(cuda, seed=5):
+    """A segmented engine (base, two deltas, deletions, a copy of doc
+    5 last) and its one-segment rebuild, on the card, with their docs."""
+    from repro_torch.data.docs import DocSet
+
+    c = make_corpus(CorpusSpec(n_docs=3000, vocab_size=2000, emb_dim=300,
+                               h_max=48, mean_h=27.5, n_classes=4, seed=seed),
+                    device="cpu")
+    docs = c.docs.to(cuda)
+    all_docs = DocSet(torch.cat([docs.ids, docs.ids[5:6]]),
+                      torch.cat([docs.weights, docs.weights[5:6]]))
+    seg = tlc.SegmentedEngine(docs[:2400], c.emb)
+    seg.append(docs[2400:2700])
+    seg.append(all_docs[2700:])
+    dead = list(range(64, 3000, 37)) + [60, 61]
+    seg.delete(dead)
+    mono = tlc.SegmentedEngine(all_docs, c.emb)
+    mono.delete(dead)
+    return c, all_docs, seg, mono, dead
+
+
+def test_segmented_fold_bit_equals_monolithic_rebuild(cuda):
+    """B1 + B3 (+ d21) per segment, merged: the same values and ids as one
+    segment over the same docs, bit for bit; no dead doc or id past n_docs
+    comes back; the copy of doc 5 ties with it, right after."""
+    c, docs, seg, mono, dead = _grown_pair(cuda)
+    q = docs[:64]
+    _build.reset_launches()
+    for method, k in (("topk_streaming", 32), ("symmetric_topk_streaming", 20),
+                      ("topk", 20)):
+        a = getattr(seg, method)(q, k)
+        b = getattr(mono, method)(q, k)
+        assert torch.equal(a.dists, b.dists) and torch.equal(a.indices, b.indices)
+        assert not np.isin(dead, a.indices.cpu().numpy()).any()
+        assert int(a.indices.max()) < seg.n_docs and int(a.indices.min()) >= 0
+        row = a.indices[5].tolist()
+        assert row.index(seg.n_docs - 1) == row.index(5) + 1
+    assert _build.LAUNCHES["fused_topk"] == 3 * (3 + 1)
+    assert _build.LAUNCHES["rwmd_d21"] == 2 * (3 + 1)
+    for method in ("one_sided", "symmetric"):
+        assert torch.equal(getattr(seg, method)(q), getattr(mono, method)(q))
+    cand = seg.topk_streaming(q, 16).indices
+    a = seg.rerank_topk(q, cand, 5, sinkhorn_kw=RERANK_KW)
+    b = mono.rerank_topk(q, cand, 5, sinkhorn_kw=RERANK_KW)
+    assert torch.equal(a.dists, b.dists) and torch.equal(a.indices, b.indices)
+
+
+def test_merge_topk_ranks_the_kernels_filler_last(cuda):
+    """Segments with fewer live rows than k return B3's (3.4e38, -1) filler;
+    the merge ranks it after every live doc and adds no offset to -1."""
+    from repro_torch.core.topk import TopK, merge_topk
+
+    d = torch.tensor([[1.0, 3.0, tp1.BIG], [2.0, tp1.BIG, tp1.BIG]],
+                     device=cuda)
+    i = torch.tensor([[7, 2, -1], [4, -1, -1]], dtype=torch.int32, device=cuda)
+    p2 = TopK(torch.tensor([[0.5, tp1.BIG], [tp1.BIG, tp1.BIG]], device=cuda),
+              torch.tensor([[40, -1], [-1, -1]], dtype=torch.int32, device=cuda))
+    m = merge_topk([TopK(d, i), p2], 4)
+    assert m.indices.tolist() == [[40, 7, 2, -1], [4, -1, -1, -1]]
+    c, docs, _, _, _ = _grown_pair(cuda)
+    seg = tlc.SegmentedEngine(docs[:100], c.emb)
+    seg.append(docs[100:110])
+    seg.delete(list(range(100, 108)) + list(range(0, 100, 2)))
+    for method in ("topk_streaming", "symmetric_topk_streaming"):
+        tk = getattr(seg, method)(docs[:4], 60)
+        n_live = seg.n_live
+        assert n_live == 52
+        assert bool((tk.indices[:, :n_live] >= 0).all())
+        assert bool((tk.indices[:, n_live:] == -1).all())
+        assert bool((tk.dists[:, n_live:] == tp1.BIG).all())
+        assert bool(torch.from_numpy(seg.live_mask()).to(cuda)[
+            tk.indices[:, :n_live].long()].all())
+
+
+def test_segmented_serve_step_on_the_card_matches_the_cpu(cuda):
+    """Tiers 0-2 and self-exclusion of the segmented step: card against CPU
+    (indices exact where the gaps are clear), and one serve call at an
+    unchanged version copies nothing to the card (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.distributed.lcrwmd_dist import build_serve_step
+
+    c, docs, seg, _, dead = _grown_pair(cuda)
+    cpu = tlc.SegmentedEngine(docs[:2400].to("cpu"), c.emb, device="cpu")
+    cpu.append(docs[2400:2700].to("cpu"))
+    cpu.append(docs[2700:].to("cpu"))
+    cpu.delete(dead)
+    atol = 4.0 * float(np.sqrt(2.0 ** -23 * float((cpu.emb_full ** 2).sum(1).max())))
+    kw = dict(k=5, bf16_matmul=False, refine=True, rerank_wmd=True,
+              rerank_budget=32, wmd_kw=RERANK_KW)
+    q = docs[:64]
+    for self_exclude in (False, True):
+        ids = dict(query_ids=torch.arange(64, device=cuda)) if self_exclude else {}
+        g = build_serve_step(engine=seg, self_exclude=self_exclude, **kw)
+        h = build_serve_step(engine=cpu, self_exclude=self_exclude, **kw)
+        cpu_ids = {k: v.cpu() for k, v in ids.items()}
+        # tier 0 is compared on the queries whose 32 candidates agree as sets
+        cand = [build_serve_step(engine=e, self_exclude=self_exclude,
+                                 **dict(kw, k=32))(x, tier=1, **i).topk.indices
+                for e, x, i in ((seg, q, ids), (cpu, q.to("cpu"), cpu_ids))]
+        same = torch.tensor([set(x.tolist()) == set(y.tolist())
+                             for x, y in zip(cand[0].cpu(), cand[1])])
+        assert float(same.float().mean()) >= 0.9
+        for tier in (1, 2, 0):
+            a = g(q, tier=tier, **ids).topk
+            b = h(q.to("cpu"), tier=tier, **cpu_ids).topk
+            rows = same if tier == 0 else torch.ones(64, dtype=torch.bool)
+            ad, ai = a.dists.cpu()[rows], a.indices.cpu()[rows]
+            torch.testing.assert_close(ad, b.dists[rows], rtol=1e-4, atol=atol)
+            clear = _gap_clear(b.dists[rows], atol)
+            assert torch.equal(ai[clear], b.indices[rows][clear])
+            if self_exclude:
+                assert not bool((a.indices == ids["query_ids"][:, None]).any())
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            g(q, **ids)
+            torch.cuda.synchronize()
+        copies = [e.key for e in prof.key_averages() if "HtoD" in e.key]
+        assert not copies, copies

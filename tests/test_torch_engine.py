@@ -63,8 +63,11 @@ def test_restrict_vocab_matches_reference(pair, small_corpus):
                           _np(ref.resident_restricted.ids))
     assert np.array_equal(_np(port.emb_restricted), _np(ref.emb_restricted))
     assert np.array_equal(_np(port.old_to_new), _np(ref.old_to_new))
-    assert port._t_r.shape == ref._t_r.shape
-    assert np.array_equal(_np(port._t_r), _np(ref._t_r))
+    # the candidates' targets, gathered by id, are the reference's _t_r rows
+    n, h1 = port.resident.ids.shape
+    t1, w1, _ = port.candidate_pairs(torch.arange(n), port.resident.ids[:1])
+    assert np.array_equal(_np(t1), _np(ref._t_r).reshape(n, h1, -1))
+    assert np.array_equal(_np(w1), _np(ref.resident.weights))
 
 
 @pytest.mark.parametrize("method", ["one_sided", "symmetric"])

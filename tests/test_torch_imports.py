@@ -14,7 +14,7 @@ MODULES = [
     "repro_torch.kernels.spmm_ell", "repro_torch.kernels.fused_stream",
     "repro_torch.kernels.rwmd_pairwise", "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.segment_spmm", "repro_torch.models.transformer.model",
-    "repro_torch.configs",
+    "repro_torch.configs", "repro_torch.distributed.lcrwmd_dist",
 ]
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|from\s+repro(\.|\s))",
