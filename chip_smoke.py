@@ -90,6 +90,24 @@ Phases, each of which exits non-zero on failure:
    and the phase's peak memory are printed.  (The small phase holds the
    segmented engine and the serve step, the engine-less and
    ``streaming=False`` steps and ``build_allpairs_d1`` against the CPU.)
+   Before ``compact``, a cluster index over that engine: 64 cells
+   (kcenters, seed 0), ``routed_topk`` k=20 at top_p 1 and 4 (triangle
+   bound at slack 1.0) and at all 64 cells without the bound,
+   ``pruned_wmd_topk(index=, top_p=4)`` beside the flat one, and the
+   routed serve step at tiers 0-2 and self-excluding, with the counts
+   reset at the start: B1, B2, B3, B4 and the d21 mode must each have
+   run.  Checks: exhaustive routing equals ``engine.topk`` and the flat
+   serve step bit for bit, no dead doc or id past the corpus (and no
+   filler while the routed cells hold live docs) in any result, no
+   self-match, every top_p = 4 id in a cell its query was routed to.
+   Printed: the rebuild by part, per-call times, launches by call, device
+   time by kernel, the cells' rows and v_e, recall@20 against the flat
+   scan, the index's bytes, the phase's peak memory, and a k-medoids
+   index, ``kmedoids(prefilter=4)`` and the WCD baseline (on the first
+   200,000 docs) with their purity and ARI.  After ``compact``:
+   ``rebuild`` must give a fresh index's labels, an append plus
+   ``index.add`` must keep exhaustive routing equal to ``engine.topk``,
+   and a doc deleted on the engine must leave the routed results.
 7. flash attention: the kernel against its plain version at llama3.2-1b's
    heads (B=4, S=T=4,096, 32 query and 8 KV heads, dh 64), causal in bf16
    and f32, non-causal, at a length that is not a tile multiple, and with
@@ -1610,9 +1628,12 @@ def llama_phase(frac: float, dev) -> dict:
         f"product); the same tokens as the first run: {same}")
 
     # --- B8's share of the prefill (torch.profiler, one call) ---
+    # Below full scale the prompt is 2,048 tokens and the prefill host-bound
+    # (busy share under DROP_SHARE), so there only a kernel that ran and has
+    # no time in the trace marks a lost trace.
     wall_us, dev_us, top, launched = profile_whole(
         lambda: TM.forward_with_cache(params, tokens, cfg, max_len),
-        "prefill", {"flash_attention": ("flash_",)})
+        "prefill", {"flash_attention": ("flash_",)}, busy=s_len == LM_PROMPT)
     flash_us = sum(us for us, name, _ in top if "flash_tc_kernel" in name)
     if launched.get("flash_attention", 0) != cfg.n_layers or flash_us <= 0.0:
         # a whole trace: the attention ran, but not on the tensor-core kernel
@@ -1869,7 +1890,7 @@ SEG_DEAD_QUERIES = (60, 61, 62, 63)
 SEG_REL_TOL = 1e-5    # a monolithic rebuild: |d - d_mono| <= 1e-5 (1 + |d|)
 
 
-def segmented_phase(docs, emb, smi: str) -> dict:
+def segmented_phase(docs, emb, labels, smi: str) -> dict:
     """The corpus as a segmented engine and the single-GPU serve step.
 
     Counts reset just before the calls and read just after: B1, B2, B3, B4
@@ -1897,21 +1918,14 @@ def segmented_phase(docs, emb, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     sync = torch.cuda.synchronize
 
-    def clock(fn):
-        sync()
-        t0 = time.perf_counter()
-        out = fn()
-        sync()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    eng, build_ms = clock(lambda: SegmentedEngine(docs[:base], emb))
+    eng, build_ms = clocked(lambda: SegmentedEngine(docs[:base], emb))
     copy5 = DocSet(torch.cat([docs.ids[n - delta:n - 1], docs.ids[5:6]]),
                    torch.cat([docs.weights[n - delta:n - 1],
                               docs.weights[5:6]]))
     append_ms = []
     for part in (docs[base:base + delta], docs[base + delta:base + 2 * delta],
                  copy5):
-        _, ms = clock(lambda part=part: eng.append(part))
+        _, ms = clocked(lambda part=part: eng.append(part))
         append_ms.append(ms)
     v_e = [s.tensors.emb_r.shape[0] for s in eng.segments]
     if (eng.n_docs, eng.n_segments) != (n, 4) or any(
@@ -2024,7 +2038,7 @@ def segmented_phase(docs, emb, smi: str) -> dict:
     # a monolithic engine over the live docs, ids mapped back
     live_ids = torch.nonzero(eng.live_mask_device())[:, 0]
     res_docs = eng.resident
-    mono, mono_ms = clock(lambda: LCRWMDEngine(
+    mono, mono_ms = clocked(lambda: LCRWMDEngine(
         DocSet(res_docs.ids[live_ids].contiguous(),
                res_docs.weights[live_ids].contiguous()), emb))
     mono_cmp = {}
@@ -2046,10 +2060,18 @@ def segmented_phase(docs, emb, smi: str) -> dict:
     log(f"segmented vs monolithic rebuild over the {eng.n_live} live docs "
         f"(built in {mono_ms:.0f} ms): ids equal; {json.dumps(mono_cmp)}")
 
+    # 7. the cluster index over this engine (its own counts and peak)
+    pre_index_peak = torch.cuda.max_memory_allocated()
+    true = np.concatenate([labels[:n - 1], labels[5:6]])   # doc n-1 copies 5
+    t0 = time.perf_counter()
+    idx, index_info = index_phase(eng, q, res, kw, true, smi)
+    log(f"index phase (before compact): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+
     # compact: one segment, the same ids and answers
     nbytes_before = eng.nbytes
     n_docs, n_live = eng.n_docs, eng.n_live
-    _, compact_ms = clock(eng.compact)
+    _, compact_ms = clocked(eng.compact)
     if (eng.n_segments, eng.n_docs, eng.n_live) != (1, n_docs, n_live):
         fail(f"compact: {eng.n_segments} segments, n_docs {eng.n_docs}, "
              f"n_live {eng.n_live}")
@@ -2067,7 +2089,9 @@ def segmented_phase(docs, emb, smi: str) -> dict:
         if not bool((err <= SEG_REL_TOL * (1 + a.dists.abs())).all()):
             fail(f"compact changed the {name} distances by {float(err.max())}")
         compact_cmp[name] = float((a.dists == b.dists).float().mean())
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the index is held across compact: its bytes are not this phase's
+    peak_gb = max(pre_index_peak,
+                  torch.cuda.max_memory_allocated() - idx.nbytes) / 1e9
     seg_bytes = [s.nbytes for s in eng.segments]
     info = dict(
         n_docs=n, base=base, delta=delta, deleted=len(dead),
@@ -2090,6 +2114,348 @@ def segmented_phase(docs, emb, smi: str) -> dict:
         f"{peak_serve_gb:.2f} GB serving, {peak_gb:.2f} GB with the "
         f"monolithic rebuild (max_memory_allocated)")
     log("segmented: " + json.dumps(info))
+    t0 = time.perf_counter()
+    index_info.update(index_lifecycle(eng, idx, docs, q, smi))
+    log(f"index lifecycle (after compact): {time.perf_counter() - t0:.1f} s")
+    log("index: " + json.dumps(index_info))
+    info["index"] = index_info
+    return info
+
+
+# The index phase (after the segmented phase's checks, on its engine): 64
+# cells (kcenters, seed 0) probed 1, 4 or all 64 a query, the triangle bound
+# at slack 1.0 for 1 and 4; the routed serve step at top_p 4 with every cell
+# a slot (no probe overflow).  Then a k-medoids index at 16 cells,
+# kmedoids(prefilter=4) for 2 iterations and the WCD baseline on the first
+# WCD_BASELINE_DOCS docs (scaled like the corpus).
+INDEX_CELLS = 64
+INDEX_TOP_P = 4
+INDEX_SLACK = 1.0
+KMEDOIDS_CELLS = 16
+WCD_BASELINE_DOCS = 200_000
+
+
+def clocked(fn):
+    """(fn(), host ms) around a call ending in a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _spread(x) -> dict:
+    import numpy as np
+
+    return dict(min=int(np.min(x)), median=float(np.median(x)),
+                max=int(np.max(x)))
+
+
+def _split(top, groups: dict) -> dict:
+    """Device ms of a trace's kernels by group (names matched by part)."""
+    out = dict.fromkeys(groups, 0.0)
+    out["other"] = 0.0
+    for us, name, _ in top:
+        g = next((g for g, keys in groups.items()
+                  if any(key in name for key in keys)), "other")
+        out[g] += us / 1e3
+    return out
+
+
+def index_phase(eng, q, flat: dict, kw: dict, true, smi: str):
+    """The cluster index over the segmented engine, before ``compact``.
+
+    ``flat``: the segmented phase's results at this engine version
+    (``sym`` is ``symmetric_topk_streaming`` k=20, which is ``engine.topk``;
+    ``tier0``-``tier2``, ``self_exclude`` its serve step built with
+    ``kw``).  Counts reset at the start and read per call; B1, B2, B3, B4
+    and the d21 mode must each have run in the phase.  Checks: exhaustive
+    routing (top_p 64, bound off) equals ``engine.topk`` and the flat
+    serve step bit for bit; no dead doc, filler or id past the corpus in
+    any routed result; no self-match under ``self_exclude``; every id of a
+    top_p = 4 result lies in a cell its query was routed to.  Returns
+    (index, info).
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch.core.lc_rwmd import LCRWMDEngine
+    from repro_torch.core.pipeline import pruned_wmd_topk
+    from repro_torch.core.wcd import resident_centroids
+    from repro_torch.distributed.lcrwmd_dist import build_serve_step
+    from repro_torch.index import ClusterIndex
+    from repro_torch.kernels import _build
+    from repro_torch.workloads import clustering as cl
+
+    n = eng.n_docs
+    k_sym = 4 * K_FINAL
+    ids = torch.arange(B, dtype=torch.int32, device="cuda")
+    live = eng.live_mask()
+    dead_t = torch.from_numpy(np.nonzero(~live)[0]).to("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+
+    # rebuild, split: the doc centroids and kcenters timed again alone
+    idx, build_ms = clocked(lambda: ClusterIndex(
+        eng, num_cells=INDEX_CELLS, top_p=INDEX_TOP_P, probe_cap=INDEX_CELLS,
+        bound_slack=INDEX_SLACK, seed=0))
+    launches = {"rebuild": dict(_build.LAUNCHES)}
+    _, cen_ms = clocked(lambda: resident_centroids(eng.resident, eng.emb_full))
+    before = dict(_build.LAUNCHES)
+    centers, kc_ms = clocked(lambda: cl.kcenters(eng, INDEX_CELLS, seed=0))
+    launches["kcenters"] = {k: c - before.get(k, 0)
+                            for k, c in _build.LAUNCHES.items()
+                            if c > before.get(k, 0)}
+    cells = [c for c in idx.cells if c is not None]
+    rows = [c.segment.n_rows for c in cells]
+    v_e = [c.segment.tensors.emb_r.shape[0] for c in cells]
+    log(f"index: {len(cells)} of {INDEX_CELLS} cells alive over {n} docs; "
+        f"rebuild {build_ms:.0f} ms = doc centroids {cen_ms:.0f} + kcenters "
+        f"({INDEX_CELLS - 1} symmetric_resident calls at B=1) {kc_ms:.0f} + "
+        f"assignment and cells {build_ms - cen_ms - kc_ms:.0f}; rows "
+        f"{_spread(rows)}, v_e {_spread(v_e)}; {idx.nbytes / 1e9:.3f} GB "
+        f"({idx.centroid_nbytes / 1e9:.3f} GB routing state)")
+
+    step = build_serve_step(engine=eng, index=idx, **kw)
+    step_x = build_serve_step(engine=eng, index=idx, self_exclude=True, **kw)
+    prune_kw = dict(k=K_FINAL, sinkhorn_kw=KW_RERANK)
+    calls = {
+        "route_p4": lambda: idx.route(q),
+        "routed_topk_p1": lambda: idx.routed_topk(q, k_sym, top_p=1),
+        "routed_topk_p4": lambda: idx.routed_topk(q, k_sym, top_p=4),
+        "routed_topk_p64_nobound": lambda: idx.routed_topk(
+            q, k_sym, top_p=INDEX_CELLS, bound_slack=None),
+        "pruned_wmd_topk_index_p4": lambda: pruned_wmd_topk(
+            eng.resident, q, eng.emb_full, index=idx, top_p=4, **prune_kw),
+        "pruned_wmd_topk_flat": lambda: pruned_wmd_topk(
+            eng.resident, q, eng.emb_full, engine=eng, **prune_kw),
+        "serve_tier0": lambda: step(q),
+        "serve_tier1": lambda: step(q, tier=1),
+        "serve_tier2": lambda: step(q, tier=2),
+        "serve_self_exclude": lambda: step_x(q, query_ids=ids),
+    }
+    out = {}
+    for name, fn in calls.items():
+        before = dict(_build.LAUNCHES)
+        out[name] = fn()
+        torch.cuda.synchronize()
+        launches[name] = {k: c - before.get(k, 0)
+                          for k, c in _build.LAUNCHES.items()
+                          if c > before.get(k, 0)}
+    phase_launches = dict(_build.LAUNCHES)
+    log(f"index phase launches: {phase_launches}; by call: "
+        f"{json.dumps(launches)}")
+    for name in ("lc_rwmd_phase1", "spmm_ell", "fused_topk", "sinkhorn_wmd",
+                 "rwmd_d21"):
+        if phase_launches.get(name, 0) < 1:
+            fail(f"kernel {name} was not launched in the index phase")
+
+    # exhaustive routing: the flat scan and the flat serve step, bit for bit
+    ex = out["routed_topk_p64_nobound"]
+    if not (torch.equal(ex.dists, flat["sym"].dists)
+            and torch.equal(ex.indices, flat["sym"].indices)):
+        fail("exhaustive routing differs from engine.topk (bit for bit)")
+    idx.top_p, idx.bound_slack = INDEX_CELLS, None
+    step_e = build_serve_step(engine=eng, index=idx, **kw)
+    step_xe = build_serve_step(engine=eng, index=idx, self_exclude=True, **kw)
+    exhaustive = {f"tier{t}": step_e(q, tier=t) for t in (0, 1, 2)}
+    exhaustive["self_exclude"] = step_xe(q, query_ids=ids)
+    idx.top_p, idx.bound_slack = INDEX_TOP_P, INDEX_SLACK
+    for name, r in exhaustive.items():
+        f_ = flat[name]
+        if not (torch.equal(r.topk.dists, f_.topk.dists)
+                and torch.equal(r.topk.indices, f_.topk.indices)) or (
+                name == "tier0" and not torch.equal(r.pruned_exact,
+                                                    f_.pruned_exact)):
+            fail(f"the exhaustive routed serve step's {name} differs from "
+                 f"the flat segmented step (bit for bit)")
+
+    # no dead doc or id past the corpus, and no filler while the query's
+    # routed cells hold live docs for the slot; no self-match
+    results = {k: v for k, v in out.items() if k != "route_p4"}
+    results.update({f"exhaustive_{k}": v for k, v in exhaustive.items()})
+
+    def reach(route):   # (B,) live docs in each query's kept cells
+        c = idx._cell_live[route.cells] * route.keep
+        return torch.from_numpy(c.sum(axis=1)).to("cuda")
+
+    every = torch.full((B,), eng.n_live, device="cuda")
+    r4 = reach(out["route_p4"])
+    caps = {"routed_topk_p1": reach(idx.route(q, top_p=1)),
+            "routed_topk_p4": r4, "pruned_wmd_topk_index_p4": r4,
+            "serve_tier0": r4, "serve_tier1": r4, "serve_self_exclude": r4 - 1}
+    for name, r in list(results.items()):
+        tks = ([r.topk, r.rwmd_topk] if hasattr(r, "rwmd_topk")
+               else [r.topk] if hasattr(r, "topk") else [r])
+        cap = caps.get(name, every)
+        for tk in tks:
+            i = tk.indices
+            pos = torch.arange(i.shape[1], device="cuda")[None, :]
+            filler = i < 0
+            if bool((i >= n).any()) or bool(
+                    torch.isin(i.long(), dead_t).any()) or bool(
+                    (filler & (pos < cap[:, None])).any()) or not bool(
+                    torch.isfinite(tk.dists[~filler]).all()):
+                fail(f"index {name}: a dead doc, filler or id past {n} in "
+                     f"the result")
+    n_filler = {k: int(sum(int((tk.indices < 0).sum()) for tk in (
+        [r.topk] if hasattr(r, "topk") else [r]))) for k, r in results.items()}
+    for name in ("serve_self_exclude", "exhaustive_self_exclude"):
+        if bool((results[name].topk.indices == ids[:, None]).any()):
+            fail(f"index {name}: a query found itself")
+
+    # top_p = 4: every id in a cell its query was routed to
+    route = out["route_p4"]
+    lab = torch.from_numpy(idx.labels).to("cuda")
+    allowed = torch.zeros((B, INDEX_CELLS), dtype=torch.bool, device="cuda")
+    for j in range(route.cells.shape[1]):
+        kept = torch.from_numpy(route.keep[:, j]).to("cuda")
+        allowed[torch.arange(B, device="cuda"),
+                torch.from_numpy(route.cells[:, j]).long().to("cuda")] |= kept
+    for name in ("routed_topk_p4", "serve_tier1"):
+        i = results[name].indices if name.startswith("routed") else \
+            results[name].topk.indices
+        if not bool(torch.gather(allowed, 1, lab[i.long()].long()).all()):
+            fail(f"index {name}: an id from a cell its query was not routed to")
+
+    def recall(tk):
+        a, b = tk.indices.cpu().numpy(), flat["sym"].indices.cpu().numpy()
+        return float(np.mean([len(set(x) & set(y)) / len(y)
+                              for x, y in zip(a, b)]))
+
+    live_q = np.array([j for j in range(B) if live[j]])
+    quality = {}
+    for p in (1, 4):
+        tk = out[f"routed_topk_p{p}"]
+        quality[f"top_p{p}"] = dict(
+            recall_at_20=recall(tk),
+            self_first_share=float(np.mean(
+                tk.indices[live_q, 0].cpu().numpy() == live_q)))
+    quality["filler_slots"] = {k: v for k, v in n_filler.items() if v}
+    quality["probed_cells_p4"] = int(len(route.probed))
+    quality["bound_pruned_slots_p4"] = route.n_bound_pruned
+    quality["bound_pruned_docs_p4"] = route.n_docs_pruned
+    quality["pruned_exact_share_p4"] = float(
+        out["pruned_wmd_topk_index_p4"].pruned_exact.float().mean())
+    log(f"index quality against the flat scan (k={k_sym}, B={B}): "
+        f"{json.dumps(quality)}")
+
+    # per-call times after warm-up (host clock, ending in a synchronize)
+    times = {}
+    for name, fn in calls.items():
+        slow = "pruned" in name or "p64" in name
+        times[name] = wall_ms(fn, 2 if slow else 3)
+    times["exhaustive_serve_tier1"] = wall_ms(lambda: step_e(q, tier=1))
+    log(f"index per-call ms (B={B}, after warm-up; {smi}): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in times.items()))
+    # device time by kernel: the one-sided routed step and the symmetric
+    # routed top-k at top_p 4
+    groups = {"B1": ("phase1_",), "d21": SYM_KERNELS["d21"][1],
+              "B3": ("fused_topk", "topk_merge"), "B4": ("sinkhorn",)}
+    profiles = {}
+    for name, fn, fam in (
+            ("serve_tier1", calls["serve_tier1"],
+             {"lc_rwmd_phase1": ("phase1_",), "fused_topk": ("fused_topk",)}),
+            ("routed_topk_p4", calls["routed_topk_p4"],
+             {"lc_rwmd_phase1": ("phase1_",), "fused_topk": ("fused_topk",),
+              "rwmd_d21": SYM_KERNELS["d21"][1]})):
+        wall_us, dev_us, top, _ = profile_whole(fn, f"index {name}", fam,
+                                                busy=False)
+        profiles[name] = dict(wall_ms=wall_us / 1e3, device_ms=dev_us / 1e3,
+                              device_busy_share=dev_us / wall_us,
+                              **_split(top, groups))
+    log(f"index device ms by kernel: {json.dumps(profiles)}")
+
+    # k-medoids: an index at 16 cells, the prefiltered assignment, the WCD
+    # baseline on a cut
+    clusterings = {}
+    kmi, ms = clocked(lambda: ClusterIndex(eng, num_cells=KMEDOIDS_CELLS,
+                                           seed=0, method="kmedoids"))
+    clusterings["kmedoids_index_16"] = dict(ms=ms, labels=kmi.labels,
+                                            on=live)
+    del kmi
+    res_pf, ms = clocked(lambda: cl.kmedoids(eng, KMEDOIDS_CELLS, prefilter=4,
+                                             n_iters=2, seed=0))
+    clusterings["kmedoids_prefilter4_2iters"] = dict(
+        ms=ms, labels=res_pf.labels, on=live, objective=res_pf.objective)
+    clusterings["kcenters_index_64"] = dict(ms=build_ms, labels=idx.labels,
+                                            on=live)
+    n_w = min(n, round(WCD_BASELINE_DOCS * n / 700_000))
+    res_docs = eng.resident
+    sub = LCRWMDEngine(res_docs[:n_w], eng.emb_full)
+    res_w, ms = clocked(lambda: cl.kmedoids_wcd_baseline(sub, KMEDOIDS_CELLS))
+    del sub
+    on_w = np.zeros(n, dtype=bool)
+    on_w[:n_w] = True
+    clusterings["kmedoids_wcd_baseline"] = dict(
+        ms=ms, labels=np.concatenate([res_w.labels, np.zeros(n - n_w, int)]),
+        on=on_w, objective=res_w.objective, n_iters=res_w.n_iters,
+        docs=n_w)
+    for name, c in clusterings.items():
+        on = c.pop("on")
+        pred = c.pop("labels")
+        c["purity"] = cl.purity(pred[on], true[on])
+        c["ari"] = cl.adjusted_rand_index(pred[on], true[on])
+    log(f"clustering (topic labels of the live docs; {smi}): "
+        f"{json.dumps(clusterings)}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"index phase peak device memory {peak_gb:.2f} GB "
+        f"(max_memory_allocated); index {idx.nbytes / 1e9:.3f} GB")
+    info = dict(
+        cells=INDEX_CELLS, alive=len(cells), top_p=INDEX_TOP_P,
+        bound_slack=INDEX_SLACK, rows=_spread(rows), v_e=_spread(v_e),
+        rebuild_ms=dict(total=build_ms, doc_centroids=cen_ms, kcenters=kc_ms,
+                        assignment_and_cells=build_ms - cen_ms - kc_ms),
+        per_call_ms=times, launches=launches, quality=quality,
+        profiles=profiles, clustering=clusterings, nbytes=idx.nbytes,
+        centroid_nbytes=idx.centroid_nbytes, peak_gb=peak_gb, card=smi)
+    return idx, info
+
+
+def index_lifecycle(eng, idx, docs, q, smi: str) -> dict:
+    """After ``compact``: ``rebuild`` gives the labels of a fresh index over
+    the compacted engine; an ``append`` then ``index.add`` keeps exhaustive
+    routing bit-equal to ``engine.topk``; a doc deleted on the engine leaves
+    the routed results without an index call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.index import ClusterIndex
+
+    kw = dict(num_cells=INDEX_CELLS, top_p=INDEX_TOP_P, probe_cap=INDEX_CELLS,
+              bound_slack=INDEX_SLACK, seed=0)
+    _, rebuild_ms = clocked(idx.rebuild)
+    fresh = ClusterIndex(eng, **kw)
+    if not np.array_equal(idx.labels, fresh.labels):
+        fail("index rebuild after compact: labels differ from a fresh index")
+    del fresh
+    k_sym = 4 * K_FINAL
+    part = docs[100:100 + max(32, round(SEG_DELTA * eng.n_docs / 700_000))]
+    gids, append_ms = clocked(lambda: eng.append(part))
+    assign, add_ms = clocked(lambda: idx.add(gids, part))
+    a = idx.routed_topk(q, k_sym, top_p=INDEX_CELLS, bound_slack=None)
+    b = eng.topk(q, k_sym)
+    if not (torch.equal(a.dists, b.dists) and torch.equal(a.indices, b.indices)):
+        fail("index.add: exhaustive routing differs from engine.topk")
+    r = idx.routed_topk(q, k_sym)
+    victim = int(r.indices[0, 1])
+    v = idx.version
+    eng.delete([victim])
+    r2 = idx.routed_topk(q, k_sym)
+    if victim in r2.indices.cpu().numpy() or idx.version != v:
+        fail("a doc deleted on the engine came back from routed_topk")
+    info = dict(rebuild_after_compact_ms=rebuild_ms, append_ms=append_ms,
+                add_ms=add_ms, added=part.n_docs,
+                cells_touched=int(len(np.unique(assign))),
+                deleted_without_index_call=victim)
+    log(f"index lifecycle ({smi}): rebuild after compact {rebuild_ms:.0f} ms "
+        f"(labels = a fresh index's); append of {part.n_docs} docs "
+        f"{append_ms:.1f} ms, index.add {add_ms:.1f} ms over "
+        f"{info['cells_touched']} cells (exhaustive routing still equals "
+        f"engine.topk); doc {victim} deleted on the engine is gone from "
+        f"routed_topk")
     return info
 
 
@@ -2219,7 +2585,7 @@ def lcrwmd_phases(scale: float, smi: str) -> dict:
     log(f"monolithic engine freed: {torch.cuda.memory_allocated() / 1e9:.2f} "
         "GB still allocated")
     t0 = time.perf_counter()
-    segmented_phase(docs, corpus.emb, smi)
+    segmented_phase(docs, corpus.emb, corpus.labels, smi)
     log(f"segmented phase: {time.perf_counter() - t0:.1f} s")
 
     slice_info = dict(

@@ -292,6 +292,23 @@ def _segment_dense(seg: SegmentTensors, t_q: torch.Tensor, q_ids: torch.Tensor,
     return d if row_valid is None else d.masked_fill(~row_valid[:, None], _INF)
 
 
+def _resident_tile(res: DocSet, idx, live: torch.Tensor | None):
+    """The resident docs ``idx`` (B,) as a query DocSet, and a (B,) bool
+    mask of the ids that name a doc: out-of-range ids, and ids that
+    ``live`` marks dead, are empty histograms (zero weights)."""
+    n = res.n_docs
+    if not isinstance(idx, torch.Tensor):
+        idx = torch.from_numpy(np.asarray(idx, dtype=np.int64))
+    idx = idx.to(res.device).long().reshape(-1)
+    safe = idx.clamp(0, n - 1)
+    ok = (idx >= 0) & (idx < n)
+    if live is not None:
+        ok &= live[safe]
+    return DocSet(ids=res.ids[safe],
+                  weights=torch.where(ok[:, None], res.weights[safe],
+                                      0.0)), ok
+
+
 class LCRWMDEngine:
     """Serve-time LC-RWMD against a fixed resident corpus.
 
@@ -417,6 +434,19 @@ class LCRWMDEngine:
             bf16_matmul=self.bf16_matmul, **(sinkhorn_kw or {}))
         return topk_lib.topk_from_candidates(vals, cand_indices, k)
 
+    # -- corpus-analytics (query-tile) entry points ------------------------
+    def resident_tile(self, idx) -> DocSet:
+        """The resident docs named by ``idx`` (B,) as a query DocSet;
+        out-of-range entries (tile padding, e.g. -1) are empty histograms."""
+        return _resident_tile(self.resident, idx, None)[0]
+
+    def symmetric_resident(self, idx) -> torch.Tensor:
+        """Symmetric bound (n, B) whose queries are resident docs ``idx``
+        (B,): phase 1, the ELL SpMM and the swapped direction's d21 mode on
+        the card.  Out-of-range entries give +inf columns."""
+        tile, ok = _resident_tile(self.resident, idx, None)
+        return self.symmetric(tile).masked_fill(~ok[None, :], _INF)
+
     def candidate_pairs(self, flat: torch.Tensor, q_ids: torch.Tensor):
         """The rerank's inputs from the engine's device tensors: the word
         embeddings (P, h1, m) and weights (P, h1) of resident docs ``flat``
@@ -475,8 +505,9 @@ class SegmentedEngine:
     """LC-RWMD engine over a base + delta segment list: churn without rebuild.
 
     The query surface of :class:`LCRWMDEngine` (``one_sided`` /
-    ``symmetric`` / streaming ``topk*`` / ``rerank_topk``) plus a corpus
-    lifecycle:
+    ``symmetric`` / streaming ``topk*`` / ``rerank_topk``, and the
+    resident-query tiles ``resident_tile`` / ``symmetric_resident`` that
+    the clustering runs on) plus a corpus lifecycle:
 
       * :meth:`append` builds ONE small :class:`EngineSegment` over the new
         docs (its own v_e restriction), cost O(delta), not O(corpus);
@@ -655,6 +686,14 @@ class SegmentedEngine:
         b, h = q_ids.shape
         return self._gather_flat(q_ids).reshape(b, h, -1)
 
+    def candidate_pairs(self, flat: torch.Tensor, q_ids: torch.Tensor):
+        """The rerank's inputs from the engine's device tensors (as
+        :meth:`LCRWMDEngine.candidate_pairs`): the word embeddings
+        (P, h1, m) and weights (P, h1) of global doc ids ``flat`` (P,), and
+        the embeddings (B, h2, m) of query word ids ``q_ids``."""
+        t1, w1 = doc_targets(self.resident, self.emb_full, flat)
+        return t1, w1, self.gather_queries(q_ids)
+
     def fold_topk(self, queries: DocSet, k: int, *, symmetric: bool,
                   q_gid: torch.Tensor | None = None,
                   bf16_matmul: bool | None = None) -> topk_lib.TopK:
@@ -713,6 +752,22 @@ class SegmentedEngine:
         """max(D1, D2ᵀ) (n_docs, B); tombstoned rows are +inf."""
         return self._dense(queries, symmetric=True)
 
+    # -- corpus-analytics (query-tile) entry points ------------------------
+    def resident_tile(self, idx) -> DocSet:
+        """Resident docs named by global ids ``idx`` (B,) as a query DocSet.
+
+        Out-of-range AND tombstoned entries behave as empty histograms.
+        """
+        return _resident_tile(self.resident, idx, self.live_mask_device())[0]
+
+    def symmetric_resident(self, idx) -> torch.Tensor:
+        """Symmetric bound (n_docs, B) whose queries are resident docs
+        ``idx`` (B,): each segment's phase 1, ELL SpMM and d21 mode on the
+        card.  Tombstoned rows are +inf; out-of-range and tombstoned
+        queries give +inf columns."""
+        tile, ok = _resident_tile(self.resident, idx, self.live_mask_device())
+        return self.symmetric(tile).masked_fill(~ok[None, :], _INF)
+
     def rerank_topk(self, queries: DocSet, cand_indices: torch.Tensor, k: int,
                     *, sinkhorn_kw: dict | None = None) -> topk_lib.TopK:
         """Batched Sinkhorn-WMD re-rank of global candidate doc ids.
@@ -729,12 +784,12 @@ class SegmentedEngine:
         queries = queries.to(self.device)
         n = self.n_docs
         cand = cand_indices.to(self.device)
-        t1, w1 = doc_targets(self.resident, self.emb_full,
-                             cand.reshape(-1).clamp(0, n - 1))
+        t1, w1, t2 = self.candidate_pairs(cand.reshape(-1).clamp(0, n - 1),
+                                          queries.ids)
         valid = (cand >= 0) & self.live_mask_device()[
             cand.clamp(0, n - 1).long()]
         vals = wmd_candidate_values(
-            t1, w1, self.gather_queries(queries.ids), queries.weights,
+            t1, w1, t2, queries.weights,
             use_kernel=True, bf16_matmul=self.bf16_matmul,
             **(sinkhorn_kw or {}))
         vals = vals.masked_fill(~valid, _INF)

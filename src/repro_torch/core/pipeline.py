@@ -97,6 +97,8 @@ def pruned_wmd_topk(
     sinkhorn_kw: dict | None = None,
     engine: LCRWMDEngine | None = None,
     use_kernel: bool | None = None,
+    index=None,
+    top_p: int | None = None,
 ) -> PrunedWMDResult:
     """Top-k WMD per query via the RWMD pruning cascade.
 
@@ -113,19 +115,34 @@ def pruned_wmd_topk(
     (True) or the batched solver ``sinkhorn_log_batched`` (False); unset,
     it follows the reference: the kernel with an engine (the port's engine
     is the reference's ``use_kernel=True`` engine), the solver without.
-    The cluster-index stage (``index=``) is not ported yet.
+
+    ``index``: a :class:`repro_torch.index.ClusterIndex` over ``resident``
+    — the cell-routing and triangle-bound stage goes before phase 1: the
+    queries route to their ``top_p`` nearest cells (the index's default
+    when None), the bound drops routed cells that cannot hold a
+    competitive match, and stage 1 scans only the surviving cells
+    (``index.routed_topk``).  The rerank then reads the index engine's
+    device tensors, and ``use_kernel`` unset takes the kernel.
+    ``pruned_exact`` certifies exactness relative to the routed cells;
+    the budget covering the corpus makes it unconditional only when
+    routing kept every cell for every query.
     """
     sinkhorn_kw = sinkhorn_kw or {}
     n = resident.n_docs
     budget = refine_budget or min(4 * k, n)
     budget = min(max(budget, k), n)  # bootstrap needs k candidates
     if use_kernel is None:
-        use_kernel = engine is not None
+        use_kernel = engine is not None or index is not None
 
-    if engine is not None:
+    if index is not None:
+        route = index.route(queries, top_p=top_p)
+        cand = index.routed_topk(queries, budget, route=route)  # (B, budget)
+        engine = index.engine
+    elif engine is not None:
         # on the card: phase 1, the swapped direction and the fused top-k
         # kernels (no slab; d21 (n, B) is the one extra tensor)
         cand = engine.symmetric_topk_streaming(queries, budget)  # (B, budget)
+    if engine is not None:
         queries = queries.to(engine.device)
         flat = torch.clamp(cand.indices, 0, n - 1).reshape(-1).long()
         # The engine's device tensors hold the same values as the caller's
@@ -158,7 +175,8 @@ def pruned_wmd_topk(
     needed = cand.dists < cutoff[:, None]
     n_refined = (k + needed[:, k:].sum(dim=1)).to(torch.int32)
     exact = cand.dists[:, -1] >= cutoff
-    if budget == n:
+    if budget == n and (index is None or (
+            route.keep.all() and route.cells.shape[1] == index.num_cells)):
         exact = torch.ones_like(exact)
     topk = topk_lib.topk_from_candidates(wmd_vals, cand.indices, k)
     return PrunedWMDResult(topk=topk, rwmd_topk=rwmd_topk, n_refined=n_refined,

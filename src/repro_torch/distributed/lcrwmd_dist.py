@@ -27,18 +27,26 @@ On CPU tensors each kernel's plain version runs.  Kept from the reference:
 (``bf16_matmul=True``).  A :class:`~repro_torch.core.lc_rwmd.SegmentedEngine`
 step re-reads its state when ``engine.version`` changes, and only then.
 
+With ``index=`` (a :class:`~repro_torch.index.ClusterIndex`) the step is
+routed: each probed cell runs phase 1 over its own vocabulary and the
+fused top-k with its live mask on the queries routed to it only.  The
+reference stacks its cells into one padded tensor and runs every query
+against every probe slot, for one static jit shape; the results of the
+routed (query, cell) pairs are the same.
+
 Left out: ``mesh``, ``phase1_full_mesh`` and ``psum_batch`` (the
-multi-device program, and the slab batching of its collectives); ``index=``
-and the routed step (the cluster index is not ported yet); ``obs=`` (the
-serving plane's metrics); the reference's module-level step cache and its
-re-trace sentinel (eager PyTorch traces nothing, so there is nothing to
-cache or re-trace).
+multi-device program, and the slab batching of its collectives); ``obs=``
+(the serving plane's metrics, among them the routed step's probe-overflow
+counter); the reference's module-level step cache and its re-trace
+sentinel (eager PyTorch traces nothing, so there is nothing to cache or
+re-trace).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import topk as topk_lib
@@ -57,6 +65,7 @@ from repro_torch.core.wcd import centroids_from_t, resident_centroids
 from repro_torch.core.wmd import wmd_candidate_values
 from repro_torch.data.docs import DocSet
 from repro_torch.device import resolve_device
+from repro_torch.index.cluster_index import pad_topk
 
 TopK = topk_lib.TopK
 _INF = 3.4e38       # the reference's mask value in the serve step
@@ -77,7 +86,7 @@ def build_serve_step(*, k: int, refine: bool = False, bf16_matmul: bool = True,
                      rerank_budget: int | None = None,
                      wmd_kw: dict | None = None, self_exclude: bool = False,
                      streaming: bool | None = None, row_block: int = 128,
-                     device=None):
+                     device=None, index=None):
     """Returns ``serve(resident, queries, emb) -> ServeResult``, or with an
     ``engine`` ``serve(queries, query_ids=None, *, tier=0)``.
 
@@ -101,6 +110,14 @@ def build_serve_step(*, k: int, refine: bool = False, bf16_matmul: bool = True,
 
     Tiers (``serve(..., tier=)``): 0 the full configured cascade, 1 the
     LC-RWMD candidates (refine and rerank shed), 2 the WCD shortlist.
+
+    ``index``: a :class:`~repro_torch.index.ClusterIndex` over ``engine``
+    (a :class:`SegmentedEngine`).  Tiers 0 and 1 then route each batch:
+    ``index.route`` picks each query's cells (top-p, triangle bound), the
+    batch's probed union is capped at ``index.probe_cap`` cells (overflow
+    drops the least-requested cells), and only those cells are scanned,
+    each on its routed queries.  Tier 2 stays unrouted.  The step raises
+    if the engine grew without ``index.add``.
     """
     kc = max((rerank_budget or 2 * k) if rerank_wmd else k, k)
     if engine is not None:
@@ -109,6 +126,19 @@ def build_serve_step(*, k: int, refine: bool = False, bf16_matmul: bool = True,
                              f"({engine.device})")
         kc = min(kc, engine.n_docs if isinstance(engine, SegmentedEngine)
                  else engine.resident.n_docs)
+    if index is not None:
+        if not isinstance(engine, SegmentedEngine):
+            raise ValueError(
+                "a ClusterIndex serve step needs a SegmentedEngine "
+                "(the index's cells are engine segments)")
+        if streaming is False:
+            raise ValueError(
+                "the routed serve step is streaming-only (d_local "
+                "diagnostics are a monolithic-engine feature)")
+        return _routed_serve_step(
+            engine, index, k=k, kc=kc, refine=refine,
+            bf16_matmul=bf16_matmul, rerank_wmd=rerank_wmd, wmd_kw=wmd_kw,
+            self_exclude=self_exclude)
     if isinstance(engine, SegmentedEngine):
         if streaming is False:
             raise ValueError(
@@ -160,10 +190,13 @@ def _query_gids(self_exclude: bool, queries: DocSet, query_ids,
 
 def _finish(engine, queries: DocSet, tk: TopK, *, k: int, kc: int,
             n_cover: int, tier: int, refine: bool, rerank_wmd: bool,
-            wmd_kw: dict | None, d_local=None) -> ServeResult:
+            wmd_kw: dict | None, d_local=None,
+            covered: bool = True) -> ServeResult:
     """Tiers 0 and 1 after the candidate step: tier 1 serves the first k
     candidates; tier 0 refines and reranks as configured.  ``n_cover``:
-    candidates at least this many cover every live doc (always exact)."""
+    candidates at least this many cover every live doc (always exact),
+    when ``covered`` (the routed step: routing kept every cell for every
+    query)."""
     if tier >= 1:
         return ServeResult(topk=TopK(tk.dists[:, :k], tk.indices[:, :k]),
                            d_local=d_local, tier=tier)
@@ -176,7 +209,7 @@ def _finish(engine, queries: DocSet, tk: TopK, *, k: int, kc: int,
     if rerank_wmd:
         tk = engine.rerank_topk(queries, tk.indices, k, sinkhorn_kw=wmd_kw)
         exact = cand_max_rwmd >= tk.dists[:, -1]
-        if kc >= n_cover:
+        if kc >= n_cover and covered:
             exact = torch.ones_like(exact)
     return ServeResult(topk=tk, d_local=d_local, pruned_exact=exact)
 
@@ -266,6 +299,81 @@ def _segmented_serve_step(engine: SegmentedEngine, *, k, kc, refine,
         return _finish(engine, queries, tk, k=k, kc=kc, n_cover=engine.n_live,
                        tier=tier, refine=refine, rerank_wmd=rerank_wmd,
                        wmd_kw=wmd_kw)
+
+    return serve
+
+
+def _routed_serve_step(engine: SegmentedEngine, index, *, k, kc, refine,
+                       bf16_matmul, rerank_wmd, wmd_kw, self_exclude):
+    """Serve step routed through a :class:`~repro_torch.index.ClusterIndex`.
+
+    Per batch: ``index.route`` picks each query's cells, the batch's
+    probed union is capped at ``index.probe_cap`` cells, and each probed
+    cell runs phase 1 over its own vocabulary and the one-sided fused top-k
+    with its live mask (under ``self_exclude``, each query's row in that
+    cell) on the queries routed to it; the (distance, global id)
+    candidates merge into (B, kc), empty slots at (3.4e38, -1).  The
+    index's live masks and the tier-2 centroids (the index's doc
+    centroids, tombstoned rows out of reach) are re-read when
+    ``engine.version`` or ``index.version`` moves, and only then.  ``pruned_exact`` is relative to the routed cells, and
+    unconditional only when routing kept every cell for every query.
+    """
+    dev = engine.device
+    p_max = index.probe_cap
+    state: dict = {"key": None}
+
+    def refresh():
+        index._sync_live()   # raises if the engine grew without index.add
+        key = (engine.version, index.version)
+        if state["key"] == key:
+            return
+        rows_cap = index.rows_cap
+        if p_max * rows_cap < k:
+            raise ValueError(
+                f"probe_cap={p_max} × largest cell {rows_cap} rows cannot "
+                f"yield k={k} candidates; raise probe_cap or num_cells")
+        state.clear()
+        state["key"] = key
+        state["kc"] = min(kc, p_max * rows_cap)
+
+    def pack(route):
+        """The probed union capped at ``p_max`` cells: (probed, keep)."""
+        probed, keep = route.probed, route.keep
+        if len(probed) > p_max:
+            # Overflow: keep the cells the most queries asked for.
+            req = np.zeros(index.num_cells, dtype=np.int64)
+            np.add.at(req, route.cells[keep].reshape(-1), 1)
+            order = np.argsort(-req[probed], kind="stable")
+            dropped = probed[order[p_max:]]
+            probed = np.sort(probed[order[:p_max]])
+            keep = keep & ~np.isin(route.cells, dropped)
+        return probed, keep
+
+    def serve(queries: DocSet, query_ids=None, *, tier: int = 0) -> ServeResult:
+        tier = int(tier)
+        refresh()
+        queries = queries.to(dev)
+        q_gid = _query_gids(self_exclude, queries, query_ids, dev)
+        if tier >= 2:   # QualityTier.WCD: no routing on the last rung
+            if "cent" not in state:
+                state["cent"] = index.doc_centroids.masked_fill(
+                    ~engine.live_mask_device()[:, None], _DEAD_CENTROID)
+            return ServeResult(
+                topk=_wcd_topk(k, state["cent"], engine, queries, q_gid),
+                d_local=None, tier=tier)
+        route = index.route(queries)
+        probed, keep = pack(route)
+        kcs = state["kc"]
+        tk = pad_topk(index.fold_cells(
+            queries, kcs, probed, route.cells, keep, symmetric=False,
+            q_gid=q_gid, bf16_matmul=bf16_matmul), kcs)
+        # An empty slot carries the step's mask value, as in the reference:
+        # a query left with fewer than k candidates is then not certified.
+        tk = TopK(tk.dists.masked_fill(tk.indices < 0, _INF), tk.indices)
+        covered = bool(keep.all()) and route.cells.shape[1] == index.num_cells
+        return _finish(engine, queries, tk, k=k, kc=kcs,
+                       n_cover=engine.n_live, tier=tier, refine=refine,
+                       rerank_wmd=rerank_wmd, wmd_kw=wmd_kw, covered=covered)
 
     return serve
 

@@ -1093,3 +1093,85 @@ def test_segmented_serve_step_on_the_card_matches_the_cpu(cuda):
             torch.cuda.synchronize()
         copies = [e.key for e in prof.key_averages() if "HtoD" in e.key]
         assert not copies, copies
+
+
+def _indexed(cuda, **kw):
+    """``_grown_pair``'s segmented engine with an 8-cell index over it."""
+    from repro_torch.index import ClusterIndex
+
+    c, docs, seg, _, dead = _grown_pair(cuda)
+    kw = dict(dict(num_cells=8, top_p=8, probe_cap=8, seed=0), **kw)
+    return c, docs, seg, ClusterIndex(seg, **kw), dead
+
+
+def test_exhaustive_routing_bit_equals_segmented_topk(cuda):
+    """Every cell for every query, bound off: the routed top-k and the
+    routed serve step (tiers 0-2, self-excluding) equal the flat segmented
+    scan and step bit for bit, on B1, B3 and the d21 mode per cell."""
+    from repro_torch.distributed.lcrwmd_dist import build_serve_step
+
+    c, docs, seg, idx, dead = _indexed(cuda)
+    q = docs[:64]
+    _build.reset_launches()
+    a = idx.routed_topk(q, 20, top_p=8, bound_slack=None)
+    n_cells = sum(cell is not None for cell in idx.cells)
+    assert _build.LAUNCHES["rwmd_d21"] == n_cells
+    assert _build.LAUNCHES["fused_topk"] == n_cells
+    b = seg.topk(q, 20)
+    assert torch.equal(a.dists, b.dists) and torch.equal(a.indices, b.indices)
+    assert not np.isin(dead, a.indices.cpu().numpy()).any()
+    kw = dict(k=5, bf16_matmul=False, refine=True, rerank_wmd=True,
+              rerank_budget=32, wmd_kw=RERANK_KW)
+    ids = torch.arange(64, device=cuda)
+    for self_exclude, args in ((False, (q,)), (True, (q, ids))):
+        flat = build_serve_step(engine=seg, self_exclude=self_exclude, **kw)
+        routed = build_serve_step(engine=seg, index=idx,
+                                  self_exclude=self_exclude, **kw)
+        for tier in (0, 1, 2):
+            x, y = routed(*args, tier=tier), flat(*args, tier=tier)
+            assert torch.equal(x.topk.dists, y.topk.dists)
+            assert torch.equal(x.topk.indices, y.topk.indices)
+            if tier == 0:
+                assert torch.equal(x.pruned_exact, y.pruned_exact)
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_cell_on_a_query_subset_bit_equals_the_cell_on_all(cuda, symmetric):
+    """B1, B3 (and the d21 mode) on a cell's routed queries only give the
+    rows they give with every query in the batch, bit for bit."""
+    c, docs, seg, idx, _ = _indexed(cuda)
+    q = docs[:64]
+    every = np.ones((64, 1), bool)
+    some = np.zeros((64, 1), bool)
+    some[[0, 3, 17, 40, 41, 63]] = True
+    rows = torch.tensor([0, 3, 17, 40, 41, 63], device=cuda)
+    for j, cell in enumerate(idx.cells):
+        if cell is None:
+            continue
+        cells = np.full((64, 1), j, dtype=np.int32)
+        a = idx.fold_cells(q, 20, [j], cells, every, symmetric=symmetric)
+        b = idx.fold_cells(q, 20, [j], cells, some, symmetric=symmetric)
+        assert torch.equal(a.dists[rows], b.dists[rows])
+        assert torch.equal(a.indices[rows], b.indices[rows])
+
+
+def test_routed_step_maps_query_ids_to_cell_rows(cuda):
+    """Self-exclusion per cell: a member query excludes its own row, a
+    query id that is not the query's doc excludes that doc only, and a
+    deleted self stays out through the live mask."""
+    from repro_torch.distributed.lcrwmd_dist import build_serve_step
+
+    c, docs, seg, idx, dead = _indexed(cuda)
+    q = docs[:64]
+    ids = torch.arange(64, device=cuda)
+    foreign = ids.clone()
+    foreign[0] = 2999               # query 0 excludes doc 2999 instead
+    kw = dict(k=20, bf16_matmul=False, self_exclude=True)
+    routed = build_serve_step(engine=seg, index=idx, **kw)
+    flat = build_serve_step(engine=seg, **kw)
+    for qid in (ids, foreign):
+        a, b = routed(q, qid, tier=1).topk, flat(q, qid, tier=1).topk
+        assert torch.equal(a.dists, b.dists) and torch.equal(a.indices, b.indices)
+        assert not bool((a.indices == qid[:, None]).any())
+        assert not np.isin(dead, a.indices.cpu().numpy()).any()   # 60, 61
+    assert int(routed(q, foreign, tier=1).topk.indices[0, 0]) == 0

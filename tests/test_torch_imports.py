@@ -15,6 +15,8 @@ MODULES = [
     "repro_torch.kernels.rwmd_pairwise", "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.segment_spmm", "repro_torch.models.transformer.model",
     "repro_torch.configs", "repro_torch.distributed.lcrwmd_dist",
+    "repro_torch.index", "repro_torch.index.cluster_index",
+    "repro_torch.workloads.clustering",
 ]
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|from\s+repro(\.|\s))",
