@@ -108,6 +108,31 @@ Phases, each of which exits non-zero on failure:
    ``rebuild`` must give a fresh index's labels, an append plus
    ``index.add`` must keep exhaustive routing equal to ``engine.topk``,
    and a doc deleted on the engine must leave the routed results.
+6b. the serving plane (``repro_torch.serving``) on the same corpus, each
+   server over its own engine of all the docs, at k = 16, B = 64, h_max
+   48, refine and the rerank at a budget of 32: ``QueryServer`` and
+   ``AsyncQueryServer`` on 4,096 resident docs' own histograms (with the
+   counts reset just before and read just after, B1, B3 and B4 must have
+   run; self-recall@16 1.0; the async answers equal the sync ones bit for
+   bit; the unrouted dispatch once under
+   ``torch.cuda.set_sync_debug_mode("error")``), their queries a second,
+   per-query p50/p99, the share of batches dispatched before their
+   predecessor was collected, launches a batch, the host seconds a batch,
+   the device busy share of a 512-query window (``torch.profiler``, CUDA
+   activity only); an adaptive budget (its trajectory); degradation at a
+   shed depth of 128 (tier-1 answers equal the serve step's tier 1 on
+   the same batch); a NaN batch and one poisoned query (only it fails,
+   with ``PoisonQuery``; the rest bit-equal) and a worker crash (its
+   batch fails with ``WorkerCrashed``, the loop restarts, submission order
+   holds); a second tenant that evicts the first, whose readmission
+   answers bit for bit as before; between batches, an ingest of 4,000 new
+   docs, a 64-doc dedup ingest whose 8 exact copies are refused (B2 and
+   the d21 mode must run), 64 deletes that never come back and
+   ``compact``; a 64-cell indexed tenant (answers equal
+   ``build_serve_step(index=)``'s on the same batches, every query routed
+   to its own doc's cell finds it, the index metrics in the Prometheus
+   text); the ingest pool (2 spawned workers, answers equal the in-thread
+   text path's, no worker maps torch); the reference's metric names.
 7. flash attention: the kernel against its plain version at llama3.2-1b's
    heads (B=4, S=T=4,096, 32 query and 8 KV heads, dh 64), causal in bf16
    and f32, non-causal, at a length that is not a tile multiple, and with
@@ -2459,6 +2484,602 @@ def index_lifecycle(eng, idx, docs, q, smi: str) -> dict:
     return info
 
 
+# The serving phase (after the segmented and index phases, on the same
+# corpus): the serving plane through its entry points on the card.  A
+# stream of SERVE_QUERIES resident docs' own histograms (seeded picks) at
+# k = 16, B = 64, h_max 48, refine + the Sinkhorn rerank at a fixed budget
+# of 2k; the tenant is docs 500,000-699,999 (scaled with the corpus); the
+# lifecycle ingests SERVE_INGEST new docs (scaled), then SERVE_DEDUP with
+# SERVE_COPIES exact copies of live docs at a 0.05 dedup threshold, deletes
+# SERVE_DELETES and compacts; the indexed tenant has 64 cells probed 4 a
+# query.
+SERVE_K = 16
+SERVE_QUERIES = 4096
+SERVE_WINDOW = 512        # the profiled window of the async run
+SERVE_FAULT_QUERIES = 1024
+# The adaptive run is short: on failing batches the budget doubles, and
+# the rerank gathers (64 x budget) candidates of 48 x 300 floats.
+SERVE_ADAPTIVE_QUERIES = 5 * 64
+SERVE_INGEST = 4000
+SERVE_DEDUP = 64
+SERVE_COPIES = 8
+SERVE_DELETES = 64
+SERVE_DEDUP_THRESHOLD = 0.05
+SERVE_TENANT = (500_000, 700_000)
+SERVE_POOL_WORKERS = 2
+SERVE_POOL_QUERIES = 1024
+SERVE_WAIT_S = 300        # the most a stream's futures may take to resolve
+# What the reference's AsyncQueryServer registers for the main async
+# configuration (this script imports no JAX; listed from a CPU run of
+# ``repro.serving``), its mesh collective gauges left out.
+REFERENCE_SERVER_METRICS = (
+    "corpus_cache_hits_total", "corpus_cache_misses_total",
+    "corpus_evictions_total", "corpus_readmissions_total",
+    "corpus_resident_bytes", "serve_step_host_seconds", "serving_batch_size",
+    "serving_batches_total", "serving_device_collect_seconds",
+    "serving_dispatch_host_seconds", "serving_e2e_latency_seconds",
+    "serving_ewma_latency_seconds", "serving_queries_total",
+    "serving_queue_depth", "serving_queue_wait_seconds",
+    "serving_rerank_budget")
+SERVE_FAMILIES = {"lc_rwmd_phase1": ("phase1_",),
+                  "fused_topk": ("fused_topk", "topk_merge"),
+                  "sinkhorn_wmd": ("sinkhorn",)}
+
+
+def _serve_async(server, payloads):
+    """Submit every payload (an (ids, weights) pair or a raw payload), then
+    flush and wait at most SERVE_WAIT_S: (outcomes, per-query
+    submit-to-answer seconds, wall seconds from the first submit to the
+    last answer)."""
+    import concurrent.futures
+
+    import numpy as np
+
+    n = len(payloads)
+    t_sub, t_done = np.zeros(n), np.zeros(n)
+    futs = []
+    t0 = time.perf_counter()
+    for j, p in enumerate(payloads):
+        t_sub[j] = time.perf_counter()
+        f = server.submit(*p) if isinstance(p, tuple) else server.submit(p)
+        f.add_done_callback(
+            lambda _f, j=j: t_done.__setitem__(j, time.perf_counter()))
+        futs.append(f)
+    server.flush()
+    _, pending = concurrent.futures.wait(futs, timeout=SERVE_WAIT_S)
+    if pending:
+        fail(f"serving: {len(pending)} futures unresolved after "
+             f"{SERVE_WAIT_S} s (health {server.health()})")
+    out = [f.exception() or f.result() for f in futs]
+    return out, t_done - t_sub, float(t_done.max() - t0)
+
+
+def _serve_sync(server, stream, batch: int):
+    """Submit a batch, flush it, next: (answers, per-query submit-to-answer
+    seconds, wall seconds)."""
+    import numpy as np
+
+    out, lat = [], []
+    t0 = time.perf_counter()
+    for lo in range(0, len(stream), batch):
+        t_sub = []
+        for q in stream[lo:lo + batch]:
+            t_sub.append(time.perf_counter())
+            server.submit(*q)
+        ans = server.flush()
+        t = time.perf_counter()
+        out += ans
+        lat += [t - s for s in t_sub]
+    return out, np.array(lat), time.perf_counter() - t0
+
+
+def _latency(lat, wall, n) -> dict:
+    import numpy as np
+
+    return dict(qps=n / wall, p50_ms=float(np.percentile(lat, 50) * 1e3),
+                p99_ms=float(np.percentile(lat, 99) * 1e3), wall_s=wall)
+
+
+def _busy_window(fn) -> dict:
+    """A window's device time (``torch.profiler`` with CUDA activity only,
+    so the profiler adds no per-operator host records to a host-heavy
+    loop) over its wall time, the window run once without the profiler and
+    once with it; the busy share divides the device time by the wall time
+    without it (the kernels are the same work either way).  Each run
+    starts after a ``gc.collect()``: a collection of a finished stream's
+    futures and traces (~0.3 s) would otherwise land in the window."""
+    import gc
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    gc.collect()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    for _ in range(PROFILE_TRIES):
+        gc.collect()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        top = []
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA:
+                us = getattr(ev, "self_device_time_total", None)
+                if us is None:
+                    us = getattr(ev, "self_cuda_time_total", 0.0)
+                top.append((us, ev.key[:60], ev.count))
+        dev_ms = sum(us for us, _, _ in top) / 1e3
+        if dev_ms > 0:
+            break
+        PROFILE_STATS["retries"] += 1
+    else:
+        fail("serving: profiles of a window show no device time")
+    return dict(wall_ms=wall_ms, profiled_wall_ms=prof_ms, device_ms=dev_ms,
+                busy_share=dev_ms / wall_ms,
+                by_group=_split(sorted(top, reverse=True), SERVE_FAMILIES))
+
+
+def _bit_equal(a, b) -> bool:
+    return a[0].tobytes() == b[0].tobytes() and a[1].tobytes() == b[1].tobytes()
+
+
+def _mixed_docs(docs, rng, n: int):
+    """``n`` new docs: one resident doc's words in the even slots and
+    another's in the odd ones, weights renormalized (histograms no resident
+    doc holds)."""
+    import torch
+
+    from repro_torch.data.docs import DocSet
+
+    a = torch.as_tensor(rng.integers(0, docs.n_docs, n), device=docs.device)
+    b = torch.as_tensor(rng.integers(0, docs.n_docs, n), device=docs.device)
+    even = torch.arange(docs.h_max, device=docs.device) % 2 == 0
+    ids = torch.where(even, docs.ids[a], docs.ids[b])
+    w = torch.where(even, docs.weights[a], docs.weights[b])
+    w = w / w.sum(dim=1, keepdim=True).clamp(min=1e-30)
+    return DocSet(ids=ids.contiguous(), weights=w.contiguous())
+
+
+def _host_rows(ds):
+    """A DocSet's rows as (ids, weights) numpy pairs (serving queries)."""
+    ids, w = ds.ids.cpu().numpy(), ds.weights.cpu().numpy()
+    return [(ids[j], w[j]) for j in range(len(ids))]
+
+
+def serving_phase(docs, emb, smi: str) -> dict:
+    """The serving plane on the card: ``QueryServer`` and
+    ``AsyncQueryServer`` (self-recall, async = sync bit for bit, the
+    dispatch/collect overlap, busy share, launches per batch, no
+    synchronizing call in the unrouted dispatch), an adaptive budget,
+    degradation, faults and a crash, a second tenant evicting and
+    readmitting the first, ingest / dedup / delete / compact between
+    batches, an indexed tenant and the ingest pool; every future resolves
+    as planned."""
+    import concurrent.futures
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.vectorizer import VocabVectorizer
+    from repro_torch.distributed.lcrwmd_dist import build_serve_step
+    from repro_torch.index import IndexConfig
+    from repro_torch.kernels import _build
+    from repro_torch.serving import (
+        Answer, AsyncQueryServer, FaultPlan, PoisonQuery, QueryServer,
+        ServerConfig, WorkerCrashed)
+
+    n = docs.n_docs
+    f = n / 700_000
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(22)
+    picks = rng.choice(n, SERVE_QUERIES, replace=False)
+    stream = _host_rows(docs[torch.as_tensor(picks, device=docs.device)])
+    kw = dict(k=SERVE_K, max_batch=B, h_max=48, refine_symmetric=True,
+              rerank_wmd=True, wmd_kw=KW_RERANK, max_wait_s=1.0)
+    step_kw = dict(k=SERVE_K, refine=True, rerank_wmd=True,
+                   rerank_budget=2 * SERVE_K, wmd_kw=KW_RERANK,
+                   bf16_matmul=False)
+    info: dict = dict(queries=SERVE_QUERIES, batch=B, k=SERVE_K, card=smi)
+    builds = {}
+
+    def build(name, fn):
+        server, ms = clocked(fn)
+        builds[name] = ms
+        return server
+
+    def recall(answers, which):
+        bad = [j for j, a in enumerate(answers) if not isinstance(a, Answer)]
+        if bad:
+            fail(f"serving {which}: {len(bad)} futures resolved with an "
+                 f"error, first {answers[bad[0]]!r}")
+        hit = np.mean([picks[j] in a[0] for j, a in enumerate(answers)])
+        if hit != 1.0:
+            fail(f"serving {which}: self-recall@{SERVE_K} {hit}")
+        return float(hit)
+
+    def check_equal(got, want, which, rows=None):
+        rows = range(len(want)) if rows is None else rows
+        diff = [j for j in rows if not _bit_equal(got[j], want[j])]
+        if diff:
+            fail(f"serving {which}: {len(diff)} answers differ bit for bit, "
+                 f"first query {diff[0]}")
+
+    # -- 1. QueryServer: warm-up, the sync-debug dispatch, the timed stream
+    sync = build("sync", lambda: QueryServer(docs, emb, ServerConfig(**kw)))
+    _serve_sync(sync, stream[:B], B)                 # warm-up
+    core = sync._core
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = core.dispatch(stream[:B])
+    except RuntimeError as e:
+        torch.cuda.set_sync_debug_mode(0)
+        fail(f"the unrouted serve dispatch synchronized: {e}")
+    torch.cuda.set_sync_debug_mode(0)
+    core.collect(handle)
+    _build.reset_launches()
+    want, lat, wall = _serve_sync(sync, stream, B)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    info["sync"] = dict(_latency(lat, wall, len(stream)),
+                        self_recall=recall(want, "sync"),
+                        launches_per_batch={k: v / (len(stream) // B)
+                                            for k, v in launches.items()})
+    for name in ("lc_rwmd_phase1", "fused_topk", "sinkhorn_wmd"):
+        if launches.get(name, 0) < 1:
+            fail(f"serving: kernel {name} was not launched by the servers")
+    del sync, core, handle
+
+    # -- 2. AsyncQueryServer: the same stream, its overlap and busy share;
+    # the text preprocess hook is the ingest pool's in-thread baseline
+    vocab = emb.shape[0]
+    vec = VocabVectorizer(h_max=48).fit([" ".join(
+        f"w{i}" for i in range(vocab))])
+    srv = build("async", lambda: AsyncQueryServer(
+        docs, emb, ServerConfig(**kw), preprocess=vec.query_histogram))
+    _serve_async(srv, stream[:B])                    # warm-up
+    srv._core.trace = []
+    host_names = ("serving_dispatch_host_seconds", "serve_step_host_seconds",
+                  "serving_device_collect_seconds")
+
+    def host_sums():
+        m = srv.metrics_snapshot()["metrics"]
+        return {n: (m[n]["series"][0]["sum"], m[n]["series"][0]["count"])
+                for n in host_names}
+
+    h0 = host_sums()
+    _build.reset_launches()
+    got, lat, wall = _serve_async(srv, stream)
+    launches_async = dict(_build.LAUNCHES)
+    h1 = host_sums()
+    trace = list(srv._core.trace)
+    srv._core.trace = None
+    recall(got, "async")
+    check_equal(got, want, "async")
+    pos = {e: j for j, e in enumerate(trace)}
+    seqs = sorted(s for kind, s in trace if kind == "collect")
+    overlap = [pos[("dispatch", s + 1)] < pos[("collect", s)]
+               for s in seqs if ("dispatch", s + 1) in pos]
+    batches = len(seqs)
+    window = stream[:SERVE_WINDOW]
+    info["async"] = dict(
+        _latency(lat, wall, len(stream)), batches=batches,
+        dispatch_before_collect_share=float(np.mean(overlap)),
+        launches_per_batch={k: v / batches for k, v in launches_async.items()},
+        window=dict(queries=len(window),
+                    **_busy_window(lambda: _serve_async(srv, window))))
+    # host seconds a batch over the timed stream: the dispatch (pad, step
+    # launch, result copies), the step's own share, the wait at collect
+    info["async"]["host_ms_a_batch"] = {
+        n: (h1[n][0] - h0[n][0]) * 1e3 / max(1, h1[n][1] - h0[n][1])
+        for n in host_names}
+    names = set(srv.metrics_snapshot()["metrics"])
+    missing = sorted(set(REFERENCE_SERVER_METRICS) - names)
+    if missing:
+        fail(f"serving: metrics the reference registers are missing: {missing}")
+    prom = srv.obs.render_prometheus()
+    info["metric_names"] = sorted(names)
+    log("serving prometheus (bucket series left out): " + " | ".join(
+        ln for ln in prom.splitlines()
+        if not ln.startswith("#") and "_bucket{" not in ln))
+    # in-thread text path, the pool's baseline (SERVE_POOL_QUERIES texts)
+    texts = [" ".join(" ".join([f"w{i}"] * max(1, round(float(x) * 32)))
+                      for i, x in zip(ids, w) if x > 0)
+             for ids, w in stream[:SERVE_POOL_QUERIES]]
+    text_want, lat_t, wall_t = _serve_async(srv, texts)
+    info["text_in_thread"] = _latency(lat_t, wall_t, len(texts))
+    srv.close()
+    del srv
+
+    # -- 3. the adaptive budget: its trajectory and rebuilds
+    srv = build("adaptive", lambda: AsyncQueryServer(docs, emb, ServerConfig(
+        adaptive_budget=True, **kw)))
+    adaptive = stream[:SERVE_ADAPTIVE_QUERIES]
+    got, lat, wall = _serve_async(srv, adaptive)
+    s = srv.stats_snapshot()
+    info["adaptive"] = dict(_latency(lat, wall, len(adaptive)),
+                            self_recall=recall(got, "adaptive"),
+                            budget_trajectory=s["budget_trajectory"],
+                            budget_rebuilds=s["budget_rebuilds"])
+    srv.close()
+    del srv
+
+    # -- 4. degradation: a queue the stream keeps over the shed depth
+    srv = build("degraded", lambda: AsyncQueryServer(docs, emb, ServerConfig(
+        degradation=True, shed_queue_depth=2 * B, **kw)))
+    got, lat, wall = _serve_async(srv, stream)
+    bad = [a for a in got if not isinstance(a, Answer)]
+    if bad:
+        fail(f"serving degraded: unplanned errors, first {bad[0]!r}")
+    tiers = np.array([a.tier for a in got])
+    if not ((tiers == 1).any() and (tiers == 2).any()):
+        fail(f"serving degraded: tiers served {np.unique(tiers)}")
+    step = build_serve_step(engine=srv.engine, **step_kw)
+    groups: dict = {}
+    for j, a in enumerate(got):
+        if a.tier == 1:
+            groups.setdefault(a.trace.batch.seq, []).append(j)
+    for rows in groups.values():
+        res = step(srv._core.pad_batch([stream[j] for j in rows]), tier=1)
+        ti, td = res.topk.indices.cpu().numpy(), res.topk.dists.cpu().numpy()
+        for r, j in enumerate(rows):
+            if not _bit_equal(got[j], (ti[r], td[r])):
+                fail(f"serving degraded: query {j}'s tier-1 answer differs "
+                     "from the serve step's tier 1 on its batch")
+    s = srv.stats_snapshot()
+    info["degraded"] = dict(_latency(lat, wall, len(stream)),
+                            tier_counts=s["tier_counts"],
+                            answers_by_tier=np.bincount(tiers, minlength=3)
+                            .tolist(),
+                            transitions=len(s["tier_transitions"]),
+                            first_transitions=s["tier_transitions"][:6],
+                            tier1_batches_checked=len(groups))
+    srv.close()
+    del srv, step
+
+    # -- 5. faults: a transient NaN batch and one sticky poison query, then
+    # an injected worker crash
+    firsts = [int(q[0][0]) for q in stream]
+    j0 = next(j for j in range(3 * B, len(stream))   # not in the NaN batch
+              if firsts.count(firsts[j]) == 1)
+    srv = build("faults", lambda: AsyncQueryServer(
+        docs, emb, ServerConfig(**kw), faults=FaultPlan(
+            nan_batches={1: "all"}, poison_word_id=firsts[j0])))
+    got, _, wall = _serve_async(srv, stream)
+    errs = [j for j, a in enumerate(got) if not isinstance(a, Answer)]
+    if errs != [j0] or not isinstance(got[j0], PoisonQuery):
+        fail(f"serving faults: errors at {errs[:8]} "
+             f"({[type(got[j]).__name__ for j in errs[:8]]}), planned only "
+             f"query {j0} as PoisonQuery")
+    check_equal(got, want, "faults", [j for j in range(len(got)) if j != j0])
+    s = srv.stats_snapshot()
+    info["faults"] = dict(poisoned_query=int(j0), wall_s=wall,
+                          validation_failures=s["validation_failures"],
+                          validation_retries=s["validation_retries"],
+                          poisoned_queries=s["poisoned_queries"],
+                          worker_restarts=s["worker_restarts"])
+    srv.close()
+    del srv
+    srv = build("crash", lambda: AsyncQueryServer(
+        docs, emb, ServerConfig(pipeline_depth=1, **kw),
+        faults=FaultPlan(crash_batches=(2,))))
+    done = []
+    futs = []
+    for j, q in enumerate(stream[:SERVE_FAULT_QUERIES]):
+        fut = srv.submit(*q)
+        fut.add_done_callback(lambda _f, j=j: done.append(j))
+        futs.append(fut)
+    srv.flush()
+    if concurrent.futures.wait(futs, timeout=SERVE_WAIT_S).not_done:
+        fail(f"serving crash: futures unresolved after {SERVE_WAIT_S} s")
+    got = [fut.exception() or fut.result() for fut in futs]
+    crashed = [j for j, a in enumerate(got) if isinstance(a, WorkerCrashed)]
+    other = [j for j, a in enumerate(got)
+             if not isinstance(a, (Answer, WorkerCrashed))]
+    if other or crashed != list(range(2 * B, 3 * B)):
+        fail(f"serving crash: WorkerCrashed at {crashed[:4]}..{crashed[-4:]}"
+             f", other errors at {other[:8]}")
+    if done != list(range(len(futs))):
+        fail("serving crash: futures resolved out of submission order")
+    check_equal(got, want, "crash",
+                [j for j in range(len(got)) if j not in set(crashed)])
+    s = srv.stats_snapshot()
+    info["crash"] = dict(worker_restarts=s["worker_restarts"],
+                         crashed=len(crashed), alive=srv.health()[
+                             "worker_alive"])
+    if s["worker_restarts"] != 1 or not info["crash"]["alive"]:
+        fail(f"serving crash: {info['crash']}")
+    srv.close()
+    del srv
+
+    # -- 6. tenants and the lifecycle between batches of a running server
+    srv = build("lifecycle", lambda: AsyncQueryServer(
+        docs, emb, ServerConfig(**kw)))
+    life: dict = {}
+    probe = stream[:2 * B]
+    before, _, _ = _serve_async(srv, probe)
+    mgr = srv._core.manager
+    lo, hi = (round(x * f) for x in SERVE_TENANT)
+    mgr.cache_bytes = mgr.resident_bytes + 1        # below the two corpora
+    _, life["add_tenant_ms"] = clocked(lambda: srv.add_corpus(
+        "tenant", docs[lo:hi]))
+    if mgr.is_resident("default") or mgr.stats["evictions"] != 1:
+        fail(f"serving tenants: the default corpus was not evicted "
+             f"({mgr.snapshot()})")
+    t_ids = _host_rows(docs[lo:lo + B])
+    t_futs = [srv.submit(*q, corpus_id="tenant") for q in t_ids]
+    srv.flush()
+    t_ans = [fu.result(timeout=SERVE_WAIT_S) for fu in t_futs]
+    if any(j not in a[0] for j, a in enumerate(t_ans)):
+        fail("serving tenants: a tenant query does not find itself")
+    t0 = time.perf_counter()
+    after, _, _ = _serve_async(srv, probe)           # readmits the default
+    life["readmit_and_serve_ms"] = (time.perf_counter() - t0) * 1e3
+    if mgr.stats["readmissions"] != 1 or mgr.is_resident("tenant"):
+        fail(f"serving tenants: no readmission ({mgr.snapshot()})")
+    check_equal(after, before, "readmission")
+    mgr.cache_bytes = None
+    # ingest new docs (no dedup) while batches are in flight
+    n_ingest = max(32, round(SERVE_INGEST * f))
+    fresh = _mixed_docs(docs, rng, n_ingest)
+    bg = [srv.submit(*q) for q in stream[:SERVE_WINDOW]]
+    (gids, keep), life["ingest_ms"] = clocked(lambda: srv.ingest(fresh))
+    if not keep.all() or len(gids) != n_ingest:
+        fail(f"serving ingest: admitted {int(keep.sum())} of {n_ingest}")
+    # dedup: SERVE_COPIES exact copies of live docs among SERVE_DEDUP
+    copies = torch.as_tensor(rng.choice(n, SERVE_COPIES, replace=False),
+                             device=docs.device)
+    new = _mixed_docs(docs, rng, SERVE_DEDUP - SERVE_COPIES)
+    from repro_torch.data.docs import DocSet
+    batch = DocSet(ids=torch.cat([docs.ids[copies], new.ids]),
+                   weights=torch.cat([docs.weights[copies], new.weights]))
+    _build.reset_launches()
+    (gids2, keep2), life["dedup_ingest_ms"] = clocked(lambda: srv.ingest(
+        batch, dedup_threshold=SERVE_DEDUP_THRESHOLD))
+    dedup_launches = dict(_build.LAUNCHES)
+    for name in ("spmm_ell", "rwmd_d21"):
+        if dedup_launches.get(name, 0) < 1:
+            fail(f"serving dedup ingest: kernel {name} was not launched")
+    if keep2[:SERVE_COPIES].any():
+        fail(f"serving dedup: admitted exact copies {keep2[:SERVE_COPIES]}")
+    life["dedup_admitted_of_new"] = int(keep2[SERVE_COPIES:].sum())
+    life["dedup_launches"] = dedup_launches
+    # a freshly ingested doc answers itself first
+    fresh_q = _host_rows(fresh[:B])
+    ans, _, _ = _serve_async(srv, fresh_q)
+    if any(a[0][0] != gids[j] for j, a in enumerate(ans)):
+        fail("serving ingest: a freshly ingested doc does not answer itself "
+             "first")
+    # delete SERVE_DELETES docs: freshly ingested ones and stream picks
+    dead = np.concatenate([gids[:SERVE_DELETES // 2],
+                           picks[:SERVE_DELETES - SERVE_DELETES // 2]])
+    bg += [srv.submit(*q) for q in stream[:SERVE_WINDOW]]
+    removed, life["delete_ms"] = clocked(lambda: srv.delete_docs(dead))
+    if removed != SERVE_DELETES:
+        fail(f"serving delete: removed {removed} of {SERVE_DELETES}")
+    dead_set = set(int(x) for x in dead)
+    check = fresh_q[:SERVE_DELETES // 2] + stream[:SERVE_WINDOW]
+    ans, _, _ = _serve_async(srv, check)
+    if any(dead_set & set(a[0].tolist()) for a in ans):
+        fail("serving delete: a deleted doc came back")
+    bg += [srv.submit(*q) for q in stream[:SERVE_WINDOW]]
+    _, life["compact_ms"] = clocked(lambda: srv.compact())
+    ans, _, _ = _serve_async(srv, fresh_q[SERVE_DELETES // 2:] + check)
+    if any(dead_set & set(a[0].tolist()) for a in ans) or any(
+            a[0][0] != gids[SERVE_DELETES // 2 + j]
+            for j, a in enumerate(ans[:B - SERVE_DELETES // 2])):
+        fail("serving compact: a deleted doc came back or an ingested doc "
+             "lost itself")
+    srv.flush()
+    if not all(isinstance(fu.result(timeout=SERVE_WAIT_S), Answer)
+               for fu in bg):
+        fail("serving lifecycle: a background query failed")
+    life["segments_after_compact"] = srv.engine.n_segments
+    life["cache"] = mgr.snapshot()
+    info["lifecycle"] = life
+    srv.close()
+    del srv, mgr
+
+    # -- 7. an indexed tenant: 64 cells, 4 probed a query, every cell a
+    # slot; then one batch at the default probe cap (16), which overflows
+    icfg = IndexConfig(num_cells=INDEX_CELLS, top_p=INDEX_TOP_P,
+                       probe_cap=INDEX_CELLS)
+    srv = build("indexed", lambda: AsyncQueryServer(
+        docs, emb, ServerConfig(index=icfg, **kw)))
+    got, lat, wall = _serve_async(srv, stream)
+    st = srv._core.manager.checkout("default")
+    step = build_serve_step(engine=st.engine, index=st.index, **step_kw)
+    if not all(isinstance(a, Answer) for a in got):
+        fail("serving indexed: a future resolved with an error")
+    groups = {}
+    for j, a in enumerate(got):
+        groups.setdefault(a.trace.batch.seq, []).append(j)
+    labels = st.index.labels
+    own_routed = np.zeros(len(got), dtype=bool)
+    for rows in groups.values():
+        qd = srv._core.pad_batch([stream[j] for j in rows])
+        res = step(qd)
+        ti, td = res.topk.indices.cpu().numpy(), res.topk.dists.cpu().numpy()
+        if any(not _bit_equal(got[j], (ti[r], td[r]))
+               for r, j in enumerate(rows)):
+            fail("serving indexed: the server's answers differ from "
+                 "build_serve_step(index=)'s on the same batch")
+        route = st.index.route(qd)
+        for r, j in enumerate(rows):
+            own_routed[j] = labels[picks[j]] in route.cells[r][route.keep[r]]
+    found = np.array([picks[j] in a[0] for j, a in enumerate(got)])
+    if (own_routed & ~found).any():
+        fail(f"serving indexed: {int((own_routed & ~found).sum())} queries "
+             "routed to their own doc's cell did not find it")
+    hit = float(found.mean())
+    busy = _busy_window(lambda: _serve_async(srv, window))
+    st.index.probe_cap = 16
+    srv._core._serve = srv._core._build_serve(2 * SERVE_K)
+    capped, _, _ = _serve_async(srv, stream[:B])
+    prom = srv.obs.render_prometheus()
+    for name in ("index_cells_probed", "index_routed_fraction",
+                 "index_probe_overflow_total"):
+        if f"# TYPE {name} " not in prom:
+            fail(f"serving indexed: {name} not in render_prometheus")
+    m = srv.metrics_snapshot()["metrics"]
+    info["indexed"] = dict(
+        _latency(lat, wall, len(stream)), self_recall=hit,
+        own_cell_routed_share=float(own_routed.mean()),
+        batches_checked=len(groups),
+        window=busy,
+        cells_probed_p50=m["index_cells_probed"]["series"][0]["p50"],
+        probe_cap16_self_recall=float(np.mean(
+            [picks[j] in a[0] for j, a in enumerate(capped)])),
+        overflow_dropped=m["index_probe_overflow_total"]["series"][0]["value"],
+        index_build_ms=builds["indexed"])
+    srv.close()
+    del srv, st, step
+
+    # -- 8. the ingest pool: texts vectorized in spawned processes
+    srv = build("pool", lambda: AsyncQueryServer(
+        docs, emb, ServerConfig(ingest_workers=SERVE_POOL_WORKERS, **kw),
+        preprocess=vec.query_histogram))
+    got, lat, wall = _serve_async(srv, texts)
+    if not all(isinstance(a, Answer) for a in got):
+        fail("serving pool: a pooled query failed")
+    check_equal(got, text_want, "pool (against the in-thread text path)")
+    pids = [p.pid for p in srv._pool._workers]
+    for pid in pids:
+        maps = pathlib.Path(f"/proc/{pid}/maps").read_text()
+        if "libtorch" in maps or "/torch/" in maps:
+            fail(f"serving pool: ingest worker {pid} loaded torch")
+    info["pool"] = dict(_latency(lat, wall, len(texts)), workers=len(pids),
+                        health=srv.health()["ingest_pool"])
+    srv.close()
+    del srv
+
+    info["builds_ms"] = builds
+    info["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    info["phase_s"] = time.perf_counter() - t_phase
+    a, s_ = info["async"], info["sync"]
+    log(f"serving ({smi}): sync {s_['qps']:.0f} queries/s (p50 "
+        f"{s_['p50_ms']:.1f} ms, p99 {s_['p99_ms']:.1f} ms); async "
+        f"{a['qps']:.0f} queries/s (p50 {a['p50_ms']:.1f}, p99 "
+        f"{a['p99_ms']:.1f}), dispatch(i+1) before collect(i) in "
+        f"{a['dispatch_before_collect_share']:.3f} of {a['batches']} batches,"
+        f" busy share {a['window']['busy_share']:.3f}; launches a batch "
+        f"{a['launches_per_batch']}; indexed {info['indexed']['qps']:.0f} "
+        f"queries/s; pool {info['pool']['qps']:.0f} against in-thread "
+        f"{info['text_in_thread']['qps']:.0f}; peak {info['peak_gb']:.2f} GB;"
+        f" phase {info['phase_s']:.1f} s")
+    log("serving: " + json.dumps(info, default=float))
+    return info
+
+
 def lcrwmd_phases(scale: float, smi: str) -> dict:
     """Phases 3-6 on one LC-RWMD corpus; returns the kernel report of B1-B7.
 
@@ -2587,6 +3208,12 @@ def lcrwmd_phases(scale: float, smi: str) -> dict:
     t0 = time.perf_counter()
     segmented_phase(docs, corpus.emb, corpus.labels, smi)
     log(f"segmented phase: {time.perf_counter() - t0:.1f} s")
+
+    # 6b. the serving plane on the same corpus (its own counts)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serving_phase(docs, corpus.emb, smi)
+    log(f"serving phase: {time.perf_counter() - t0:.1f} s")
 
     slice_info = dict(
         n_docs=spec.n_docs, v_e=v_e, batch=B, per_call_ms=times,

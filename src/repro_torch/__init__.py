@@ -2,23 +2,37 @@
 
 The PyTorch counterpart of the JAX package ``repro``: the same query cascade
 (phase 1, ELL SpMM, streaming top-k, Sinkhorn-WMD rerank), the paper's
-comparison path, and the dense GQA transformer's prefill and decode
-(``repro_torch.models.transformer``) on an NVIDIA H100.
+comparison path, the serving plane (``repro_torch.serving``), and the dense
+GQA transformer's prefill and decode (``repro_torch.models.transformer``) on
+an NVIDIA H100.
 Entry points run on the card unless the caller passes ``device="cpu"``; the
 tensors' device then decides the route: CUDA tensors launch the kernels in
 ``csrc/``, CPU tensors take each kernel's plain PyTorch version.
 
-float32 stays IEEE float32: TF32 is switched off for matmuls and cuDNN when
-this package is imported, and the distance GEMMs refuse to run with it on.
+float32 stays IEEE float32: :mod:`repro_torch.device`, which every
+torch-backed module of the port imports, switches TF32 off for matmuls and
+cuDNN, and the distance GEMMs refuse to run with it on.
+
+This package imports nothing eagerly (PEP 562), so a spawned ingest worker
+that imports ``repro_torch.serving.ingest_pool`` or
+``repro_torch.data.vectorizer`` never imports torch.
 """
 
-import torch
+_EXPORTS = {"resolve_device": "repro_torch.device"}
 
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-# bf16 products sum in float32, as the reference's dots do.
-torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+__all__ = sorted(_EXPORTS)
 
-from repro_torch.device import resolve_device  # noqa: E402
 
-__all__ = ["resolve_device"]
+def __getattr__(name: str):
+    mod = _EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")
+    import importlib
+
+    value = getattr(importlib.import_module(mod), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return __all__

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+import repro_torch.device  # noqa: F401  (the float32 backend flags)
+
 
 def _require_ieee_f32() -> None:
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:

@@ -136,6 +136,12 @@ def pruned_wmd_topk(
 
     if index is not None:
         route = index.route(queries, top_p=top_p)
+        if route.n_docs_pruned and index.obs is not None \
+                and index.obs.metrics.enabled:
+            index.obs.metrics.counter(
+                "cascade_bound_pruned_docs_total",
+                "Docs excluded from phase 1 by the cascade's "
+                "centroid/triangle bound stage.").inc(route.n_docs_pruned)
         cand = index.routed_topk(queries, budget, route=route)  # (B, budget)
         engine = index.engine
     elif engine is not None:
@@ -225,6 +231,11 @@ class AdaptiveRefineBudget:
     target_failure_rate: float = 0.05
     decay_after: int | None = None
     decay: float = 0.5
+    #: Optional :class:`repro_torch.obs.Observability` bundle; when set,
+    #: each :meth:`update` records pruned-exact/inexact counters and the
+    #: current budget gauge.  Excluded from repr/eq: it is plumbing, not
+    #: controller state.
+    obs: object = dataclasses.field(default=None, repr=False, compare=False)
 
     def __post_init__(self):
         if self.k < 1 or self.n_resident < 1:
@@ -268,6 +279,16 @@ class AdaptiveRefineBudget:
         flags = np.asarray(pruned_exact).astype(bool).reshape(-1)
         if not flags.size:
             return self.budget
+        obs = self.obs
+        if obs is not None and obs.metrics.enabled:
+            n_exact = int(flags.sum())
+            m = obs.metrics
+            m.counter("cascade_pruned_exact_total",
+                      "Queries whose rerank budget provably covered every "
+                      "true survivor.").inc(n_exact)
+            m.counter("cascade_pruned_inexact_total",
+                      "Queries whose pruning was NOT certified exact "
+                      "(drives budget growth).").inc(flags.size - n_exact)
         if (1.0 - flags.mean()) > self.target_failure_rate:
             self.failed_budget = max(self.failed_budget, self.budget)
             self.budget = self._clamp(math.ceil(self.budget * self.growth))
@@ -283,4 +304,8 @@ class AdaptiveRefineBudget:
                 self.exact_streak = 0
         else:
             self.exact_streak = 0
+        if obs is not None and obs.metrics.enabled:
+            obs.metrics.gauge(
+                "cascade_refine_budget",
+                "Current adaptive rerank budget (kc).").set(self.budget)
         return self.budget

@@ -15,6 +15,8 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+import repro_torch.device  # noqa: F401  (the float32 backend flags)
+
 EMPTY_IDX = -1  # index sentinel of unfilled carry slots (dist = +inf)
 
 

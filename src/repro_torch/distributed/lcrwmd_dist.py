@@ -34,16 +34,23 @@ reference stacks its cells into one padded tensor and runs every query
 against every probe slot, for one static jit shape; the results of the
 routed (query, cell) pairs are the same.
 
+``obs=`` (a :class:`repro_torch.obs.Observability`) records the host time
+of each engine step's call as ``serve_step_host_seconds{variant=mono|seg|
+routed}``: on the card the kernels are queued when the call returns, so
+this is launch cost, not device time.  The routed step counts dropped
+probe cells in ``index_probe_overflow_total`` of its index's ``obs``.
+
 Left out: ``mesh``, ``phase1_full_mesh`` and ``psum_batch`` (the
-multi-device program, and the slab batching of its collectives); ``obs=``
-(the serving plane's metrics, among them the routed step's probe-overflow
-counter); the reference's module-level step cache and its re-trace
-sentinel (eager PyTorch traces nothing, so there is nothing to cache or
-re-trace).
+multi-device program, and the slab batching of its collectives) and with
+them the ``serve_step_collectives_*`` gauges; the reference's module-level
+step cache and its re-trace sentinel (eager PyTorch traces nothing, so
+there is nothing to cache or re-trace; the port's cold start is a kernel
+library load, which :mod:`repro_torch.obs.sentinel` watches).
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -86,7 +93,7 @@ def build_serve_step(*, k: int, refine: bool = False, bf16_matmul: bool = True,
                      rerank_budget: int | None = None,
                      wmd_kw: dict | None = None, self_exclude: bool = False,
                      streaming: bool | None = None, row_block: int = 128,
-                     device=None, index=None):
+                     device=None, index=None, obs=None):
     """Returns ``serve(resident, queries, emb) -> ServeResult``, or with an
     ``engine`` ``serve(queries, query_ids=None, *, tier=0)``.
 
@@ -118,6 +125,9 @@ def build_serve_step(*, k: int, refine: bool = False, bf16_matmul: bool = True,
     drops the least-requested cells), and only those cells are scanned,
     each on its routed queries.  Tier 2 stays unrouted.  The step raises
     if the engine grew without ``index.add``.
+
+    ``obs``: the bundle that ``serve_step_host_seconds`` goes to (engine
+    steps only).
     """
     kc = max((rerank_budget or 2 * k) if rerank_wmd else k, k)
     if engine is not None:
@@ -135,24 +145,24 @@ def build_serve_step(*, k: int, refine: bool = False, bf16_matmul: bool = True,
             raise ValueError(
                 "the routed serve step is streaming-only (d_local "
                 "diagnostics are a monolithic-engine feature)")
-        return _routed_serve_step(
+        return _timed(obs, "routed", _routed_serve_step(
             engine, index, k=k, kc=kc, refine=refine,
             bf16_matmul=bf16_matmul, rerank_wmd=rerank_wmd, wmd_kw=wmd_kw,
-            self_exclude=self_exclude)
+            self_exclude=self_exclude))
     if isinstance(engine, SegmentedEngine):
         if streaming is False:
             raise ValueError(
                 "the segmented serve step is streaming-only (d_local "
                 "diagnostics are a monolithic-engine feature)")
-        return _segmented_serve_step(
+        return _timed(obs, "seg", _segmented_serve_step(
             engine, k=k, kc=kc, refine=refine, bf16_matmul=bf16_matmul,
-            rerank_wmd=rerank_wmd, wmd_kw=wmd_kw, self_exclude=self_exclude)
+            rerank_wmd=rerank_wmd, wmd_kw=wmd_kw, self_exclude=self_exclude))
     if engine is not None:
-        return _engine_serve_step(
+        return _timed(obs, "mono", _engine_serve_step(
             engine, k=k, kc=kc, refine=refine, bf16_matmul=bf16_matmul,
             rerank_wmd=rerank_wmd, wmd_kw=wmd_kw, self_exclude=self_exclude,
             streaming=True if streaming is None else streaming,
-            row_block=row_block)
+            row_block=row_block))
     if self_exclude:
         raise ValueError("self_exclude requires an engine-backed serve step")
     if streaming:
@@ -172,6 +182,27 @@ def build_serve_step(*, k: int, refine: bool = False, bf16_matmul: bool = True,
         return ServeResult(topk=tk, d_local=d_local)
 
     return serve
+
+
+def _timed(obs, variant: str, serve):
+    """``serve`` with its host wall time observed per call into ``obs``'s
+    ``serve_step_host_seconds{variant=...}`` (``serve`` itself without an
+    ``obs``)."""
+    if obs is None:
+        return serve
+    hist = obs.metrics.histogram(
+        "serve_step_host_seconds",
+        "Host wall time of one serve-step call (the kernels are queued on "
+        "the stream when it returns; device time lands in device_compute "
+        "spans).", labels={"variant": variant})
+
+    def timed(queries: DocSet, query_ids=None, *, tier: int = 0):
+        t0 = time.perf_counter()
+        out = serve(queries, query_ids, tier=tier)
+        hist.observe(time.perf_counter() - t0)
+        return out
+
+    return timed
 
 
 def _query_gids(self_exclude: bool, queries: DocSet, query_ids,
@@ -347,6 +378,11 @@ def _routed_serve_step(engine: SegmentedEngine, index, *, k, kc, refine,
             dropped = probed[order[p_max:]]
             probed = np.sort(probed[order[:p_max]])
             keep = keep & ~np.isin(route.cells, dropped)
+            if index.obs is not None and index.obs.metrics.enabled:
+                index.obs.metrics.counter(
+                    "index_probe_overflow_total",
+                    "Probed cells dropped because a batch's routed-cell "
+                    "union exceeded probe_cap slots.").inc(len(dropped))
         return probed, keep
 
     def serve(queries: DocSet, query_ids=None, *, tier: int = 0) -> ServeResult:

@@ -128,14 +128,18 @@ class ClusterIndex:
       * :meth:`rebuild` — full re-partition with the same seed (after
         ``compact``).
 
-    Runs on the engine's device.  Left out of this counterpart: ``obs=``
-    and the route metrics (the serving plane's), and ``cell_pad``: cells
-    are not padded, so there is no headroom to outgrow.
+    Runs on the engine's device.  ``obs`` (a
+    :class:`repro_torch.obs.Observability`): each :meth:`route` records
+    ``index_cells_probed``, ``index_routed_fraction`` and
+    ``index_bound_pruned_total`` there, and the routed serve step its
+    ``index_probe_overflow_total``.  Left out of this counterpart:
+    ``cell_pad``: cells are not padded, so there is no headroom to outgrow.
     """
 
     def __init__(self, engine, *, num_cells: int, seed: int = 0,
                  top_p: int = 1, bound_slack: float | None = None,
-                 probe_cap: int | None = None, method: str = "kcenters"):
+                 probe_cap: int | None = None, method: str = "kcenters",
+                 obs=None):
         if not hasattr(engine, "segments"):
             raise TypeError(
                 "ClusterIndex needs a SegmentedEngine (per-cell segments "
@@ -150,6 +154,7 @@ class ClusterIndex:
         self.top_p = int(top_p)
         self.bound_slack = bound_slack
         self.method = method
+        self.obs = obs
         self.probe_cap = (int(probe_cap) if probe_cap is not None
                           else min(self.num_cells, max(8, 4 * self.top_p)))
         self.version = 0            # bumped on add/rebuild (structure changes)
@@ -351,9 +356,31 @@ class ClusterIndex:
             keep &= bound_ok
         probed = (np.unique(cells[keep]) if keep.any()
                   else np.empty(0, dtype=np.int64)).astype(np.int64)
+        self._record_route_obs(probed, n_pruned)
         return RouteResult(cells=cells, keep=keep, probed=probed,
                            n_bound_pruned=n_pruned,
                            n_docs_pruned=n_docs_pruned)
+
+    def _record_route_obs(self, probed: np.ndarray,
+                          n_bound_pruned: int) -> None:
+        obs = self.obs
+        if obs is None or not obs.metrics.enabled:
+            return
+        from repro_torch.obs import COUNT_BUCKETS
+
+        m = obs.metrics
+        m.histogram("index_cells_probed",
+                    "Distinct cells probed per routed batch.",
+                    buckets=COUNT_BUCKETS).observe(len(probed))
+        rows = [0 if c is None else c.segment.n_rows for c in self.cells]
+        m.gauge("index_routed_fraction",
+                "Fraction of resident cell rows the last routed batch "
+                "scanned.").set(
+            sum(rows[int(c)] for c in probed) / max(1, sum(rows)))
+        if n_bound_pruned:
+            m.counter("index_bound_pruned_total",
+                      "(query, cell) routing slots pruned by the "
+                      "centroid/triangle bound stage.").inc(n_bound_pruned)
 
     def fold_cells(self, queries: DocSet, k: int, probed, cells: np.ndarray,
                    keep: np.ndarray, *, symmetric: bool,

@@ -13,6 +13,10 @@ Every exported launcher returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a non-zero code, so a refused launch (too many
 threads, too much shared memory) never passes silently.
 
+Each first load of a library is reported to the cold-start sentinel
+(:mod:`repro_torch.obs.sentinel`), which the serving plane arms after its
+warm-up.
+
 :data:`LAUNCHES` counts kernel launches by kernel name.  Each wrapper adds
 one where it launches its kernel and nowhere else, so a run can show which
 kernels its path went through.
@@ -30,6 +34,9 @@ import subprocess
 import threading
 
 import torch
+
+import repro_torch.device  # noqa: F401  (the float32 backend flags)
+from repro_torch.obs import sentinel
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -133,8 +140,9 @@ def _lib_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"{name}-{tag}.so"
 
 
-def build_all() -> None:
-    """Compile every missing kernel library, one nvcc each, in parallel."""
+def build_all() -> int:
+    """Compile every missing kernel library, one nvcc each, in parallel;
+    returns how many were compiled."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for name in SOURCES:
@@ -154,12 +162,14 @@ def build_all() -> None:
             os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
+    return len(procs)
 
 
 def lib(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _lock:
         if name not in _libs:
+            built = not _lib_path(name).exists()
             build_all()
             dll = ctypes.CDLL(str(_lib_path(name)))
             for fn, argtypes in {**SIGNATURES[name],
@@ -168,6 +178,7 @@ def lib(name: str) -> ctypes.CDLL:
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
             _libs[name] = dll
+            sentinel.note_load(name, built)
         return _libs[name]
 
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+import repro_torch.device  # noqa: F401  (the float32 backend flags)
+
 
 def lc_rwmd_phase1_ref(emb: torch.Tensor, q_ids: torch.Tensor,
                        q_w: torch.Tensor) -> torch.Tensor:

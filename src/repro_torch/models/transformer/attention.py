@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+import repro_torch.device  # noqa: F401  (the float32 backend flags)
+
 _NEG = -1e30
 
 

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+import repro_torch.device  # noqa: F401  (the float32 backend flags)
+
 
 def rope_cos_sin(positions: torch.Tensor, dim: int,
                  theta: float) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1175,3 +1175,185 @@ def test_routed_step_maps_query_ids_to_cell_rows(cuda):
         assert not bool((a.indices == qid[:, None]).any())
         assert not np.isin(dead, a.indices.cpu().numpy()).any()   # 60, 61
     assert int(routed(q, foreign, tier=1).topk.indices[0, 0]) == 0
+
+
+# ---------------------------------------------------------------------------
+# The serving plane on the card
+# ---------------------------------------------------------------------------
+def _serving_corpus(cuda, n=3000):
+    c = make_corpus(CorpusSpec(n_docs=n, vocab_size=2000, emb_dim=300,
+                               h_max=48, mean_h=27.5, n_classes=4, seed=8),
+                    device="cpu")
+    ids, w = c.docs.ids.numpy(), c.docs.weights.numpy()
+    return c, [(ids[i], w[i]) for i in range(64)]
+
+
+def _serving_cfg(**kw):
+    from repro_torch.serving import ServerConfig
+
+    base = dict(k=16, max_batch=64, h_max=48, refine_symmetric=True,
+                rerank_wmd=True, wmd_kw=RERANK_KW, max_wait_s=5.0)
+    base.update(kw)
+    return ServerConfig(**base)
+
+
+def test_unrouted_serve_dispatch_issues_no_sync(cuda):
+    """Tiers 0, 1 and 2 of the unrouted dispatch (the query copy, the serve
+    step, the result copies and the event) make no synchronizing call."""
+    from repro_torch.serving import QueryServer
+
+    c, qs = _serving_corpus(cuda)
+    server = QueryServer(c.docs, c.emb, _serving_cfg())
+    core = server._core
+    for tier in (0, 1, 2):                      # warm-up: builds, caches
+        core.collect(core.dispatch(qs))
+        server._serve(core.pad_batch(qs), tier=tier)
+    torch.cuda.synchronize()
+    for tier in (0, 1, 2):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            inflight = core._raw_serve(qs, tier, None)
+            host, event = core._readback(inflight)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert event is not None
+        event.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h = core.dispatch(qs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(a[0][0] == j for j, a in enumerate(core.collect(h)))
+
+
+def test_inflight_event_not_ready_then_ready(cuda):
+    """A batch queued behind a long kernel reports not-ready, then ready;
+    collect returns the sync server's answers."""
+    from repro_torch.serving import AsyncQueryServer, QueryServer
+
+    c, qs = _serving_corpus(cuda)
+    sync = QueryServer(c.docs, c.emb, _serving_cfg())
+    for q in qs:
+        sync.submit(*q)
+    want = sync.flush()
+    server = AsyncQueryServer(c.docs, c.emb, _serving_cfg())
+    try:
+        core = server._core
+        core.collect(core.dispatch(qs))             # warm-up
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000_000)            # ~1 s of spinning
+        h = core.dispatch(qs)
+        server._inflight.append((h, [], []))
+        assert not server._oldest_ready()
+        torch.cuda.synchronize()
+        assert server._oldest_ready() and h.event.query()
+        server._inflight.clear()
+        got = core.collect(h)
+    finally:
+        server.close()
+    for g, w in zip(got, want):
+        assert g[0].tobytes() == w[0].tobytes()
+        assert g[1].tobytes() == w[1].tobytes()
+
+
+def test_evict_and_readmit_bit_equal_on_the_card(cuda):
+    """An evicted corpus leaves the card; readmitted, it answers as before,
+    bit for bit."""
+    from repro_torch.data.docs import DocSet
+    from repro_torch.distributed.lcrwmd_dist import build_serve_step
+    from repro_torch.serving import CorpusManager
+
+    c, _ = _serving_corpus(cuda)
+    mgr = CorpusManager(c.emb)
+    mgr.add_corpus("a", c.docs[:2000])
+    mgr.add_corpus("b", c.docs[2000:])
+    st = mgr.checkout("a")
+    st.engine.delete([7, 300])
+    q = DocSet(c.docs.ids[:64], c.docs.weights[:64]).to(cuda)
+    kw = dict(k=16, refine=True, rerank_wmd=True, rerank_budget=32,
+              wmd_kw=RERANK_KW, bf16_matmul=False)
+    before = build_serve_step(engine=st.engine, **kw)(q).topk
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    mgr.evict("a")
+    del st
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() < held
+    st = mgr.checkout("a")
+    after = build_serve_step(engine=st.engine, **kw)(q).topk
+    assert torch.equal(before.indices, after.indices)
+    assert torch.equal(before.dists, after.dists)
+    assert not bool((after.indices == 7).any())
+
+
+def test_sentinel_sees_no_load_after_warmup(cuda):
+    """Armed after warm-up, the sentinel sees no kernel-library load
+    across an adaptive-budget rebuild and a tier switch."""
+    from repro_torch.obs import sentinel
+    from repro_torch.serving import FaultPlan, QueryServer
+
+    c, qs = _serving_corpus(cuda)
+    server = QueryServer(c.docs, c.emb, _serving_cfg(
+        adaptive_budget=True, degradation=True, fail_streak_down=1,
+        k=8), faults=FaultPlan(nan_batches={2: "all"}))
+    core = server._core
+    for tier in (0, 1, 2):
+        server._serve(core.pad_batch(qs), tier=tier)
+    server._build_serve(64)(core.pad_batch(qs))
+    torch.cuda.synchronize()
+    sentinel.reset()
+    sentinel.arm()
+    try:
+        for _ in range(4):
+            for q in qs:
+                server.submit(*q)
+            server.flush()
+        snap = server.stats_snapshot()
+        sentinel.check()
+        assert sentinel.snapshot()["loads"] == {}
+    finally:
+        sentinel.reset()
+    assert snap["budget_rebuilds"] >= 1 and snap["tier_counts"][1] >= 1
+
+
+@pytest.mark.parametrize("bad", ["nan", "inf"])
+def test_nonfinite_z_row_through_a_positive_weight(cuda, bad):
+    """A Z row holding NaN or inf, reached through a positive weight: B2's
+    D row for that doc is non-finite, as its plain version's is.  A
+    zero-weight slot on that row adds nothing in the kernel, where the
+    plain version (and the reference) adds 0 * Z[id] and turns the row
+    NaN.  B3 with k covering every doc ranks no non-finite value: where
+    the plain fold ranks such a doc last with its non-finite value, the
+    kernel leaves it out (its filler (3.4e38, -1) in its place), and the
+    two agree on every finite doc."""
+    rng = np.random.default_rng(3)
+    n, h, v, b = 300, 48, 700, 64
+    ids, w = _ell(rng, n, h, v)
+    ids = torch.where((ids == 5) & (w == 0), 6, ids)   # no stray zero slots
+    z = torch.rand(v, b, generator=torch.Generator().manual_seed(4))
+    ids, w, z = ids.to(cuda), w.to(cuda), z.to(cuda)
+    z[5] = float(bad)
+    ids[10, 3], w[10, 3] = 5, 0.25                # doc 10: positive weight
+    hit = ((ids == 5) & (w > 0)).any(dim=1)
+    assert bool(hit[10]) and 1 < int(hit.sum()) < n // 4
+    zero = ids.clone()
+    slot = int(torch.nonzero(w[20] == 0)[0, 0])
+    zero[20, slot] = 5                            # doc 20: a zero-weight slot
+    assert not bool(hit[20])
+    got = tsp.spmm_ell_cuda(zero, w, z)
+    want = tsp.spmm_ell_plain(zero, w, z)
+    assert bool((~torch.isfinite(got[hit])).all())
+    assert bool((~torch.isfinite(want[hit])).all())
+    assert bool(torch.isfinite(got[~hit]).all())
+    assert not bool(torch.isfinite(want[20]).any())
+    rest = ~hit
+    rest[20] = False
+    torch.testing.assert_close(got[rest], want[rest], rtol=1e-5, atol=1e-5)
+    kd, ki = tfs.phase2_topk_cuda(ids, w, z, n)
+    pd, pi = tfs.phase2_topk_plain(ids, w, z, n)
+    fin = n - int(hit.sum())
+    torch.testing.assert_close(kd[:, :fin], pd[:, :fin], rtol=1e-5, atol=1e-5)
+    assert torch.equal(ki[:, :fin], pi[:, :fin])
+    assert not bool(torch.isfinite(pd[:, fin:]).any())
+    assert bool((ki[:, fin:] == -1).all())
+    assert bool((kd[:, fin:] == 3.4e38).all())

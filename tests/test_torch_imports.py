@@ -16,7 +16,12 @@ MODULES = [
     "repro_torch.kernels.segment_spmm", "repro_torch.models.transformer.model",
     "repro_torch.configs", "repro_torch.distributed.lcrwmd_dist",
     "repro_torch.index", "repro_torch.index.cluster_index",
-    "repro_torch.workloads.clustering",
+    "repro_torch.workloads.clustering", "repro_torch.workloads.neighbors",
+    "repro_torch.data.vectorizer", "repro_torch.obs", "repro_torch.obs.sentinel",
+    "repro_torch.serving", "repro_torch.serving.errors",
+    "repro_torch.serving.staging", "repro_torch.serving.faults",
+    "repro_torch.serving.ingest_pool", "repro_torch.serving.corpus_manager",
+    "repro_torch.serving.query_server",
 ]
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|from\s+repro(\.|\s))",
@@ -115,3 +120,62 @@ def test_every_device_parameter_defaults_to_the_card():
                     assert p.default is None, f"{name}.{fn.__qualname__}"
                     checked += 1
     assert checked >= 8
+
+
+def _module_path(m):
+    p = PORT.parent / m.replace(".", "/")
+    return p / "__init__.py" if p.is_dir() else p.with_suffix(".py")
+
+
+_PORT_IMPORT = re.compile(
+    r"^(?:from\s+(repro_torch(?:\.\w+)*)\s+import\s+([\w, ()]+)|"
+    r"import\s+(repro_torch(?:\.\w+)*))", re.M)
+
+
+def _top_level_port_imports(m):
+    """Port modules that ``m`` imports at its top level (a module and each
+    name it takes from a package, when that name is a module)."""
+    known = set(_port_modules())
+    out = set()
+    for frm, names, imp in _PORT_IMPORT.findall(_module_path(m).read_text()):
+        if imp:
+            out.add(imp)
+            continue
+        out.add(frm)
+        for n in re.split(r"[\s,()]+", names):
+            if f"{frm}.{n}" in known:
+                out.add(f"{frm}.{n}")
+    parts = m.split(".")
+    out.update(".".join(parts[:i]) for i in range(1, len(parts)))  # parents
+    return out & known
+
+
+def test_each_torch_module_alone_turns_tf32_off():
+    """Whichever torch-backed module of the port is imported first, the
+    float32 backend flags are set before any of its GEMMs can run: each
+    such module reaches ``repro_torch.device`` through its top-level
+    imports, and importing that module sets the flags (no TF32 in matmuls
+    or cuDNN, bf16 products summed in float32)."""
+    torch_modules = [m for m in _port_modules() if re.search(
+        r"^(import torch|from torch)\b", _module_path(m).read_text(), re.M)]
+    assert len(torch_modules) > 20
+    for m in torch_modules:
+        seen, todo = set(), [m]
+        while todo:
+            x = todo.pop()
+            if x not in seen:
+                seen.add(x)
+                todo.extend(_top_level_port_imports(x))
+        assert "repro_torch.device" in seen, m
+    code = (
+        "import importlib, sys\n"
+        "importlib.import_module('repro_torch.core.distances')\n"
+        "import torch\n"
+        "b = torch.backends\n"
+        "flags = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32,\n"
+        "         b.cuda.matmul.allow_bf16_reduced_precision_reduction)\n"
+        "assert flags == (False, False, False), flags\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120,
+                       env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"})
+    assert r.returncode == 0, r.stdout + r.stderr
