@@ -33,7 +33,11 @@ Phases, each of which exits non-zero on failure:
    symmetric fold's swapped direction) on the whole corpus, held against
    its plain version on every doc, with its TFLOP/s over the valid words;
    then the fused top-k with that d21 maxed in, as the symmetric route
-   calls it, at k = 32 and at ``pruned_wmd_topk``'s budget of 20; then
+   calls it, at k = 32 and at ``pruned_wmd_topk``'s budget of 20; the
+   fused top-k against its plain version where D is non-finite (NaN and
+   +inf Z rows, NaN and +inf d21 entries, with and without the masks, k
+   covering every doc on both carries, and the 64-bit-offset variant):
+   ids and values equal in every slot; then
    the Sinkhorn-WMD kernel on the rerank's 2,048 pairs, also at
    ``max_iters = 0`` (its cost tile and final plan alone) beside the full
    run, with its mean iterations and their agreement with the plain
@@ -133,6 +137,34 @@ Phases, each of which exits non-zero on failure:
    to its own doc's cell finds it, the index metrics in the Prometheus
    text); the ingest pool (2 spawned workers, answers equal the in-thread
    text path's, no worker maps torch); the reference's metric names.
+6c. the corpus workloads (``repro_torch.workloads``) on the first
+   min(65,536, n) docs (the row count of the paper's all-pairs cell
+   ``allpairs_64k``), their last 64 rows made exact copies of docs 0-63,
+   each run with its own counts: ``corpus_self_topk`` k=16 at tile 1,024
+   (B1 once a tile and B2 twice a visited block, counted exactly; rows
+   ascending without self; each planted doc's top-1 its copy; 64 sampled
+   rows against ``symmetric_topk_streaming`` within 2.5e-2 + 1e-4*|d|,
+   ids equal where the gaps exceed that), the same on a
+   ``SegmentedEngine`` of the docs less 4,096 plus a 4,096-doc delta (bit
+   for bit), then after 64 deletions (no deleted doc in a row, a deleted
+   doc's row all unfilled); ``near_duplicate_graph`` at 0.05 (every
+   planted pair an edge, no self-loop, every pair in one of
+   ``duplicate_groups``); ``knn_graph`` union and mutual (mutual within
+   union); ``corpus_vs_corpus_topk`` of 1,024 external docs at tile 64
+   with the resident side (both sides against the engine's own top-k);
+   ``corpus_self_topk_distributed`` (the serve step, tile 256, refined:
+   256 sampled distances against ``symmetric_resident``).  Times,
+   launches, the Z cache's bytes, the phase's peak and the monolithic
+   ``corpus_self_topk``'s device time by kernel group and busy share (a
+   ``torch.profiler`` window with CUDA activity only) are printed.
+6d. the entry points: ``repro_torch.examples.{quickstart, knn_classify,
+   cluster_corpus, serve_queries}`` (also ``--async --rerank-wmd``) and
+   ``repro_torch.launch.serve`` in-process at their default sizes, with
+   the counts reset just before and read just after: B1, B2, B3, B4 and
+   the d21 mode must each run; each holds its gate (the quickstart's
+   self-matches, accuracies above chance, the planted duplicate groups,
+   serve_queries' recall > 0.9, the launcher's self-recall), and
+   ``--full`` / ``--multi-pod`` must raise naming ROADMAP A item 7.
 7. flash attention: the kernel against its plain version at llama3.2-1b's
    heads (B=4, S=T=4,096, 32 query and 8 KV heads, dh 64), causal in bf16
    and f32, non-causal, at a length that is not a tile multiple, and with
@@ -637,6 +669,7 @@ def kernel_phase(engine, q, report):
         f"{4 * K_FINAL}")
     del d21_k, v_s, i_s, v_p, i_p
     torch.cuda.empty_cache()
+    r3["nonfinite"] = nonfinite_topk_check()
 
     # --- B4: Sinkhorn-WMD on the rerank's pairs ---
     flat = i_k.reshape(-1).long()
@@ -704,6 +737,91 @@ def kernel_phase(engine, q, report):
         f"max |dWMD| {r4['max_iters0_max_abs_err']:.3e}) and the iterations "
         f"{r4['iterations_ms']:.3f} ms; {exps4:.3e} exps at "
         f"{SFU_OPS_PER_S:.3e}/s: {by} bound {bnd:.3f} ms")
+
+
+NONFINITE_CASES = ((120, 120, 70), (3000, 3000, 70))  # (n, k, B): k = n
+
+
+def nonfinite_topk_check() -> dict:
+    """B3 against its plain version where D is non-finite: Z rows of NaN,
+    of +inf and half +inf reached through positive weights, and d21 with
+    NaN and +inf entries, k covering every doc, on the shared-memory carry
+    (k = 120) and the global one (k = 3,000, merged over many CTAs), 70
+    queries (two query chunks); without operands, with d21, and with d21,
+    tombstones and self-exclusion.  Small-integer Z and d21 and weights in
+    quarters make every sum exact, so ids and values must be equal in every
+    slot (NaN as NaN); the plain fold's unfilled slots are (+inf, -1), the
+    kernel's (3.4e38, -1).  Then the 64-bit-offset variant's partials
+    against the 32-bit ones, bit for bit."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_stream as fs
+
+    g = torch.Generator().manual_seed(23)
+    out = {}
+    for n, k, b in NONFINITE_CASES:
+        v, h = 400, 16
+        w = torch.randint(0, 5, (n, h), generator=g).float() / 4
+        ids = torch.randint(8, v, (n, h), generator=g, dtype=torch.int32)
+        ids[w == 0] = 0                       # zero weights read a finite row
+        rows = torch.arange(n)
+        for row, every, at in ((5, 7, 0), (6, 11, 1), (7, 13, 2)):
+            hit = rows % every == 3
+            ids[hit, at], w[hit, at] = row, 0.5
+        z = torch.randint(0, 50, (v, b), generator=g).float()
+        z[5], z[6], z[7, : b // 2] = float("nan"), float("inf"), float("inf")
+        d21 = torch.randint(0, 60, (n, b), generator=g).float()
+        d21[rows % 17 == 2, 3] = float("nan")
+        d21[rows % 19 == 4, 5] = float("inf")
+        ids, w, z, d21 = ids.cuda(), w.cuda(), z.cuda(), d21.cuda()
+        live = (rows % 9 != 4).cuda()
+        gid = (torch.arange(b, dtype=torch.int32) * 3).cuda()
+        for name, extra in (("plain", {}), ("d21", dict(d21=d21)),
+                            ("masks", dict(d21=d21, row_valid=live,
+                                           q_gid=gid))):
+            kv, ki = fs.phase2_topk_cuda(ids, w, z, k, **extra)
+            pv, pi = fs.phase2_topk_plain(ids, w, z, k, **extra)
+            real = pi >= 0
+            if not torch.equal(ki, pi):
+                fail(f"fused_topk non-finite n={n} k={k} {name}: "
+                     f"{int((ki != pi).sum())} ids differ from the plain fold")
+            if not (torch.equal(torch.isnan(kv), torch.isnan(pv))
+                    and torch.equal(kv[real & ~torch.isnan(kv)],
+                                    pv[real & ~torch.isnan(pv)])
+                    and bool((kv[~real] == 3.4e38).all())
+                    and bool((pv[~real] == float("inf")).all())):
+                fail(f"fused_topk non-finite n={n} k={k} {name}: values "
+                     "differ from the plain fold's")
+            out[f"n{n}_{name}"] = dict(
+                nan=int(torch.isnan(kv).sum()),
+                inf=int(torch.isinf(kv).sum()), unfilled=int((~real).sum()))
+        # the 64-bit-offset variant on the same partial launch (its v
+        # argument past 2^31 / B selects it), d21 and masks in
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        rows3, n_ctas3 = fs.cta_rows(n, n_sm)
+        kw = fs.list_widths(k, rows3, n_ctas3)[0]
+        lib3 = _build.lib(fs.NAME)
+        parts = []
+        for v_arg in (v, 2 ** 31 // b + 1):
+            pv_ = torch.empty((n_ctas3, b, kw), device="cuda")
+            pi_ = torch.empty((n_ctas3, b, kw), dtype=torch.int32,
+                              device="cuda")
+            _build.check(lib3.launch_fused_topk_partial(
+                ids.data_ptr(), w.data_ptr(), z.data_ptr(), live.data_ptr(),
+                gid.data_ptr(), d21.data_ptr(), pv_.data_ptr(),
+                pi_.data_ptr(), n, n, h, v_arg, b, kw, rows3,
+                torch.cuda.current_stream().cuda_stream), fs.NAME)
+            parts.append((pv_.view(torch.int32), pi_))
+        if not (torch.equal(*[p[0] for p in parts])
+                and torch.equal(*[p[1] for p in parts])):
+            fail(f"fused_topk non-finite n={n}: the 64-bit-offset variant's "
+                 "partials differ")
+    log("kernel fused_topk with non-finite D (k covering every doc; shared "
+        "and global carries; plain, d21, d21 + masks; 32- and 64-bit "
+        "offsets): ids and values equal to the plain fold in every slot: "
+        + json.dumps(out))
+    return out
 
 
 def naive_shape_inputs(docs, v, r_ids, r_w, z1) -> dict:
@@ -2580,14 +2698,17 @@ def _latency(lat, wall, n) -> dict:
                 p99_ms=float(np.percentile(lat, 99) * 1e3), wall_s=wall)
 
 
-def _busy_window(fn) -> dict:
+def _busy_window(fn, families: dict = SERVE_FAMILIES,
+                 what: str = "serving", wall_ms: float | None = None) -> dict:
     """A window's device time (``torch.profiler`` with CUDA activity only,
     so the profiler adds no per-operator host records to a host-heavy
     loop) over its wall time, the window run once without the profiler and
     once with it; the busy share divides the device time by the wall time
     without it (the kernels are the same work either way).  Each run
     starts after a ``gc.collect()``: a collection of a finished stream's
-    futures and traces (~0.3 s) would otherwise land in the window."""
+    futures and traces (~0.3 s) would otherwise land in the window.  A
+    caller that timed the window already passes ``wall_ms``, and the run
+    without the profiler is not repeated."""
     import gc
 
     import torch
@@ -2595,11 +2716,12 @@ def _busy_window(fn) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    gc.collect()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    if wall_ms is None:
+        gc.collect()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     for _ in range(PROFILE_TRIES):
         gc.collect()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2619,10 +2741,10 @@ def _busy_window(fn) -> dict:
             break
         PROFILE_STATS["retries"] += 1
     else:
-        fail("serving: profiles of a window show no device time")
+        fail(f"{what}: profiles of a window show no device time")
     return dict(wall_ms=wall_ms, profiled_wall_ms=prof_ms, device_ms=dev_ms,
                 busy_share=dev_ms / wall_ms,
-                by_group=_split(sorted(top, reverse=True), SERVE_FAMILIES))
+                by_group=_split(sorted(top, reverse=True), families))
 
 
 def _bit_equal(a, b) -> bool:
@@ -3080,6 +3202,363 @@ def serving_phase(docs, emb, smi: str) -> dict:
     return info
 
 
+WL_DOCS = 65_536    # the paper's all-pairs cell allpairs_64k (its row count)
+WL_K = 16
+WL_TILE = 1024      # the reference's default tile of 64 would make 524,800 blocks
+WL_PLANTED = 64     # the last 64 rows become exact copies of docs 0-63
+WL_SAMPLE = 64
+WL_THRESHOLD = 0.05
+WL_DELTA = 4096
+WL_DELETES = 64
+WL_EXTERNAL = 1024  # allpairs_64k's second set
+WL_CROSS_TILE = 64
+WL_DIST_TILE = 256
+WL_DIST_PAIRS = 256
+WL_ATOL, WL_RTOL = 2.5e-2, 1e-4   # the gram form's noise (ROADMAP C)
+WL_FAMILIES = {"lc_rwmd_phase1": ("phase1_",),
+               "spmm_ell": ("spmm_ell_kernel",),
+               "sort": ("sort", "Sort")}
+
+
+def _near(name, got_d, got_i, ref_d, ref_i) -> float:
+    """Distances within WL_ATOL + WL_RTOL*|d|; ids equal wherever both
+    neighbouring gaps of the reference exceed that tolerance.  ``ref_*``
+    carry one more column than ``got_*`` (the first dropped candidate)."""
+    import torch
+
+    k = got_d.shape[1]
+    tol = WL_ATOL + WL_RTOL * ref_d.abs()
+    err = (got_d - ref_d[:, :k]).abs()
+    if not bool((err <= tol[:, :k]).all()):
+        fail(f"{name}: distances differ by up to {float(err.max())}")
+    gaps = ref_d[:, 1:] - ref_d[:, :-1]
+    big = torch.ones_like(got_d, dtype=torch.bool)
+    big[:, 1:] &= gaps[:, :k - 1] > tol[:, 1:k]
+    big &= gaps[:, :k] > tol[:, :k]
+    bad = (got_i != ref_i[:, :k]) & big
+    if bool(bad.any()):
+        fail(f"{name}: {int(bad.sum())} ids differ where the gaps exceed the "
+             "tolerance")
+    return float(err.max())
+
+
+def _ascending_no_self(name, tk, rows) -> None:
+    import torch
+
+    d, i = tk.dists, tk.indices
+    if bool((i == rows[:, None]).any()):
+        fail(f"{name}: a doc is its own neighbour")
+    fin = torch.isfinite(d)
+    if bool(((d[:, 1:] < d[:, :-1]) & fin[:, 1:]).any()) or bool(
+            torch.isnan(d).any()):
+        fail(f"{name}: a row is not ascending, or holds NaN")
+
+
+def _launched(name, launches, want) -> None:
+    for kern in want:
+        if launches.get(kern, 0) < 1:
+            fail(f"{name}: kernel {kern} was not launched ({launches})")
+
+
+def workloads_phase(docs, emb, smi: str) -> dict:
+    """The corpus workloads on the card (``repro_torch.workloads``), on the
+    first min(65,536, n) docs of the corpus with their last 64 rows made
+    exact copies of docs 0-63: self all-pairs top-k (the pair scheduler: B1
+    once a tile, B2 twice a visited block), the same on a segmented engine
+    (bit-equal; then 64 deletions), the near-duplicate and kNN graphs, the
+    cross-corpus top-k (the d21 mode) and the serve-step all-pairs (B1, B3)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.lc_rwmd import LCRWMDEngine, SegmentedEngine
+    from repro_torch.core.topk import topk_smallest
+    from repro_torch.data.docs import DocSet
+    from repro_torch.kernels import _build
+    from repro_torch.workloads import (connected_components,
+                                       corpus_self_topk,
+                                       corpus_self_topk_distributed,
+                                       corpus_vs_corpus_topk,
+                                       duplicate_groups, knn_graph,
+                                       near_duplicate_graph)
+
+    t_phase = time.perf_counter()
+    dev = docs.device
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n_all = docs.n_docs
+    n = min(WL_DOCS, n_all)
+    src = docs.slice_rows(0, n)
+    ids, w = src.ids.clone(), src.weights.clone()
+    ids[n - WL_PLANTED:], w[n - WL_PLANTED:] = ids[:WL_PLANTED], w[:WL_PLANTED]
+    wdocs = DocSet(ids=ids, weights=w)
+    twin = torch.arange(WL_PLANTED, device=dev)
+    twin = torch.cat([twin + n - WL_PLANTED, twin])       # of rows 0-63, then
+    planted = torch.cat([torch.arange(WL_PLANTED, device=dev),  # their copies
+                         torch.arange(n - WL_PLANTED, n, device=dev)])
+    eng, build_ms = clocked(lambda: LCRWMDEngine(wdocs, emb, device=dev))
+    v_e = eng.emb_restricted.shape[0]
+    n_tiles = -(-n // WL_TILE)
+    n_blocks = n_tiles * (n_tiles + 1) // 2
+    info = dict(card=smi, n_docs=n, v_e=v_e, tile=WL_TILE, k=WL_K,
+                tiles=n_tiles, blocks=n_blocks, engine_build_ms=build_ms,
+                z_cache_gb=n * v_e * 4 / 1e9,
+                z_cache_gb_at_700k=700_000 * v_e * 4 / 1e9)
+    log(f"workloads: {n} docs (first {n} of {n_all}), v_e={v_e}; the "
+        f"scheduler's Z cache is n*v_e*4 B = {info['z_cache_gb']:.2f} GB "
+        f"({info['z_cache_gb_at_700k']:.1f} GB at 700,000 docs); tile "
+        f"{WL_TILE}: {n_tiles} tiles, {n_blocks} blocks")
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(23)
+    sample = torch.as_tensor(np.sort(rng.choice(
+        np.arange(WL_PLANTED, n - WL_PLANTED), WL_SAMPLE, replace=False)),
+        device=dev)
+    times, launches = {}, {}
+
+    def run(name, fn):
+        _build.reset_launches()
+        out, ms = clocked(fn)
+        times[name] = ms
+        launches[name] = dict(_build.LAUNCHES)
+        if not launches[name]:
+            fail(f"workloads {name}: no kernel was launched")
+        return out
+
+    # -- self all-pairs top-k, monolithic
+    tk = run("corpus_self_topk", lambda: corpus_self_topk(eng, WL_K,
+                                                          tile=WL_TILE))
+    lw = launches["corpus_self_topk"]
+    if (lw.get("lc_rwmd_phase1") != n_tiles
+            or lw.get("spmm_ell") != 2 * n_blocks):
+        fail(f"corpus_self_topk: launches {lw}, want B1 once a tile "
+             f"({n_tiles}) and B2 twice a block ({2 * n_blocks})")
+    if tuple(tk.indices.shape) != (n, WL_K) or bool((tk.indices < 0).any()):
+        fail("corpus_self_topk: bad shape or an unfilled slot")
+    _ascending_no_self("corpus_self_topk", tk, rows)
+    if not torch.equal(tk.indices[planted, 0].long(), twin):
+        fail("corpus_self_topk: a planted doc's top-1 is not its copy")
+    ref = eng.symmetric_topk_streaming(eng.resident_tile(sample), WL_K + 2)
+    keep = ref.indices != sample[:, None]
+    if not bool((keep.sum(1) == WL_K + 1).all()):
+        fail("corpus_self_topk: a sampled doc is not in its own "
+             "symmetric_topk_streaming row")
+    ref_d = ref.dists[keep].reshape(WL_SAMPLE, WL_K + 1)
+    ref_i = ref.indices[keep].reshape(WL_SAMPLE, WL_K + 1)
+    info["self_sample_max_abs_err"] = _near(
+        "corpus_self_topk vs symmetric_topk_streaming", tk.dists[sample],
+        tk.indices[sample], ref_d, ref_i)
+    info["peak_gb_self"] = torch.cuda.max_memory_allocated() / 1e9
+    # where the time goes: the call's device time by kernel group
+    t0 = time.perf_counter()
+    info["self_profile"] = _busy_window(
+        lambda: corpus_self_topk(eng, WL_K, tile=WL_TILE), WL_FAMILIES,
+        "corpus_self_topk", times["corpus_self_topk"])
+    info["self_profile"]["profile_s"] = time.perf_counter() - t0
+
+    # -- the same on a segmented engine: bit-equal, then 64 deletions
+    seng, seg_build_ms = clocked(lambda: SegmentedEngine(
+        wdocs.slice_rows(0, n - WL_DELTA), emb, device=dev))
+    seng.append(wdocs.slice_rows(n - WL_DELTA, WL_DELTA))
+    stk = run("corpus_self_topk_segmented", lambda: corpus_self_topk(
+        seng, WL_K, tile=WL_TILE))
+    _launched("corpus_self_topk_segmented",
+              launches["corpus_self_topk_segmented"],
+              ("lc_rwmd_phase1", "spmm_ell"))
+    if not (torch.equal(stk.indices, tk.indices)
+            and torch.equal(stk.dists, tk.dists)):
+        fail("corpus_self_topk: the segmented engine (base + one delta) is "
+             "not bit-equal to the monolithic one")
+    dead = np.sort(rng.choice(np.arange(WL_PLANTED, n - WL_PLANTED),
+                              WL_DELETES, replace=False))
+    seng.delete(dead)
+    stk = run("corpus_self_topk_deleted", lambda: corpus_self_topk(
+        seng, WL_K, tile=WL_TILE))
+    dead_t = torch.as_tensor(dead, device=dev)
+    if bool(torch.isin(stk.indices, dead_t.to(torch.int32)).any()):
+        fail("corpus_self_topk after deletions: a deleted doc is a neighbour")
+    if not (bool((stk.indices[dead_t] == -1).all())
+            and bool(torch.isinf(stk.dists[dead_t]).all())):
+        fail("corpus_self_topk after deletions: a deleted doc's row is not "
+             "all unfilled slots")
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    alive[dead_t] = False
+    if bool((stk.indices[alive] < 0).any()):
+        fail("corpus_self_topk after deletions: a live doc has an unfilled "
+             "slot")
+    info["segments"] = dict(build_ms=seg_build_ms, delta=WL_DELTA,
+                            deletes=WL_DELETES, bit_equal=True)
+    del seng, stk
+    torch.cuda.empty_cache()
+
+    # -- near-duplicate graph and the kNN graphs
+    g = run("near_duplicate_graph", lambda: near_duplicate_graph(
+        eng, WL_THRESHOLD, tile=WL_TILE))
+    ptr, nbr = g.indptr, g.indices
+    pl = planted.cpu().numpy()
+    tw = twin.cpu().numpy()
+    for i, j in zip(pl, tw):
+        if j not in nbr[ptr[i]:ptr[i + 1]]:
+            fail(f"near_duplicate_graph: the planted pair ({i}, {j}) is not "
+                 "an edge")
+    src_rows = np.repeat(np.arange(n), np.diff(ptr))
+    if bool((src_rows == nbr).any()):
+        fail("near_duplicate_graph: a self-loop")
+    labels = connected_components(g)
+    groups = duplicate_groups(g)
+    if not all(labels[i] == labels[j] for i, j in zip(pl, tw)):
+        fail("duplicate_groups: a planted pair is split")
+    info["near_duplicate"] = dict(threshold=WL_THRESHOLD, edges=g.n_edges,
+                                  groups=len(groups),
+                                  largest=len(groups[0]) if groups else 0)
+    union = run("knn_graph_union", lambda: knn_graph(eng, WL_K, tile=WL_TILE))
+    mutual = run("knn_graph_mutual", lambda: knn_graph(
+        eng, WL_K, tile=WL_TILE, mutual=True))
+    ue = set(zip(np.repeat(np.arange(n), np.diff(union.indptr)).tolist(),
+                 union.indices.tolist()))
+    me = zip(np.repeat(np.arange(n), np.diff(mutual.indptr)).tolist(),
+             mutual.indices.tolist())
+    if mutual.n_edges > union.n_edges or not all(e in ue for e in me):
+        fail("knn_graph: the mutual graph is not a subset of the union")
+    info["knn_graph"] = dict(union_edges=union.n_edges,
+                             mutual_edges=mutual.n_edges)
+    del g, union, mutual, ue
+
+    # -- cross-corpus top-k: an external 1,024-doc set against the engine
+    lo = n if n_all >= n + WL_EXTERNAL else n_all - WL_EXTERNAL
+    ext = docs.slice_rows(lo, WL_EXTERNAL)
+    res = run("corpus_vs_corpus_topk", lambda: corpus_vs_corpus_topk(
+        eng, ext, WL_K, tile=WL_CROSS_TILE, resident_side=True))
+    _launched("corpus_vs_corpus_topk", launches["corpus_vs_corpus_topk"],
+              ("lc_rwmd_phase1", "spmm_ell", "rwmd_d21"))
+    ref = eng.symmetric_topk_streaming(ext, WL_K + 1)
+    info["cross_query_max_abs_err"] = _near(
+        "corpus_vs_corpus_topk (query side)", res.query_topk.dists,
+        res.query_topk.indices, ref.dists, ref.indices)
+    d_full = eng.symmetric(ext)                               # (n, 1,024)
+    ref = topk_smallest(d_full[sample], WL_K + 1)
+    info["cross_resident_max_abs_err"] = _near(
+        "corpus_vs_corpus_topk (resident side)",
+        res.resident_topk.dists[sample], res.resident_topk.indices[sample],
+        ref.dists, ref.indices)
+    info["cross"] = dict(external_rows=[lo, lo + WL_EXTERNAL],
+                         tile=WL_CROSS_TILE)
+    del d_full, res
+
+    # -- all-pairs through the serve step (self-excluding, refined)
+    dk = run("corpus_self_topk_distributed", lambda: (
+        corpus_self_topk_distributed(eng, None, WL_K, tile=WL_DIST_TILE,
+                                     refine=True)))
+    _launched("corpus_self_topk_distributed",
+              launches["corpus_self_topk_distributed"],
+              ("lc_rwmd_phase1", "fused_topk"))
+    _ascending_no_self("corpus_self_topk_distributed", dk, rows)
+    pi = torch.as_tensor(rng.choice(n, WL_DIST_PAIRS, replace=False),
+                         device=dev)
+    pj = dk.indices[pi, torch.as_tensor(
+        rng.integers(0, WL_K, WL_DIST_PAIRS), device=dev)].long()
+    sym = eng.symmetric_resident(pi)                          # (n, 256)
+    want = sym[pj, torch.arange(WL_DIST_PAIRS, device=dev)]
+    got = dk.dists[pi].gather(1, (dk.indices[pi].long() == pj[:, None])
+                              .float().argmax(1, keepdim=True))[:, 0]
+    err = (got - want).abs()
+    if not bool((err <= WL_ATOL + WL_RTOL * want.abs()).all()):
+        fail(f"corpus_self_topk_distributed: a refined distance differs from "
+             f"symmetric_resident's by {float(err.max())}")
+    info["distributed_max_abs_err"] = float(err.max())
+    del dk, sym, eng
+    torch.cuda.empty_cache()
+
+    info["times_ms"] = times
+    info["launches"] = launches
+    info["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    info["phase_s"] = time.perf_counter() - t_phase
+    sp = info["self_profile"]
+    log(f"workloads ({smi}): " + ", ".join(
+        f"{k} {v / 1e3:.2f} s" for k, v in times.items())
+        + f"; corpus_self_topk: {sp['device_ms']:.0f} device ms in "
+        f"{sp['wall_ms']:.0f} ms (busy {sp['busy_share']:.3f}; " + ", ".join(
+            f"{g} {ms:.0f}" for g, ms in sp["by_group"].items())
+        + f"); peak {info['peak_gb']:.2f} GB; phase {info['phase_s']:.1f} s")
+    log("workloads: " + json.dumps(info, default=float))
+    return info
+
+
+def entry_points_phase(smi: str, argv: tuple = ()) -> dict:
+    """The examples and the serving launcher on the card, each through its
+    ``main`` at its default sizes (serve_queries also with --async
+    --rerank-wmd), with their own gates and the counts reset just before
+    and read just after: B1, B2, B3, B4 and the d21 mode must each run.
+    ``argv`` goes to every ``main`` (``("--device", "cpu")`` rehearses the
+    phase without a card)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.examples import (cluster_corpus, knn_classify,
+                                      quickstart, serve_queries)
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as launcher
+
+    runs = {
+        "quickstart": lambda: quickstart.main([*argv]),
+        "knn_classify": lambda: knn_classify.main([*argv]),
+        "cluster_corpus": lambda: cluster_corpus.main([*argv]),
+        "serve_queries": lambda: serve_queries.main([*argv]),
+        "serve_queries_async_rerank": lambda: serve_queries.main(
+            [*argv, "--async", "--rerank-wmd"]),
+        "launch.serve": lambda: launcher.main([*argv]),
+    }
+    out, times = {}, {}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for name, fn in runs.items():
+        out[name], times[name] = clocked(fn)
+    launches = dict(_build.LAUNCHES)
+    _launched("entry points", launches, ("lc_rwmd_phase1", "spmm_ell",
+                                         "fused_topk", "sinkhorn_wmd",
+                                         "rwmd_d21"))
+    qs = out["quickstart"]
+    if not (np.array_equal(qs["top_ids"][:, 0], np.arange(4))
+            and np.isfinite(qs["top_dists"]).all()
+            and qs["lc_vs_quadratic_max_diff"] <= WL_ATOL):
+        fail(f"quickstart: {qs}")
+    kn = out["knn_classify"]
+    if not min(kn["acc_wcd"], kn["acc_rwmd"], kn["acc_wmd"]) > 0.25:
+        fail(f"knn_classify: an accuracy at or below chance: {kn}")
+    cc = out["cluster_corpus"]
+    if not ([3, 4, 200] in cc["groups"] and [9, 150] in cc["groups"]
+            and cc["ari"] > cc["ari_wcd"]):
+        fail(f"cluster_corpus: planted groups or ARI: {cc['groups']}, "
+             f"{cc['ari']} vs {cc['ari_wcd']}")
+    if out["launch.serve"]["self_recall"] < 0.99:
+        fail(f"launch.serve: self-recall {out['launch.serve']['self_recall']}")
+    for flag in ("--full", "--multi-pod"):
+        try:
+            launcher.main([flag])
+        except NotImplementedError as e:
+            if "item 7" not in str(e):
+                fail(f"launch.serve {flag}: {e}")
+        else:
+            fail(f"launch.serve {flag} did not raise")
+    info = dict(card=smi, ms=times, launches=launches,
+                quickstart=dict(top1=qs["top_ids"][:, 0].tolist(),
+                                lc_vs_quadratic=qs["lc_vs_quadratic_max_diff"],
+                                rwmd=qs["rwmd"], wmd=qs["wmd"]),
+                knn_classify={k: kn[k] for k in ("acc_wcd", "acc_rwmd",
+                                                  "acc_wmd", "budget")},
+                cluster_corpus={k: cc[k] for k in ("ari", "purity", "ari_wcd",
+                                                    "purity_wcd", "n_edges",
+                                                    "groups")},
+                serve_queries={k: {x: out[k][x] for x in (
+                    "mode", "recall", "ms_per_query")}
+                    for k in ("serve_queries", "serve_queries_async_rerank")},
+                launch_serve={x: out["launch.serve"][x]
+                              for x in ("self_recall", "ms_per_query")})
+    log(f"entry points ({smi}): " + ", ".join(
+        f"{k} {v / 1e3:.2f} s" for k, v in times.items()))
+    log("entry points: " + json.dumps(info, default=float))
+    return info
+
+
 def lcrwmd_phases(scale: float, smi: str) -> dict:
     """Phases 3-6 on one LC-RWMD corpus; returns the kernel report of B1-B7.
 
@@ -3215,6 +3694,17 @@ def lcrwmd_phases(scale: float, smi: str) -> dict:
     serving_phase(docs, corpus.emb, smi)
     log(f"serving phase: {time.perf_counter() - t0:.1f} s")
 
+    # 6c. the corpus workloads on the same corpus (their own counts)
+    torch.cuda.empty_cache()
+    wl = workloads_phase(docs, corpus.emb, smi)
+    del corpus, docs
+    torch.cuda.empty_cache()
+
+    # 6d. the examples and the serving launcher (their own counts)
+    t0 = time.perf_counter()
+    ep = entry_points_phase(smi)
+    log(f"entry points phase: {time.perf_counter() - t0:.1f} s")
+
     slice_info = dict(
         n_docs=spec.n_docs, v_e=v_e, batch=B, per_call_ms=times,
         peak_gb=peak_gb, pruned_exact_share=exact_share, profiles=profiles,
@@ -3226,6 +3716,11 @@ def lcrwmd_phases(scale: float, smi: str) -> dict:
     log("slice: " + json.dumps(slice_info))
     for name, r in report.items():
         r.setdefault("launches", launches.get(name, 0))
+    for name in ("lc_rwmd_phase1", "spmm_ell", "fused_topk", "sinkhorn_wmd",
+                 "rwmd_d21"):
+        report[name]["workloads_launches"] = {
+            k: v.get(name, 0) for k, v in wl["launches"].items()}
+        report[name]["entry_point_launches"] = ep["launches"].get(name, 0)
     return report
 
 

@@ -209,11 +209,12 @@ def _topk_stream_from_z(seg: SegmentTensors, z1: torch.Tensor,
     is +inf in the swapped direction (a padded query word adds 0, not
     ``0 · inf``).
 
-    ``row_valid`` (n,) bool: rows that are False (tombstones) are
-    +inf for every query; ``q_gid`` (B,): the pair (row ``q_gid[j]``, query
-    j) is +inf, rows counted from 0 here, so a caller with global ids
-    subtracts its offset.  On CUDA such entries never enter the top-k
-    (its unfilled tail is (3.4e38, -1)); the CPU fold keeps them at +inf.
+    ``row_valid`` (n,) bool: rows that are False (tombstones) are left out
+    for every query; ``q_gid`` (B,): the pair (row ``q_gid[j]``, query j)
+    is left out, rows counted from 0 here, so a caller with global ids
+    subtracts its offset.  A left-out entry is never ranked: the unfilled
+    tail is (3.4e38, -1) on CUDA and (+inf, -1) on CPU, after every real
+    entry, +inf and NaN included.
     """
     b, h2 = q_w.shape
     n, h1 = seg.r_ids.shape
@@ -247,11 +248,9 @@ def _topk_stream_from_z(seg: SegmentTensors, z1: torch.Tensor,
         d2 = _rw.d21_from_min(z2.reshape(b, h2, rr), q_w)           # (B, R)
         d_blk = torch.maximum(d1.T, d2)                             # (B, R)
         rows = torch.arange(lo, hi, dtype=torch.int32, device=z1.device)
-        if row_valid is not None:
-            d_blk = d_blk.masked_fill(~row_valid[None, lo:hi], _INF)
-        if q_gid is not None:
-            d_blk = d_blk.masked_fill(rows[None, :] == q_gid[:, None], _INF)
-        carry = stk.update(carry, d_blk, rows[None, :].expand(b, rr))
+        carry = stk.update(carry, *topk_lib.masked_entries(
+            d_blk, rows, None if row_valid is None else row_valid[lo:hi],
+            q_gid))
     return carry
 
 
@@ -292,14 +291,32 @@ def _segment_dense(seg: SegmentTensors, t_q: torch.Tensor, q_ids: torch.Tensor,
     return d if row_valid is None else d.masked_fill(~row_valid[:, None], _INF)
 
 
+def _as_index(idx, device: torch.device) -> torch.Tensor:
+    """``idx`` (numpy, list or tensor) as a flat int64 tensor on ``device``."""
+    if not isinstance(idx, torch.Tensor):
+        idx = torch.from_numpy(np.asarray(idx, dtype=np.int64))
+    return idx.to(device).long().reshape(-1)
+
+
+def _rows_spmm(res: DocSet, row_idx: torch.Tensor, z: torch.Tensor,
+               owner: torch.Tensor | None) -> torch.Tensor:
+    """(R, B) ELL SpMM of the rows ``row_idx`` of ``res`` (restricted ids)
+    against ``z``; rows out of range, or False in ``owner``, weigh 0."""
+    n = res.n_docs
+    safe = row_idx.clamp(0, n - 1)
+    ok = (row_idx >= 0) & (row_idx < n)
+    if owner is not None:
+        ok &= owner
+    return ops.spmm_ell(res.ids[safe].contiguous(),
+                        torch.where(ok[:, None], res.weights[safe], 0.0), z)
+
+
 def _resident_tile(res: DocSet, idx, live: torch.Tensor | None):
     """The resident docs ``idx`` (B,) as a query DocSet, and a (B,) bool
     mask of the ids that name a doc: out-of-range ids, and ids that
     ``live`` marks dead, are empty histograms (zero weights)."""
     n = res.n_docs
-    if not isinstance(idx, torch.Tensor):
-        idx = torch.from_numpy(np.asarray(idx, dtype=np.int64))
-    idx = idx.to(res.device).long().reshape(-1)
+    idx = _as_index(idx, res.device)
     safe = idx.clamp(0, n - 1)
     ok = (idx >= 0) & (idx < n)
     if live is not None:
@@ -446,6 +463,27 @@ class LCRWMDEngine:
         the card.  Out-of-range entries give +inf columns."""
         tile, ok = _resident_tile(self.resident, idx, None)
         return self.symmetric(tile).masked_fill(~ok[None, :], _INF)
+
+    def phase1_resident(self, idx) -> torch.Tensor:
+        """Phase-1 Z (v_e, B) whose queries are resident docs ``idx`` (B,):
+        the tile primitive of the all-pairs scheduler (made once per corpus
+        tile, then read by many :meth:`one_sided_rows` calls).  The tile's
+        word embeddings are gathered by id from the full table; the
+        phase-1 kernel on the card.  Out-of-range ids are empty
+        histograms."""
+        tile, _ = _resident_tile(self.resident, idx, None)
+        return self._phase1(self._gather_flat(tile.ids), tile.weights)
+
+    def _one_sided_rows_impl(self, row_idx: torch.Tensor,
+                             z: torch.Tensor) -> torch.Tensor:
+        return _rows_spmm(self.resident_restricted, row_idx, z, None)
+
+    def one_sided_rows(self, row_idx, z: torch.Tensor) -> torch.Tensor:
+        """Phase 2 restricted to resident rows ``row_idx`` (R,): the ELL SpMM
+        of their restricted ids and weights against a :meth:`phase1_resident`
+        tile ``z`` (v_e, B), i.e. D1[row_idx, tile] as (R, B), O(R·h) a
+        query column.  Out-of-range rows are empty histograms (0)."""
+        return self._one_sided_rows_impl(_as_index(row_idx, self.device), z)
 
     def candidate_pairs(self, flat: torch.Tensor, q_ids: torch.Tensor):
         """The rerank's inputs from the engine's device tensors: the word
@@ -767,6 +805,40 @@ class SegmentedEngine:
         queries give +inf columns."""
         tile, ok = _resident_tile(self.resident, idx, self.live_mask_device())
         return self.symmetric(tile).masked_fill(~ok[None, :], _INF)
+
+    def phase1_resident(self, idx) -> tuple[torch.Tensor, ...]:
+        """Per-segment phase-1 Z tiles (v_e_s, B) whose queries are resident
+        docs ``idx`` (B,), one per segment: the ``z`` that
+        :meth:`one_sided_rows` takes.  Out-of-range and tombstoned ids are
+        empty histograms."""
+        tile = self.resident_tile(idx)
+        t_q = self._gather_flat(tile.ids)
+        return tuple(_phase1_from_t(seg.tensors.emb_r, t_q, tile.weights,
+                                    bf16_matmul=self.bf16_matmul,
+                                    vocab_chunk=self.vocab_chunk)
+                     for seg in self.segments)
+
+    def _one_sided_rows_impl(self, row_idx: torch.Tensor, z) -> torch.Tensor:
+        zs = z if isinstance(z, (tuple, list)) else (z,)
+        total = None
+        for seg, zz in zip(self.segments, zs):
+            local = row_idx - seg.offset
+            owner = (local >= 0) & (local < seg.n_rows)
+            d = _rows_spmm(DocSet(ids=seg.tensors.r_ids,
+                                  weights=seg.tensors.r_w), local, zz, owner)
+            d = d.masked_fill(~owner[:, None], 0.0)
+            total = d if total is None else total + d
+        return total
+
+    def one_sided_rows(self, row_idx, z) -> torch.Tensor:
+        """Phase 2 restricted to global rows ``row_idx`` (R,): (R, B).
+
+        ``z`` is a :meth:`phase1_resident` tuple; each row takes its value
+        from the one segment that owns it (the others add 0).  Tombstoned
+        rows still produce values here: schedulers mask them by
+        :meth:`live_mask_device`.
+        """
+        return self._one_sided_rows_impl(_as_index(row_idx, self.device), z)
 
     def rerank_topk(self, queries: DocSet, cand_indices: torch.Tensor, k: int,
                     *, sinkhorn_kw: dict | None = None) -> topk_lib.TopK:

@@ -26,14 +26,49 @@ class TopK(NamedTuple):
 
 
 def lex_smallest(dists: torch.Tensor, indices: torch.Tensor, k: int) -> TopK:
-    """k smallest (distance, index) pairs per row, lexicographic ascending."""
+    """k smallest (distance, index) pairs per row, lexicographic ascending.
+
+    Distances in ``torch.sort``'s order (+inf after every finite value, NaN
+    after +inf), ties by index.  An unfilled slot (index ``EMPTY_IDX``)
+    ranks after every real entry, +inf and NaN included, whatever its
+    distance: the CPU fold's (+inf, -1) and the fused top-k kernel's
+    (3.4e38, -1) alike.  Two stable sorts: by index, with the unfilled slots
+    keyed last, then by distance, with those slots keyed NaN (so among the
+    NaNs they stay last).  Every NaN is keyed alike and -0 as +0: on CUDA
+    ``torch.sort`` orders floats by their bits (a radix sort), which would
+    part NaNs of different payloads, and -0 from +0, instead of leaving
+    them tied.
+    """
     idx = indices.to(torch.int32)
-    order = torch.sort(idx, dim=-1, stable=True).indices
-    d = torch.gather(dists, -1, order)
-    i = torch.gather(idx, -1, order)
-    order = torch.sort(d, dim=-1, stable=True).indices[..., :k]
-    return TopK(dists=torch.gather(d, -1, order),
-                indices=torch.gather(i, -1, order))
+    empty = idx < 0
+    nan = torch.full((), float("nan"), device=dists.device)
+    first = torch.sort(idx.masked_fill(empty, torch.iinfo(torch.int32).max),
+                       dim=-1, stable=True).indices
+    key = torch.where(empty | torch.isnan(dists), nan, dists + 0.0)
+    order = torch.gather(first, -1, torch.sort(
+        torch.gather(key, -1, first), dim=-1, stable=True).indices[..., :k])
+    return TopK(dists=torch.gather(dists, -1, order),
+                indices=torch.gather(idx, -1, order))
+
+
+def masked_entries(d: torch.Tensor, rows: torch.Tensor,
+                   row_valid: torch.Tensor | None = None,
+                   q_gid: torch.Tensor | None = None):
+    """A (B, R) block ``d`` of resident rows ``rows`` (R,) as the (dists,
+    ids) a fold takes.  The entries of a row whose ``row_valid`` (R,) is
+    False (a tombstone), and the pair (row ``q_gid[j]``, query j)
+    (self-exclusion), become unfilled slots (+inf, ``EMPTY_IDX``): left out
+    by their flag, so never ranked before a real +inf or NaN distance."""
+    ids = rows.to(torch.int32)[None, :].expand(d.shape)
+    keep = None if row_valid is None else row_valid[None, :]
+    if q_gid is not None:
+        own = ids != q_gid[:, None]
+        keep = own if keep is None else keep & own
+    if keep is None:
+        return d, ids
+    return (d.masked_fill(~keep, float("inf")),
+            torch.where(keep, ids, torch.full((), EMPTY_IDX, dtype=torch.int32,
+                                              device=ids.device)))
 
 
 class StreamingTopK:

@@ -18,17 +18,28 @@
 //       the ELL SpMM's (spmm_ell.cu): nonzero slots in order, fmaf, so the
 //       values equal B2's D bit for bit.
 //     - Filter: all 256 threads test the tile's entries against a
-//       per-query threshold, the k-th value of the query's carry (3.4e38
-//       while it is not full).  First the optional operands act on the
-//       entry, as the reference's jnp fold applies them: d21 (n x B, the
-//       symmetric bound's swapped direction) is maxed in; a row with
-//       row_valid[row] == 0 (a tombstone) and the pair (row q_gid[j],
-//       query j) (self-exclusion) are +inf, which never passes.  Only
-//       val < thr passes: a later row has a larger doc id, so an equal
-//       value loses to the k-th entry, and a value >= 3.4e38 never enters,
-//       as in the reference kernel.
-//       Survivors go into the query's buffer of (value, id) through a
-//       shared atomicAdd on its count.
+//       per-query threshold, the k-th key of the query's carry (above every
+//       value while it is not full).  First the optional operands act on
+//       the entry, as the reference's jnp fold applies them: d21 (n x B, the
+//       symmetric bound's swapped direction) is maxed in (NaN-propagating,
+//       as torch.maximum); a row with row_valid[row] == 0 (a tombstone) and
+//       the pair (row q_gid[j], query j) (self-exclusion) are left out by
+//       their flag, never ranked, so a real +inf distance and a masked
+//       entry stay apart.  Values are ranked by an order-preserving 32-bit
+//       unsigned key (sign-flipped float bits; -0 as +0; every NaN as one
+//       key above +inf's; EMPTY, the unfilled slot, above that), ties by
+//       doc id: ascending, +inf after every finite value and NaN after
+//       +inf, torch.sort's order, which the plain fold uses.  Only
+//       key < thr passes: a later row has a larger doc id, so an equal key
+//       loses to the k-th entry.  The test is one float compare, val <
+//       threshold_value(thr) (+inf for a threshold above every finite
+//       value), exact unless val is +inf or NaN; the row pass votes on
+//       whether its step holds such a value, and only such a step, or a
+//       launch with operands, tests an entry that fails the compare against
+//       a threshold of +inf by its key (out of line).
+//       Survivors go into the query's buffer of (key, id) through a
+//       shared atomicAdd on its count; the carries hold keys too, and the
+//       partials are written back as values.
 //     - Flush: when a buffer could overflow in the next step (count > CAP -
 //       32), and at the end of the range, one warp per query sorts its
 //       buffer and merges it with the sorted carry by a bitonic merge, all
@@ -42,13 +53,17 @@
 //       in registers, places each buffer entry at its index plus its rank
 //       in the carry, and shifts the carry's entries up by their ranks in
 //       the buffer, 32 at a time from the top, in place.
-//     Rows >= n_real are dropped.  The CTA writes its (B, k) partial; the
+//     Rows >= n_real are dropped.  The CTA writes its (B, k) partial as
+//     (value, id), an unfilled slot as (3.4e38, -1); the
 //     wrapper asks each CTA for at most as many entries as it has rows, so
 //     the partials hold about n_real entries a query however large k is.
 //   topk_merge: merges pairs of sorted partial lists of k_in entries by
 //     rank (a binary search of each element in the other list), in the
 //     same (value, id) order, into lists of k_out <= 2 k_in entries,
-//     halving the number of lists per launch.  Empty slots are (3.4e38, -1).
+//     halving the number of lists per launch.  Empty slots are (3.4e38, -1)
+//     and rank after every real entry: two filled slots whose values are
+//     not NaN compare as floats, any other pair by slot key (EMPTY where
+//     the id is -1, else the value's key).
 //
 // No (n, B) tensor is written: the D rows live only in shared memory.
 // Offsets into z are 32-bit while v * B < 2^31 and 64-bit above (WIDE:
@@ -64,6 +79,7 @@
 // k*ln(rows/k) candidates per query and CTA reach a flush.
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <limits.h>
 
 namespace {
@@ -76,17 +92,65 @@ constexpr int STEP = WARPS * RPW;      // rows per step
 constexpr int CAP = 64;                // buffered candidates per query
 constexpr int KMAX_SMEM = 128;         // largest k carried in shared memory
 constexpr int Y_MAX = 65535;           // query chunks per launch (grid y)
-constexpr float BIG = 3.4e38f;
+constexpr float BIG = 3.4e38f;            // the value of an unfilled output slot
+constexpr unsigned EMPTY = 0xffffffffu;    // the key of an unfilled slot
+constexpr unsigned NAN_KEY = 0xfffffffeu;  // every NaN's key: after +inf's
+constexpr unsigned INF_KEY = 0xff800000u;  // the key of +inf
 static_assert(CAP >= STEP && (CAP & (CAP - 1)) == 0, "CAP: a power of two >= STEP");
 
-__device__ __forceinline__ bool lex_less(float v1, int i1, float v2, int i2) {
+// Order-preserving key of a float: ascending keys are torch.sort's order
+// (-inf ... +inf, then NaN); -0 and +0 are one key, every NaN is NAN_KEY.
+__device__ __forceinline__ unsigned key_of(float v) {
+  if (v != v) return NAN_KEY;
+  const unsigned u = __float_as_uint(v == 0.f ? 0.f : v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The value of a key (NaN's canonical bits for NAN_KEY, BIG for EMPTY).
+__device__ __forceinline__ float value_of(unsigned key) {
+  if (key == NAN_KEY) return __uint_as_float(0x7fc00000u);
+  if (key == EMPTY) return BIG;
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
+
+// The float a filter compares against for a threshold key: its value
+// while that is finite; +inf above (a threshold of +inf, NaN or EMPTY),
+// where the keys decide.
+__device__ __forceinline__ float threshold_value(unsigned key) {
+  return key < INF_KEY ? value_of(key) : __int_as_float(0x7f800000);
+}
+
+__device__ __forceinline__ bool lex_less(unsigned v1, int i1, unsigned v2,
+                                         int i2) {
   return v1 < v2 || (v1 == v2 && i1 < i2);
 }
 
+// key_of(val) < thr, out of line: the filter takes it only in a step with
+// a value of +inf or NaN (or any step with operands), and only for an entry
+// that failed the float compare against a threshold above every finite
+// value; inlined, its predicated instructions cost every entry.
+__device__ __noinline__ bool passes_above(float val, const unsigned* thr) {
+  return key_of(val) < *thr;
+}
+
+// The key of an output slot: EMPTY where it is unfilled (id -1).
+__device__ __forceinline__ unsigned slot_key(float v, int id) {
+  return id < 0 ? EMPTY : key_of(v);
+}
+
+// (v1, i1) before (v2, i2) in slot order: by the floats where both slots
+// are filled and neither value is NaN (-0 and +0 tie there, as their keys
+// do), else by their slot keys.
+__device__ __forceinline__ bool slot_less(float v1, int i1, float v2, int i2) {
+  if (i1 >= 0 && i2 >= 0 && v1 == v1 && v2 == v2)
+    return v1 < v2 || (v1 == v2 && i1 < i2);
+  return lex_less(slot_key(v1, i1), i1, slot_key(v2, i2), i2);
+}
+
 // Number of entries of the sorted list (v, ix) that go before (x, xi):
-// strictly before when strict, else before or equal.
-__device__ int rank_in(const float* v, const int* ix, int k, float x, int xi,
-                       bool strict) {
+// strictly before when strict, else before or equal.  Keys in v.
+__device__ int rank_in(const unsigned* v, const int* ix, int k, unsigned x,
+                       int xi, bool strict) {
   int lo = 0, hi = k;
   while (lo < hi) {
     const int mid = (lo + hi) / 2;
@@ -97,14 +161,27 @@ __device__ int rank_in(const float* v, const int* ix, int k, float x, int xi,
   return lo;
 }
 
+// The same over an output list of (value, id) slots, for the slot (x, xi).
+__device__ int rank_in(const float* v, const int* ix, int k, float x, int xi,
+                       bool strict) {
+  int lo = 0, hi = k;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    const bool before = strict ? slot_less(v[mid], ix[mid], x, xi)
+                               : !slot_less(x, xi, v[mid], ix[mid]);
+    if (before) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
 // Bitonic compare-exchange of a warp's 64 register-held entries (v[s],
 // i[s] is entry lane + 32 s) at one (size, stride) of the network.
-__device__ __forceinline__ void bitonic_step(float (&v)[2], int (&ix)[2],
+__device__ __forceinline__ void bitonic_step(unsigned (&v)[2], int (&ix)[2],
                                              int size, int stride, int lane) {
   if (stride == 32) {  // the partner is this lane's other entry
     const bool up = (lane & size) == 0;  // size == 64: ascending
     if (lex_less(v[1], ix[1], v[0], ix[0]) == up) {
-      const float tv = v[0]; v[0] = v[1]; v[1] = tv;
+      const unsigned tv = v[0]; v[0] = v[1]; v[1] = tv;
       const int ti = ix[0]; ix[0] = ix[1]; ix[1] = ti;
     }
     return;
@@ -112,7 +189,7 @@ __device__ __forceinline__ void bitonic_step(float (&v)[2], int (&ix)[2],
 #pragma unroll
   for (int s = 0; s < 2; ++s) {
     const int e = lane + 32 * s;
-    const float pv = __shfl_xor_sync(0xffffffffu, v[s], stride);
+    const unsigned pv = __shfl_xor_sync(0xffffffffu, v[s], stride);
     const int pi = __shfl_xor_sync(0xffffffffu, ix[s], stride);
     const bool keep_min = ((e & size) == 0) == ((e & stride) == 0);
     const bool take = keep_min ? lex_less(pv, pi, v[s], ix[s])
@@ -125,7 +202,7 @@ __device__ __forceinline__ void bitonic_step(float (&v)[2], int (&ix)[2],
 // entries (entry lane + 32 s in v[s], ix[s]), ascending: of each pair
 // (e, e ^ stride) the lower keeps the smaller.
 template <int S>
-__device__ __forceinline__ void merge_step(float (&v)[S], int (&ix)[S],
+__device__ __forceinline__ void merge_step(unsigned (&v)[S], int (&ix)[S],
                                            int stride, int lane) {
   if (stride >= 32) {  // partners in this lane's registers
     const int d = stride / 32;
@@ -133,7 +210,7 @@ __device__ __forceinline__ void merge_step(float (&v)[S], int (&ix)[S],
     for (int s = 0; s < S; ++s) {
       if (s & d) continue;
       if (lex_less(v[s + d], ix[s + d], v[s], ix[s])) {
-        const float tv = v[s]; v[s] = v[s + d]; v[s + d] = tv;
+        const unsigned tv = v[s]; v[s] = v[s + d]; v[s + d] = tv;
         const int ti = ix[s]; ix[s] = ix[s + d]; ix[s + d] = ti;
       }
     }
@@ -142,7 +219,7 @@ __device__ __forceinline__ void merge_step(float (&v)[S], int (&ix)[S],
   const bool lower = (lane & stride) == 0;
 #pragma unroll
   for (int s = 0; s < S; ++s) {
-    const float pv = __shfl_xor_sync(0xffffffffu, v[s], stride);
+    const unsigned pv = __shfl_xor_sync(0xffffffffu, v[s], stride);
     const int pi = __shfl_xor_sync(0xffffffffu, ix[s], stride);
     if (lower ? lex_less(pv, pi, v[s], ix[s]) : lex_less(v[s], ix[s], pv, pi)) {
       v[s] = pv;
@@ -153,22 +230,22 @@ __device__ __forceinline__ void merge_step(float (&v)[S], int (&ix)[S],
 
 // One warp: merge the query's buffer (bv, bi; nb <= CAP entries, unsorted)
 // into its sorted carry (cv, ci; k <= 16 S entries), keeping the k
-// smallest; returns the new k-th value.  All in registers: the buffer is
+// smallest; returns the new k-th key.  All in registers: the buffer is
 // sorted (bitonic, 2 entries a lane), reversed behind the carry so the two
 // form one bitonic sequence of N = 32 S entries, and merged in log2(N)
-// steps.  Pads are (3.4e38, INT_MAX): they sort after the carry's empty
-// slots (3.4e38, -1).  Ids are distinct between the two (each row is
-// tested once per query).
+// steps.  Keys throughout; pads are (EMPTY, INT_MAX): they sort after the
+// carry's empty slots (EMPTY, -1).  Ids are distinct between the two (each
+// row is tested once per query).
 template <int S>
-__device__ float flush_query(float* cv, int* ci, const float* bv,
-                             const int* bi, int nb, int k, int lane) {
+__device__ unsigned flush_query(unsigned* cv, int* ci, const unsigned* bv,
+                                const int* bi, int nb, int k, int lane) {
   static_assert(CAP == 64 && 16 * S >= CAP, "the buffer fills the second half");
-  float b[2];
+  unsigned b[2];
   int bx[2];
 #pragma unroll
   for (int s = 0; s < 2; ++s) {
     const int e = lane + 32 * s;
-    b[s] = e < nb ? bv[e] : BIG;
+    b[s] = e < nb ? bv[e] : EMPTY;
     bx[s] = e < nb ? bi[e] : INT_MAX;
   }
   int p = 2;
@@ -176,16 +253,16 @@ __device__ float flush_query(float* cv, int* ci, const float* bv,
   for (int size = 2; size <= p; size <<= 1)
     for (int stride = size / 2; stride > 0; stride >>= 1)
       bitonic_step(b, bx, size, stride, lane);
-  float v[S];
+  unsigned v[S];
   int ix[S];
 #pragma unroll
   for (int s = 0; s < S / 2; ++s) {  // the carry, ascending
     const int j = lane + 32 * s;
-    v[s] = j < k ? cv[j] : BIG;
+    v[s] = j < k ? cv[j] : EMPTY;
     ix[s] = j < k ? ci[j] : INT_MAX;
   }
 #pragma unroll
-  for (int s = S / 2; s < S - 2; ++s) { v[s] = BIG; ix[s] = INT_MAX; }
+  for (int s = S / 2; s < S - 2; ++s) { v[s] = EMPTY; ix[s] = INT_MAX; }
 #pragma unroll
   for (int s = 0; s < 2; ++s) {  // the buffer, reversed: entry 63 - e
     v[S - 1 - s] = __shfl_sync(0xffffffffu, b[s], 31 - lane);
@@ -199,7 +276,7 @@ __device__ float flush_query(float* cv, int* ci, const float* bv,
     const int j = lane + 32 * s;
     if (j < k) { cv[j] = v[s]; ci[j] = ix[s]; }
   }
-  float kth = BIG;
+  unsigned kth = EMPTY;
 #pragma unroll
   for (int s = 0; s < S / 2; ++s)
     if ((k - 1) / 32 == s) kth = __shfl_sync(0xffffffffu, v[s], (k - 1) % 32);
@@ -213,14 +290,14 @@ __device__ float flush_query(float* cv, int* ci, const float* bv,
 // buffer entries before it.  The carry is shifted in place, 32 entries at
 // a time from the top: an entry only moves up, and every lane of a chunk
 // reads before any writes.  Ids are distinct between the two.
-__device__ float flush_global(float* cv, int* ci, float* bv, int* bi, int nb,
-                              int k, int lane) {
-  float b[2];
+__device__ unsigned flush_global(unsigned* cv, int* ci, unsigned* bv, int* bi,
+                                int nb, int k, int lane) {
+  unsigned b[2];
   int bx[2];
 #pragma unroll
   for (int s = 0; s < 2; ++s) {
     const int e = lane + 32 * s;
-    b[s] = e < nb ? bv[e] : BIG;
+    b[s] = e < nb ? bv[e] : EMPTY;
     bx[s] = e < nb ? bi[e] : INT_MAX;
   }
   int p = 2;
@@ -243,7 +320,7 @@ __device__ float flush_global(float* cv, int* ci, float* bv, int* bi, int nb,
   }
   for (int c0 = (k - 1) / 32 * 32; c0 >= 0; c0 -= 32) {
     const int j = c0 + lane;
-    float v = BIG;
+    unsigned v = EMPTY;
     int x = -1, to = k;
     if (j < k) {
       v = cv[j];
@@ -264,11 +341,48 @@ __device__ float flush_global(float* cv, int* ci, float* bv, int* bi, int nb,
 // A flush at the smallest register width that holds the carry, or into
 // the global carry.
 template <bool GLOBAL>
-__device__ __forceinline__ float flush(float* cv, int* ci, float* bv, int* bi,
-                                       int nb, int k, int lane) {
+__device__ __forceinline__ unsigned flush(unsigned* cv, int* ci, unsigned* bv,
+                                          int* bi, int nb, int k, int lane) {
   if (GLOBAL) return flush_global(cv, ci, bv, bi, nb, k, lane);
   return k <= 64 ? flush_query<4>(cv, ci, bv, bi, nb, k, lane)
                  : flush_query<8>(cv, ci, bv, bi, nb, k, lane);
+}
+
+// One step's filter: every (row, query) entry of the D tile ``dt`` against
+// its query's threshold.  key_of(val) < thr[c] is tested as val < thrf[c],
+// exact but for a value of +inf or NaN against a threshold above every
+// finite value (+inf, NaN, an open carry), which KEYS decides by the keys.
+// EXTRA: d21 is maxed in first (NaN-propagating, as torch.maximum), and
+// masked entries are left out.  Survivors go into their query's buffer.
+template <bool EXTRA, bool KEYS>
+__device__ __forceinline__ void filter_step(
+    int tid, int tile, int r1, int nq, int q0, int b, const float* dt,
+    const float* __restrict__ d21, const unsigned char* __restrict__ row_valid,
+    const int* __restrict__ q_gid, const unsigned* thr, const float* thrf,
+    int* cnt, unsigned* bv, int* bi, int* flag) {
+  const float inf = __int_as_float(0x7f800000);
+  for (int e = tid; e < STEP * QC; e += THREADS) {
+    const int r = e / QC, c = e % QC;
+    const int gid = tile + r;
+    float val = dt[e];
+    if (EXTRA && c < nq && gid < r1) {
+      if (d21 != nullptr) {
+        const float dv = d21[(size_t)gid * b + q0 + c];
+        val = (val >= dv || val != val) ? val : dv;
+      }
+      if ((row_valid != nullptr && row_valid[gid] == 0) ||
+          (q_gid != nullptr && q_gid[q0 + c] == gid))
+        continue;
+    }
+    if (c >= nq || gid >= r1) continue;
+    const float tf = thrf[c];
+    if (val < tf || (KEYS && tf == inf && passes_above(val, thr + c))) {
+      const int pos = atomicAdd(&cnt[c], 1);
+      bv[c * CAP + pos] = key_of(val);
+      bi[c * CAP + pos] = gid;
+      if (pos >= CAP - STEP) *flag = 1;
+    }
+  }
 }
 
 // GLOBAL: the carry is the CTA's slice of the partials (any k); else it is
@@ -294,22 +408,31 @@ fused_topk_partial_kernel(const int* __restrict__ ids,   // (n, h)
   const int r1 = min(min(n, n_real), r0 + rows_per_cta);
   const size_t part0 = ((size_t)blockIdx.x * b + q0) * k;  // this CTA's partials
 
+  // The carry and the buffers hold keys (key_of); the GLOBAL carry holds
+  // them in the partials' value slots until the CTA's last flush.
   const int kc = GLOBAL ? 0 : k;                       // carry entries in smem
-  float* cv = GLOBAL ? part_vals + part0 : reinterpret_cast<float*>(smem);  // [QC][k]
+  unsigned* cv = GLOBAL ? reinterpret_cast<unsigned*>(part_vals + part0)
+                        : reinterpret_cast<unsigned*>(smem);  // [QC][k]
   int* ci = GLOBAL ? part_idx + part0 : reinterpret_cast<int*>(smem) + QC * k;
-  float* bv = reinterpret_cast<float*>(smem) + 2 * QC * kc;  // [QC][CAP] buffer
+  unsigned* bv = reinterpret_cast<unsigned*>(smem) + 2 * QC * kc;  // [QC][CAP]
   int* bi = reinterpret_cast<int*>(bv + QC * CAP);     // [QC][CAP]
   float* dt = reinterpret_cast<float*>(bi + QC * CAP); // [STEP][QC] D tile
-  float* thr = dt + STEP * QC;                         // [QC]
-  int* cnt = reinterpret_cast<int*>(thr + QC);         // [QC]
+  unsigned* thr = reinterpret_cast<unsigned*>(dt + STEP * QC);  // [QC]
+  float* thrf = reinterpret_cast<float*>(thr + QC);    // [QC] threshold_value
+  int* cnt = reinterpret_cast<int*>(thrf + QC);        // [QC]
   int* flag = cnt + QC;                                // a buffer is near full
+  int* above = flag + 1;  // [2], by step parity: the step holds a +inf or NaN
 
   for (int i = tid; i < (GLOBAL ? nq : QC) * k; i += THREADS) {
-    cv[i] = BIG;
+    cv[i] = EMPTY;
     ci[i] = -1;
   }
-  if (tid < QC) { thr[tid] = BIG; cnt[tid] = 0; }
-  if (tid == 0) *flag = 0;
+  if (tid < QC) {
+    thr[tid] = EMPTY;
+    thrf[tid] = threshold_value(EMPTY);
+    cnt[tid] = 0;
+  }
+  if (tid == 0) { *flag = 0; above[0] = 0; above[1] = 0; }
   __syncthreads();
 
   const int c0 = q0 + lane, c1 = q0 + lane + 32;
@@ -374,41 +497,41 @@ fused_topk_partial_kernel(const int* __restrict__ ids,   // (n, h)
       }
       __syncwarp();  // the staging is rewritten by the next chunk
     }
+    bool big = false;  // a value of +inf or NaN: the filter needs keys
 #pragma unroll
     for (int j = 0; j < RPW; ++j) {
       dt[(warp * RPW + j) * QC + lane] = a0[j];
       dt[(warp * RPW + j) * QC + lane + 32] = a1[j];
+      if (!EXTRA) big |= !(a0[j] <= FLT_MAX) || !(a1[j] <= FLT_MAX);
     }
+    const int parity = (tile - r0) / STEP & 1;
+    if (!EXTRA && __any_sync(0xffffffffu, big) && lane == 0) above[parity] = 1;
     __syncthreads();
 
     // --- filter: every (row, query) entry against its query's threshold ---
-    for (int e = tid; e < STEP * QC; e += THREADS) {
-      const int r = e / QC, c = e % QC;
-      const int gid = tile + r;
-      float val = dt[e];
-      if (EXTRA && c < nq && gid < r1) {
-        if (d21 != nullptr) val = fmaxf(val, d21[(size_t)gid * b + q0 + c]);
-        if ((row_valid != nullptr && row_valid[gid] == 0) ||
-            (q_gid != nullptr && q_gid[q0 + c] == gid))
-          continue;
-      }
-      if (c < nq && gid < r1 && val < thr[c]) {
-        const int pos = atomicAdd(&cnt[c], 1);
-        bv[c * CAP + pos] = val;
-        bi[c * CAP + pos] = gid;
-        if (pos >= CAP - STEP) *flag = 1;
-      }
-    }
+    // Keys only where a value may be +inf or NaN: a step the row pass
+    // flagged, or any step of a launch with operands.
+    if (EXTRA || above[parity])
+      filter_step<EXTRA, true>(tid, tile, r1, nq, q0, b, dt, d21, row_valid,
+                               q_gid, thr, thrf, cnt, bv, bi, flag);
+    else
+      filter_step<EXTRA, false>(tid, tile, r1, nq, q0, b, dt, d21, row_valid,
+                                q_gid, thr, thrf, cnt, bv, bi, flag);
     __syncthreads();
+    if (!EXTRA && tid == 0) above[parity] = 0;  // every thread read it above
 
     // --- flush when a buffer could overflow in the next step ---
     if (*flag) {
       for (int c = warp; c < nq; c += WARPS) {
         const int nb = cnt[c];
         if (nb == 0) continue;
-        const float kth = flush<GLOBAL>(cv + c * k, ci + c * k, bv + c * CAP,
+        const unsigned kth = flush<GLOBAL>(cv + c * k, ci + c * k, bv + c * CAP,
                                         bi + c * CAP, nb, k, lane);
-        if (lane == 0) { thr[c] = kth; cnt[c] = 0; }
+        if (lane == 0) {
+          thr[c] = kth;
+          thrf[c] = threshold_value(kth);
+          cnt[c] = 0;
+        }
       }
       __syncthreads();  // every thread read the flag before this barrier
       if (tid == 0) *flag = 0;
@@ -420,12 +543,17 @@ fused_topk_partial_kernel(const int* __restrict__ ids,   // (n, h)
     if (nb > 0)
       flush<GLOBAL>(cv + c * k, ci + c * k, bv + c * CAP, bi + c * CAP, nb, k,
                     lane);
+    if (GLOBAL) {  // the carry is the partial: its keys become values
+      __syncwarp();
+      float* out = part_vals + part0 + (size_t)c * k;
+      for (int j = lane; j < k; j += 32) out[j] = value_of(cv[(size_t)c * k + j]);
+    }
   }
-  if (GLOBAL) return;  // the carry is the partial
+  if (GLOBAL) return;
   __syncthreads();
 
   for (int i = tid; i < nq * k; i += THREADS) {
-    part_vals[part0 + i] = cv[i];
+    part_vals[part0 + i] = value_of(cv[i]);
     part_idx[part0 + i] = ci[i];
   }
 }
@@ -494,7 +622,8 @@ extern "C" int launch_fused_topk_partial(const void* ids, const void* w,
   const size_t smem = (global ? 0 : (size_t)QC * k * (sizeof(float) + sizeof(int)))
                       + (size_t)QC * CAP * (sizeof(float) + sizeof(int))
                       + (size_t)STEP * QC * sizeof(float)
-                      + (size_t)QC * (sizeof(float) + sizeof(int)) + sizeof(int);
+                      + (size_t)QC * (2 * sizeof(float) + sizeof(int))
+                      + 3 * sizeof(int);
   auto launch = global ? (extra ? (wide ? launch_partial<true, true, true>
                                         : launch_partial<true, true, false>)
                                 : (wide ? launch_partial<true, false, true>

@@ -53,6 +53,13 @@ class DocSet:
         """int32 (n,): number of real words per doc."""
         return self.mask.sum(dim=-1).to(torch.int32)
 
+    def slice_rows(self, start: int, size: int) -> "DocSet":
+        """Rows ``[start, start + size)``, clipped at the end (a view, not
+        padded; the reference's ``dynamic_slice`` pads nothing either, but
+        moves a start that runs past the end back)."""
+        return DocSet(ids=self.ids[start:start + size],
+                      weights=self.weights[start:start + size])
+
     def __getitem__(self, idx) -> "DocSet":
         return DocSet(ids=self.ids[idx], weights=self.weights[idx])
 

@@ -27,22 +27,27 @@ slab's (R, B) distances folded into a :class:`StreamingTopK` carry.
 
 Three optional operands act on each (row, query) entry before it is
 ranked, as the reference's jnp fold applies them: ``d21`` (n, B), maxed in
-(the symmetric bound's swapped direction); ``row_valid`` (n,) bool, whose
-False rows are +inf for every query (tombstones); ``q_gid`` (B,), whose
-pair (row ``q_gid[j]``, query j) is +inf (self-exclusion).
+(the symmetric bound's swapped direction; NaN-propagating, as
+``torch.maximum``); ``row_valid`` (n,) bool, whose False rows are left out
+for every query (tombstones); ``q_gid`` (B,), whose pair (row
+``q_gid[j]``, query j) is left out (self-exclusion).  A left-out entry is
+an unfilled slot, never ranked, so it is told apart from a real +inf.
 
-Both order candidates by ``(distance, doc id)`` and return ``(dists (B, k),
-ids (B, k))``, ascending, ``k = min(k, n_real)``.  Where fewer than k rows
-are finite for a query, the plain fold's unfilled slots are (+inf, -1)
-and the kernel's (3.4e38, -1): the kernel, like the reference's, ranks
-no value >= 3.4e38.
+Both order candidates by ``(distance, doc id)`` in ``torch.sort``'s order
+(+inf after every finite value, NaN after +inf; the kernel compares an
+order-preserving unsigned key of each float) and return ``(dists (B, k),
+ids (B, k))``, ascending, ``k = min(k, n_real)``; the two agree in every
+slot, non-finite ones included.  Where fewer than k entries are left in
+for a query, the unfilled tail is (+inf, -1) from the plain fold and
+(3.4e38, -1) from the kernel; both rank after every real entry
+(:func:`repro_torch.core.topk.lex_smallest`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.topk import StreamingTopK
+from repro_torch.core.topk import StreamingTopK, masked_entries
 from repro_torch.kernels import _build
 from repro_torch.kernels.lc_rwmd_phase1 import phase1_sq_plain
 from repro_torch.kernels.spmm_ell import spmm_ell_plain
@@ -68,18 +73,15 @@ def phase2_topk_plain(ids: torch.Tensor, w: torch.Tensor, z: torch.Tensor,
     stk = StreamingTopK(min(k, n))
     carry = stk.init(b, device=z.device)
     r = max(1, min(row_block, n))
-    inf = torch.tensor(float("inf"), device=z.device)
     for lo in range(0, n, r):
         hi = min(lo + r, n)
         d_blk = spmm_ell_plain(ids[lo:hi], w[lo:hi], z)            # (R, B)
         rows = torch.arange(lo, hi, dtype=torch.int32, device=z.device)
         if d21 is not None:
             d_blk = torch.maximum(d_blk, d21[lo:hi])
-        if row_valid is not None:
-            d_blk = torch.where(row_valid[lo:hi, None], d_blk, inf)
-        if q_gid is not None:
-            d_blk = torch.where(rows[:, None] == q_gid[None, :], inf, d_blk)
-        carry = stk.update_cols(carry, d_blk, rows)
+        carry = stk.update(carry, *masked_entries(
+            d_blk.T, rows, None if row_valid is None else row_valid[lo:hi],
+            q_gid))
     return carry.dists, carry.indices
 
 

@@ -172,10 +172,10 @@ def _gap_clear(pv, tol=1e-4):
 
 def _assert_topk_matches_plain(v, i, pv, pi, tol=1e-4):
     """Values within 1e-5 (the plain sums run in another order), ids equal
-    wherever the gaps exceed tol; the plain fold's unfilled or >= 3.4e38
-    slots are the kernel's (3.4e38, -1)."""
+    wherever the gaps exceed tol; the plain fold's unfilled slots (+inf,
+    -1) are the kernel's (3.4e38, -1)."""
     big = torch.tensor(tp1.BIG, dtype=torch.float32, device=pv.device)
-    dropped = pv >= big
+    dropped = pi < 0
     pv = torch.where(dropped, big, pv)
     pi = torch.where(dropped, -1, pi)
     torch.testing.assert_close(v, pv, rtol=1e-5, atol=1e-5)
@@ -1316,16 +1316,18 @@ def test_sentinel_sees_no_load_after_warmup(cuda):
     assert snap["budget_rebuilds"] >= 1 and snap["tier_counts"][1] >= 1
 
 
+@pytest.mark.parametrize("k", [300, 100])
 @pytest.mark.parametrize("bad", ["nan", "inf"])
-def test_nonfinite_z_row_through_a_positive_weight(cuda, bad):
+def test_nonfinite_z_row_through_a_positive_weight(cuda, bad, k):
     """A Z row holding NaN or inf, reached through a positive weight: B2's
     D row for that doc is non-finite, as its plain version's is.  A
     zero-weight slot on that row adds nothing in the kernel, where the
     plain version (and the reference) adds 0 * Z[id] and turns the row
-    NaN.  B3 with k covering every doc ranks no non-finite value: where
-    the plain fold ranks such a doc last with its non-finite value, the
-    kernel leaves it out (its filler (3.4e38, -1) in its place), and the
-    two agree on every finite doc."""
+    NaN.  B3 equals its plain fold in every slot: k = 300 covers every doc
+    (the global carry, the non-finite docs last, by id, at their value), k
+    = 100 the shared-memory carry; also with a d21 operand holding NaN and
+    inf, and with tombstones and self-exclusion, whose unfilled slots are
+    (3.4e38, -1) from the kernel and (+inf, -1) from the plain fold."""
     rng = np.random.default_rng(3)
     n, h, v, b = 300, 48, 700, 64
     ids, w = _ell(rng, n, h, v)
@@ -1349,11 +1351,68 @@ def test_nonfinite_z_row_through_a_positive_weight(cuda, bad):
     rest = ~hit
     rest[20] = False
     torch.testing.assert_close(got[rest], want[rest], rtol=1e-5, atol=1e-5)
-    kd, ki = tfs.phase2_topk_cuda(ids, w, z, n)
-    pd, pi = tfs.phase2_topk_plain(ids, w, z, n)
-    fin = n - int(hit.sum())
-    torch.testing.assert_close(kd[:, :fin], pd[:, :fin], rtol=1e-5, atol=1e-5)
-    assert torch.equal(ki[:, :fin], pi[:, :fin])
-    assert not bool(torch.isfinite(pd[:, fin:]).any())
-    assert bool((ki[:, fin:] == -1).all())
-    assert bool((kd[:, fin:] == 3.4e38).all())
+    d21 = torch.rand(n, b, generator=torch.Generator().manual_seed(5))
+    d21[::13, 3], d21[4::17, 7] = float("nan"), float("inf")
+    masks = dict(row_valid=torch.arange(n) % 9 != 4,
+                 q_gid=torch.arange(b, dtype=torch.int32) * 4)
+    for extra in ({}, dict(d21=d21), dict(d21=d21, **masks)):
+        extra = {key: x.to(cuda) for key, x in extra.items()}
+        kd, ki = tfs.phase2_topk_cuda(ids, w, z, k, **extra)
+        pd, pi = tfs.phase2_topk_plain(ids, w, z, k, **extra)
+        real = pi >= 0
+        assert torch.equal(ki, pi)
+        # the kernel's sums and the plain version's differ in order only
+        torch.testing.assert_close(kd[real], pd[real], rtol=1e-5, atol=1e-5,
+                                   equal_nan=True)
+        assert bool((kd[~real] == 3.4e38).all())
+        assert bool(torch.isinf(pd[~real]).all())
+        if not extra and k == n:
+            fin = n - int(hit.sum())
+            assert torch.equal(ki[:, fin:], torch.nonzero(hit)[:, 0].to(
+                torch.int32).expand(b, -1))
+
+
+def test_workload_primitives_and_scheduler_match_the_cpu(cuda):
+    """``phase1_resident`` (B1) and ``one_sided_rows`` (B2) of a monolithic
+    and a segmented engine on the card against the same calls on the CPU
+    (the gram form's noise: 4 x sqrt(eps * max |e|^2) absolute, as the
+    serve-step test holds it); then ``corpus_self_topk`` on the card: B1
+    once a tile and B2 twice a visited block, the CPU's ids where the gaps
+    are clear, the segmented engine bit for bit equal to the monolithic one
+    before deletions, and no deleted doc after them."""
+    from repro_torch.workloads import corpus_self_topk
+
+    c, docs, seg, _, dead = _grown_pair(cuda)
+    docs = docs[:600]
+    mono = tlc.LCRWMDEngine(docs, c.emb)
+    cpu = tlc.LCRWMDEngine(docs.to("cpu"), c.emb, device="cpu")
+    atol = 4.0 * float(np.sqrt(2.0 ** -23 * float((cpu.emb_full ** 2).sum(1).max())))
+    idx = torch.tensor([0, 5, 77, 599, -1, 600], device=cuda)
+    rows = torch.tensor([1, 5, 300, 599, 600], device=cuda)
+    z = mono.phase1_resident(idx)
+    zc = cpu.phase1_resident(idx.cpu())
+    torch.testing.assert_close(z[:, :4].cpu(), zc[:, :4], rtol=1e-4, atol=atol)
+    torch.testing.assert_close(mono.one_sided_rows(rows, z)[:, :4].cpu(),
+                               cpu.one_sided_rows(rows.cpu(), zc)[:, :4],
+                               rtol=1e-4, atol=atol)
+    s2 = tlc.SegmentedEngine(docs[:450], c.emb)
+    s2.append(docs[450:])
+    zs = s2.phase1_resident(idx)
+    assert len(zs) == 2
+    assert torch.equal(s2.one_sided_rows(rows, zs), mono.one_sided_rows(rows, z))
+    _build.reset_launches()
+    got = corpus_self_topk(mono, 8, tile=128)
+    assert _build.LAUNCHES["lc_rwmd_phase1"] == 5
+    assert _build.LAUNCHES["spmm_ell"] == 2 * 15
+    want = corpus_self_topk(cpu, 8, tile=128)
+    torch.testing.assert_close(got.dists.cpu(), want.dists, rtol=1e-4,
+                               atol=atol)
+    clear = _gap_clear(want.dists, atol)
+    assert torch.equal(got.indices.cpu()[clear], want.indices[clear])
+    sg = corpus_self_topk(s2, 8, tile=128)
+    assert torch.equal(sg.indices, got.indices) and torch.equal(sg.dists, got.dists)
+    s2.delete([3, 470])
+    sg = corpus_self_topk(s2, 8, tile=128)
+    assert bool((sg.indices[[3, 470]] == -1).all())
+    assert not bool(torch.isin(sg.indices, torch.tensor(
+        [3, 470], dtype=torch.int32, device=cuda)).any())

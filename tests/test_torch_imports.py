@@ -21,7 +21,11 @@ MODULES = [
     "repro_torch.serving", "repro_torch.serving.errors",
     "repro_torch.serving.staging", "repro_torch.serving.faults",
     "repro_torch.serving.ingest_pool", "repro_torch.serving.corpus_manager",
-    "repro_torch.serving.query_server",
+    "repro_torch.serving.query_server", "repro_torch.workloads",
+    "repro_torch.workloads.corpus_distance", "repro_torch.examples",
+    "repro_torch.examples.quickstart", "repro_torch.examples.knn_classify",
+    "repro_torch.examples.cluster_corpus", "repro_torch.examples.serve_queries",
+    "repro_torch.launch", "repro_torch.launch.serve",
 ]
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|from\s+repro(\.|\s))",

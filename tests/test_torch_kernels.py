@@ -518,9 +518,17 @@ def test_phase2_topk_plain_drops_rows_past_n_real():
     assert int(i.max()) < 12
 
 
+def _slot_key(e):
+    """B3's order of a (value, id) slot: its value's key (ascending, +inf
+    after every finite value, NaN after +inf, -0 as +0), an unfilled slot
+    (id -1) after every value; then the id."""
+    v, i = e
+    return ((2, 0.0) if i < 0 else (1, 0.0) if v != v else (0, float(v)), i)
+
+
 def _lex_merge(a, b, k):
-    """The k smallest of two (value, id) lists, by (value, id)."""
-    return sorted(a + b, key=lambda e: (e[0], e[1]))[:k]
+    """The k smallest of two (value, id) lists, in B3's order."""
+    return sorted(a + b, key=_slot_key)[:k]
 
 
 def _topk_filter_order(d, k, *, n_real=None, n_sm=2, cap=tfs.FLUSH_CAP,
@@ -528,12 +536,13 @@ def _topk_filter_order(d, k, *, n_real=None, n_sm=2, cap=tfs.FLUSH_CAP,
     """B3's fold on the CPU over a D (n, B) float32: the wrapper's own doc
     ranges (``tfs.cta_rows``), each walked in steps of ``step`` rows; every
     (row, query) of a step tested against the query's threshold (its
-    carry's k-th value, 3.4e38 while not full), strictly, as of the step's
-    start; survivors into a buffer of ``cap``, flushed into the sorted carry
-    when a count exceeds ``cap - step`` and at the range's end; then the
-    CTAs' partials merged pairwise in (value, id) order.  Each level's lists
-    are ``tfs.list_widths`` long (a CTA's carry no longer than its rows).
-    Empty slots are (3.4e38, -1).  Also returns the flushes per CTA."""
+    carry's k-th key, above every value while not full), strictly, as of
+    the step's start; survivors into a buffer of ``cap``, flushed into the
+    sorted carry when a count exceeds ``cap - step`` and at the range's
+    end; then the CTAs' partials merged pairwise in (value, id) order
+    (:func:`_slot_key`).  Each level's lists are ``tfs.list_widths`` long
+    (a CTA's carry no longer than its rows).  Empty slots are (3.4e38, -1).
+    Also returns the flushes per CTA."""
     big = np.float32(tp1.BIG)
     n, b = d.shape
     n_rows = n if n_real is None else min(n, n_real)
@@ -545,7 +554,7 @@ def _topk_filter_order(d, k, *, n_real=None, n_sm=2, cap=tfs.FLUSH_CAP,
     for cta in range(n_ctas):
         r0, r1 = cta * rows, min(n_rows, (cta + 1) * rows)
         carry = [[(big, -1)] * kw for _ in range(b)]
-        thr = [big] * b
+        thr = [_slot_key((big, -1))[0]] * b
         buf = [[] for _ in range(b)]
         nfl = 0
 
@@ -553,13 +562,13 @@ def _topk_filter_order(d, k, *, n_real=None, n_sm=2, cap=tfs.FLUSH_CAP,
             for q in range(b):
                 if buf[q]:
                     carry[q] = _lex_merge(carry[q], buf[q], kw)
-                    thr[q] = carry[q][-1][0]
+                    thr[q] = _slot_key(carry[q][-1])[0]
                     buf[q] = []
 
         for tile in range(r0, r1, step):
             for r in range(tile, min(tile + step, r1)):
                 for q in range(b):
-                    if d[r, q] < thr[q]:
+                    if _slot_key((d[r, q], r))[0] < thr[q]:
                         buf[q].append((d[r, q], r))
             assert max(map(len, buf)) <= cap           # never overflows
             if max(map(len, buf)) > cap - step:
@@ -637,8 +646,9 @@ def test_topk_filter_order_matches_plain_and_pallas(kind):
     Pallas kernel in interpret mode (equal ids).  Cases: heavy ties; k of
     1, 32 and 128; k of 200 and 300 (= n), above a CTA's 96 rows, so the
     partials are narrower than k and the merges widen them; n_real < n; a
-    buffer that fills in the first step; D values >= 3.4e38, which the
-    kernel drops as the reference's does."""
+    buffer that fills in the first step; finite D values >= 3.4e38, which
+    the kernel ranks as the plain fold does (the reference's kernel drops
+    them: its slots there are left out of the comparison)."""
     emb, q_ids, q_w, r_ids, r_w, k, n_real, cap = _topk_case(
         kind, np.random.default_rng(0))
     n = r_ids.shape[0]
@@ -657,14 +667,13 @@ def test_topk_filter_order_matches_plain_and_pallas(kind):
     kk = min(k, n_rows)
     pv, pi = tfs.phase2_topk_plain(_t(r_ids), _t(r_w), z, k, n_real=n_real)
     pv, pi = pv.numpy(), pi.numpy()
-    # the plain fold keeps a value >= 3.4e38; the kernels drop it
-    dropped = pv >= np.float32(tp1.BIG)
-    pv[dropped], pi[dropped] = np.float32(tp1.BIG), -1
-    if kind == "huge":
-        assert dropped[1].any() and not dropped[[0, 2, 3, 4]].any()
-        assert np.all(ids[1][vals[1] == np.float32(tp1.BIG)] == -1)
     np.testing.assert_allclose(vals, pv, rtol=1e-6, atol=1e-6)
     assert np.array_equal(ids, pi)
+    # the reference's kernel drops a value >= 3.4e38; B3 ranks it
+    dropped = pv >= np.float32(tp1.BIG)
+    if kind == "huge":
+        assert dropped[1].any() and not dropped[[0, 2, 3, 4]].any()
+        assert np.all(ids[1] >= 0)
     if kind == "ties":
         same = vals[:, 1:] == vals[:, :-1]
         assert same.any() and np.all(ids[:, 1:][same] > ids[:, :-1][same])
@@ -676,8 +685,10 @@ def test_topk_filter_order_matches_plain_and_pallas(kind):
         jnp.asarray(np.pad(r_w.astype(np.float32), ((0, pad), (0, 0)))),
         k=kk, n_real=n_rows, block_v=128, interpret=True)
     jv, ji = np.asarray(jv)[:kk, :5].T, np.asarray(ji)[:kk, :5].T
-    np.testing.assert_allclose(vals, jv, rtol=1e-5, atol=1e-5)
-    assert np.array_equal(ids, ji)
+    np.testing.assert_allclose(vals[~dropped], jv[~dropped], rtol=1e-5,
+                               atol=1e-5)
+    assert np.array_equal(ids[~dropped], ji[~dropped])
+    assert np.all(ji[dropped] == -1)
 
 
 @pytest.mark.parametrize("k", [5, 129, 256, 400])
