@@ -165,6 +165,19 @@ Phases, each of which exits non-zero on failure:
    self-matches, accuracies above chance, the planted duplicate groups,
    serve_queries' recall > 0.9, the launcher's self-recall), and
    ``--full`` / ``--multi-pod`` must raise naming ROADMAP A item 7.
+6e. the mesh (``repro_torch.launch.mesh``) on the same corpus, in a
+   world-size-1 NCCL group that the phase sets up and tears down, with
+   the counts reset just before and read just after: the 1x1 mesh's
+   monolithic streaming step (k = 32), its tier 0 with the refine and
+   the rerank (budget 64), the engine-less step and the all-pairs D1, each
+   equal to the mesh-less call bit for bit and timed beside it (B1, B2,
+   B3 and B4 must run; no collective issued); each of 2 and 8 vocabulary
+   shards run rank by rank, their B1 + B2 partials summed against
+   ``one_sided`` within B2's tolerance (launches counted); with two cards
+   or more, min(cards, 4) spawned NCCL ranks at (1, n) and (n, 1) on the
+   first 65,536 docs against the one-card step (skipped, and logged, on
+   one card).  The peak memory and the phase's seconds are printed; each
+   kernel's entry in the kernels line carries its ``mesh_launches``.
 7. flash attention: the kernel against its plain version at llama3.2-1b's
    heads (B=4, S=T=4,096, 32 query and 8 KV heads, dh 64), causal in bf16
    and f32, non-causal, at a length that is not a tile multiple, and with
@@ -3559,6 +3572,244 @@ def entry_points_phase(smi: str, argv: tuple = ()) -> dict:
     return info
 
 
+MESH_K = 32
+MESH_BUDGET = 64          # the tier-0 step's rerank budget (2k)
+MESH_SHARDS = (2, 8)      # model shards run rank by rank
+MESH_SPAWN_DOCS = 65_536  # docs of the multi-card check (a copy each rank)
+MESH_TOL = 1e-5           # B2's: |d - d_one| <= 1e-5 (1 + |d|)
+
+
+def _same(a, b) -> bool:
+    """Two serve results (or tensors) equal bit for bit, None for None."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if a is None or b is None:
+        return a is b
+    return all(_same(x, y) for x, y in zip(a, b) if not isinstance(x, int))
+
+
+def _mesh_rank(rank: int, n: int, device_type: str, inputs: str,
+               out_dir: str) -> None:
+    """One rank of the multi-card check: a file rendezvous (NCCL on the
+    card, gloo on the CPU), a copy of the docs on its own device, and the
+    monolithic streaming step at (1, n) and (n, 1)."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.lc_rwmd import LCRWMDEngine
+    from repro_torch.data.docs import DocSet
+    from repro_torch.distributed.lcrwmd_dist import build_serve_step
+    from repro_torch.launch.mesh import make_host_mesh
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    dist.init_process_group(
+        "nccl" if device_type == "cuda" else "gloo",
+        init_method=f"file://{out_dir}/rendezvous", rank=rank, world_size=n)
+    try:
+        dev = torch.device("cuda", rank) if device_type == "cuda" else "cpu"
+        data = np.load(inputs)
+        docs = DocSet(ids=torch.tensor(data["ids"], device=dev),
+                      weights=torch.tensor(data["weights"], device=dev))
+        eng = LCRWMDEngine(docs, data["emb"], device=dev)
+        out = {}
+        for name, shape in (("1xn", (1, n)), ("nx1", (n, 1))):
+            mesh = make_host_mesh(*shape, device=device_type)
+            tk = build_serve_step(mesh, k=int(data["k"]), engine=eng,
+                                  bf16_matmul=False)(docs[:int(data["b"])]).topk
+            out[f"{name}/d"] = tk.dists.cpu().numpy()
+            out[f"{name}/i"] = tk.indices.cpu().numpy()
+            out[f"{name}/collectives"] = np.array(
+                [mesh.counts["psum"], mesh.counts["all_gather"]])
+        np.savez(f"{out_dir}/rank{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_multi_card(docs, emb, n: int, device_type: str = "cuda") -> dict:
+    """``n`` spawned ranks, one device each, on the first
+    ``MESH_SPAWN_DOCS`` docs: every rank's TopK the same, and within B2's
+    tolerance of the one-device step's (ids by the distance they name)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.core.lc_rwmd import LCRWMDEngine
+    from repro_torch.distributed.lcrwmd_dist import build_serve_step
+
+    sub = docs[:min(MESH_SPAWN_DOCS, docs.n_docs)]
+    eng = LCRWMDEngine(sub, emb, device=sub.device)
+    q = sub[:B]
+    want = build_serve_step(k=MESH_K, engine=eng, bf16_matmul=False)(q).topk
+    d_one = eng.one_sided(q).cpu().numpy()
+    want_d = want.dists.cpu().numpy()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mesh_ranks_") as tmp:
+        inputs = f"{tmp}/inputs.npz"
+        np.savez(inputs, ids=sub.ids.cpu().numpy(),
+                 weights=sub.weights.cpu().numpy(),
+                 emb=torch.as_tensor(emb).cpu().numpy(), b=B, k=MESH_K)
+        mp.spawn(_mesh_rank, args=(n, device_type, inputs, tmp), nprocs=n,
+                 join=True)
+        ranks = [dict(np.load(f"{tmp}/rank{r}.npz")) for r in range(n)]
+    info = dict(ranks=n, docs=sub.n_docs, s=time.perf_counter() - t0)
+    tol = MESH_TOL * (1 + np.abs(want_d))
+    for name in ("1xn", "nx1"):
+        d, i = ranks[0][f"{name}/d"], ranks[0][f"{name}/i"]
+        if not all(np.array_equal(r[f"{name}/{x}"], ranks[0][f"{name}/{x}"])
+                   for r in ranks for x in ("d", "i")):
+            fail(f"mesh {name} on {n} cards: the ranks' TopKs differ")
+        named = np.take_along_axis(d_one.T, i.astype(np.int64), axis=1)
+        err = max(float(np.abs(d - want_d).max()),
+                  float(np.abs(named - want_d).max()))
+        if (np.abs(d - want_d) > tol).any() or (
+                np.abs(named - want_d) > tol).any():
+            fail(f"mesh {name} on {n} cards: TopK off the one-card step's "
+                 f"by {err}")
+        info[name] = dict(max_abs_err=err,
+                          collectives=ranks[0][f"{name}/collectives"].tolist())
+    return info
+
+
+def mesh_phase(docs, emb, smi: str) -> dict:
+    """The mesh program (``repro_torch.launch.mesh``) on the card: in a
+    world-size-1 NCCL group set up and torn down here, the 1x1 mesh's
+    monolithic streaming step (k = 32), its tier 0 with the refine and the
+    rerank, the engine-less step and the all-pairs D1 on all the docs,
+    with the counts reset just before and read just after (B1, B2, B3 and
+    B4 must each run); each equal to the mesh-less call's result bit for
+    bit and timed beside it.  Then each of 2 and 8 vocabulary shards, run
+    rank by rank in this process, its B1 and B2 partial, the partials
+    summed in rank order against ``one_sided`` within B2's tolerance (B1
+    and B2 launches counted); and, where there are two cards or more,
+    min(cards, 4) spawned NCCL ranks at (1, n) and (n, 1)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.lc_rwmd import LCRWMDEngine
+    from repro_torch.distributed.lcrwmd_dist import (build_allpairs_d1,
+                                                     build_serve_step)
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_mesh_ranks import RankAlone
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    eng = LCRWMDEngine(docs, emb)
+    q = docs[:B]
+    emb_d = eng.emb_full   # the table on the card: no copy a call
+    kw = dict(k=MESH_K, bf16_matmul=False)
+    rerank = dict(refine=True, rerank_wmd=True, rerank_budget=MESH_BUDGET,
+                  wmd_kw=KW_RERANK)
+    builds = {
+        "stream_k32": (lambda m: build_serve_step(m, engine=eng, **kw),
+                       lambda s: s(q)),
+        "tier0_rerank": (lambda m: build_serve_step(m, engine=eng, **kw,
+                                                    **rerank),
+                         lambda s: s(q)),
+        "engineless": (lambda m: build_serve_step(m, device="cuda", **kw),
+                       lambda s: s(docs, q, emb_d)),
+        "allpairs_d1": (lambda m: build_allpairs_d1(m, bf16_matmul=False,
+                                                    device="cuda"),
+                        lambda s: s(docs, q, emb_d)),
+    }
+    with tempfile.TemporaryDirectory(prefix="mesh_") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh()
+            if mesh.size != 1 or mesh.device.type != eng.device.type:
+                fail(f"make_host_mesh() in a world of one: {mesh}")
+            steps = {name: (b(mesh), b(None), call)
+                     for name, (b, call) in builds.items()}
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            got = {name: call(m) for name, (m, _, call) in steps.items()}
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+            _launched("mesh", launches, ("lc_rwmd_phase1", "spmm_ell",
+                                         "fused_topk", "sinkhorn_wmd"))
+            if sum(mesh.counts.values()):
+                fail(f"a 1x1 mesh issued collectives: {dict(mesh.counts)}")
+            for name, (_, one, call) in steps.items():
+                if not _same(got[name], call(one)):
+                    fail(f"mesh {name}: the 1x1 mesh step differs from the "
+                         "mesh-less one")
+            self_ids = torch.arange(B, device=eng.device)
+            d_self = got["allpairs_d1"][self_ids, self_ids]
+            if not bool((got["stream_k32"].topk.dists[:, 0] <= d_self).all()):
+                fail("mesh stream_k32: a top-1 lies above the query's own "
+                     "distance")
+            if not bool((got["tier0_rerank"].topk.indices[:, 0]
+                         == self_ids).all()):
+                fail("mesh tier0_rerank: a query's top-1 is not itself")
+            del got
+            times = {}
+            for name, (m, one, call) in steps.items():
+                a = wall_ms(lambda: call(m))
+                b = wall_ms(lambda: call(one))
+                times[name] = dict(mesh_ms=[a, wall_ms(lambda: call(m))],
+                                   meshless_ms=[b, wall_ms(lambda: call(one))])
+        finally:
+            dist.destroy_process_group()
+
+    # each model shard's kernel work, rank by rank (its own counts)
+    want = eng.one_sided(q)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    eng.one_sided(q)
+    b1_call = _build.LAUNCHES["lc_rwmd_phase1"]
+    shards = {}
+    for n_sh in MESH_SHARDS:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        total = 0
+        for rank in range(n_sh):
+            total = total + build_serve_step(
+                RankAlone(n_sh, rank, want.device), engine=eng, k=MESH_K,
+                streaming=False, bf16_matmul=False)(q).d_local
+        torch.cuda.synchronize()
+        sl = dict(_build.LAUNCHES)
+        err = (total - want).abs()
+        if bool((err > MESH_TOL * (1 + want.abs())).any()):
+            fail(f"mesh: {n_sh} vocabulary shards' partials do not sum to "
+                 f"one_sided (max |err| {float(err.max())})")
+        if (sl.get("lc_rwmd_phase1", 0) != n_sh * b1_call
+                or sl.get("spmm_ell", 0) != n_sh):
+            fail(f"mesh: {n_sh} shards launched {sl}")
+        shards[n_sh] = dict(b1=sl["lc_rwmd_phase1"], b2=sl["spmm_ell"],
+                            max_abs_err=float(err.max()))
+    del total, want, eng
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        multi = mesh_multi_card(docs, emb, min(cards, 4))
+    else:
+        multi = None
+        log(f"mesh: the multi-card check is skipped: "
+            f"torch.cuda.device_count() = {cards}")
+    info = dict(card=smi, launches=launches, times=times, shards=shards,
+                multi_card=multi,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                s=time.perf_counter() - t_phase)
+    log(f"mesh ({smi}): 1x1 mesh bit-equal to the mesh-less step in "
+        f"{list(steps)}; ms mesh / mesh-less: " + ", ".join(
+            f"{k} {v['mesh_ms'][0]:.2f}/{v['meshless_ms'][0]:.2f}"
+            for k, v in times.items()) + f"; phase {info['s']:.1f} s")
+    log("mesh: " + json.dumps(info, default=float))
+    return info
+
+
 def lcrwmd_phases(scale: float, smi: str) -> dict:
     """Phases 3-6 on one LC-RWMD corpus; returns the kernel report of B1-B7.
 
@@ -3697,13 +3948,18 @@ def lcrwmd_phases(scale: float, smi: str) -> dict:
     # 6c. the corpus workloads on the same corpus (their own counts)
     torch.cuda.empty_cache()
     wl = workloads_phase(docs, corpus.emb, smi)
-    del corpus, docs
     torch.cuda.empty_cache()
 
     # 6d. the examples and the serving launcher (their own counts)
     t0 = time.perf_counter()
     ep = entry_points_phase(smi)
     log(f"entry points phase: {time.perf_counter() - t0:.1f} s")
+
+    # 6e. the mesh on the same corpus (its own counts)
+    torch.cuda.empty_cache()
+    mesh = mesh_phase(docs, corpus.emb, smi)
+    del corpus, docs
+    torch.cuda.empty_cache()
 
     slice_info = dict(
         n_docs=spec.n_docs, v_e=v_e, batch=B, per_call_ms=times,
@@ -3721,6 +3977,8 @@ def lcrwmd_phases(scale: float, smi: str) -> dict:
         report[name]["workloads_launches"] = {
             k: v.get(name, 0) for k, v in wl["launches"].items()}
         report[name]["entry_point_launches"] = ep["launches"].get(name, 0)
+    for name, r in report.items():
+        r["mesh_launches"] = mesh["launches"].get(name, 0)
     return report
 
 
@@ -3776,7 +4034,11 @@ def main() -> int:
             launches=r["launches"], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"]))
+            library_ms=r["library_ms"],
+            mesh_launches=r.get("mesh_launches", 0)))
+        for key in ("workloads_launches", "entry_point_launches"):
+            if key in r:
+                kernels[-1][key] = r[key]
         if name in EXTRA:
             kernels[-1]["extra"] = {k: r[k] for k in EXTRA[name]}
     log("llama3.2-1b: " + json.dumps(lm))

@@ -1,4 +1,4 @@
-"""Top-k smallest-distance selection, local and streaming.
+"""Top-k smallest-distance selection: local, streaming and across ranks.
 
 Every selection and merge shares ONE tie-break contract with the reference:
 candidates are ordered by the lexicographic key ``(distance, global doc id)``
@@ -149,3 +149,46 @@ def merge_topk(parts: Sequence[TopK], k: int) -> TopK:
     d = torch.cat([p.dists for p in parts], dim=-1)
     i = torch.cat([p.indices for p in parts], dim=-1)
     return lex_smallest(d, i, k)
+
+
+def _filler(device: torch.device) -> float:
+    """An unfilled slot's distance: the fused top-k kernel's 3.4e38 on
+    CUDA, the fold's +inf on the CPU (either ranks last by its id)."""
+    return 3.4e38 if device.type == "cuda" else float("inf")
+
+
+def pad_topk(tk: TopK, k: int, fill: float = float("inf")) -> TopK:
+    """``tk`` widened to ``k`` columns with unfilled slots (``fill``, -1)."""
+    pad = k - tk.dists.shape[-1]
+    if pad <= 0:
+        return tk
+    return TopK(torch.nn.functional.pad(tk.dists, (0, pad), value=fill),
+                torch.nn.functional.pad(tk.indices, (0, pad),
+                                        value=EMPTY_IDX))
+
+
+def crossshard_topk(local: TopK, k: int, *, mesh,
+                    axis_names: Sequence[str]) -> TopK:
+    """Merge per-rank (B, k̃) candidates into a global TopK that every rank
+    of ``mesh`` holds.
+
+    ``local.indices`` must already be GLOBAL doc ids.  Each rank's partial
+    is padded to (B, k) with unfilled slots (a shard may hold fewer than k
+    rows), so every gather has one shape; the (distance, id) pairs travel
+    as one int32 tensor, one ``all_gather`` per named axis of size > 1.
+    """
+    local = pad_topk(local, k, _filler(local.dists.device))
+    packed = torch.stack([local.dists.to(torch.float32).contiguous().view(
+        torch.int32), local.indices.to(torch.int32)])
+    packed = mesh.all_gather(packed, axis_names, dim=-1)
+    return lex_smallest(packed[0].view(torch.float32), packed[1], k)
+
+
+def distributed_topk(local_d: torch.Tensor, k: int, *, mesh,
+                     axis_names: Sequence[str], shard_offset: int) -> TopK:
+    """Global top-k of row-sharded distances: ``local_d`` is this rank's
+    (n_local, B) block, whose row 0 is global row ``shard_offset``.  The
+    result is held by every rank of ``axis_names``."""
+    local = topk_smallest(local_d.T, min(k, local_d.shape[0]))   # (B, k̃)
+    local = TopK(local.dists, local.indices + int(shard_offset))
+    return crossshard_topk(local, k, mesh=mesh, axis_names=axis_names)

@@ -1,2 +1,2 @@
-"""The LC-RWMD serve step (counterpart of ``repro.distributed``), with the
-mesh collapsed to one device."""
+"""The LC-RWMD serve step (counterpart of ``repro.distributed``), on one
+device or over a ``torch.distributed`` mesh."""

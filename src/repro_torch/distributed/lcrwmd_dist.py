@@ -1,31 +1,55 @@
-"""The LC-RWMD serve step on one device (counterpart of
-``repro.distributed.lcrwmd_dist``).
+"""The LC-RWMD serve step (counterpart of ``repro.distributed.lcrwmd_dist``).
 
 The reference builds its serve step as a ``shard_map`` program over a
-``(pod, data, model)`` mesh: resident rows over the batch axes, the
-vocabulary over ``model``, the query batch replicated.  With the mesh
-collapsed to one device every collective is the identity, and what is left
-is the per-shard program, run here on the port's kernels:
+``(pod, data, model)`` mesh.  Without a mesh (``mesh=None``) the step runs
+on one device; with one (:mod:`repro_torch.launch.mesh`, on
+``torch.distributed``) every rank runs its shard of the program on its own
+device, with the reference's sharding and collective schedule:
 
-  * phase 1 (Z over the restricted, or for the engine-less step the full,
-    vocabulary) is the phase-1 kernel;
+  resident docs (ids, weights)  -> rows over (pod, data), row-major, in
+                                   contiguous blocks
+  embedding rows (vocabulary)   -> over model, or with ``phase1_full_mesh``
+                                   over (model, *batch axes), model-major
+  query batch                   -> replicated
+
+  1. query embeddings: a masked gather of the rank's rows + psum over
+     model (and the batch axes under a full mesh); the engine steps gather
+     them from the full table on every rank instead, as the reference does
+     outside its kernel;
+  2. phase 1 on the rank's vocabulary rows; under a full mesh the Z slices
+     are all-gathered over the batch axes (in reverse order) into the
+     model span's Z;
+  3. the phase-2 partial on the rank's rows against that span (ids outside
+     it weigh 0), then psum over model;
+  4. the top-k: the rank's (B, kc) candidates all-gathered over the batch
+     axes.
+
+Each shard runs on the port's kernels:
+
+  * phase 1 is the phase-1 kernel;
   * the streaming step is the fused phase-2 top-k kernel, with the
     tombstone mask (``row_valid``) and self-exclusion (``q_gid``) applied
-    inside it; ``streaming=False``, the engine-less step and
-    :func:`build_allpairs_d1` materialize D with the ELL SpMM kernel;
+    inside it; under a mesh with ``model`` > 1 a partial D still needs its
+    sum, so the streaming step runs the ELL SpMM kernel slab by slab
+    (``psum_batch`` · ``row_block`` rows a psum) and folds each summed slab
+    into a :class:`~repro_torch.core.topk.StreamingTopK` carry;
+    ``streaming=False``, the engine-less step and :func:`build_allpairs_d1`
+    materialize D with the ELL SpMM kernel;
   * the WMD rerank is the Sinkhorn-WMD kernel
     (``wmd_candidate_values(use_kernel=True)``, where the reference's
     engine-less rerank runs its batched jnp solver);
   * the symmetric refine is ``core/rwmd.rwmd_pairs_from_t`` on the (B, kc)
     candidate pairs, as the reference computes it in jnp outside any
     kernel; tier 2 is the Word Centroid Distance from resident centroids.
+    Both run replicated on every rank, after the top-k.
 
 On CPU tensors each kernel's plain version runs.  Kept from the reference:
 ``ServeResult``; the tiers (0 the full cascade, 1 the LC-RWMD candidates,
 2 the WCD shortlist); ``pruned_exact``; ``self_exclude`` with
 ``query_ids``; the clamping of ``rerank_budget``; the defaults
-(``bf16_matmul=True``).  A :class:`~repro_torch.core.lc_rwmd.SegmentedEngine`
-step re-reads its state when ``engine.version`` changes, and only then.
+(``bf16_matmul=True``, ``phase1_full_mesh=True``, ``psum_batch=8``).  A
+:class:`~repro_torch.core.lc_rwmd.SegmentedEngine` step re-reads its state
+when ``engine.version`` changes, and only then.
 
 With ``index=`` (a :class:`~repro_torch.index.ClusterIndex`) the step is
 routed: each probed cell runs phase 1 over its own vocabulary and the
@@ -37,12 +61,24 @@ routed (query, cell) pairs are the same.
 ``obs=`` (a :class:`repro_torch.obs.Observability`) records the host time
 of each engine step's call as ``serve_step_host_seconds{variant=mono|seg|
 routed}``: on the card the kernels are queued when the call returns, so
-this is launch cost, not device time.  The routed step counts dropped
-probe cells in ``index_probe_overflow_total`` of its index's ``obs``.
+this is launch cost, not device time.  Under a mesh, the first tier-0 or
+tier-1 call of a monolithic step also sets
+``serve_step_collectives_psum`` and ``serve_step_collectives_all_gather``
+``{variant=mono}`` to the collectives the mesh issued in that call.  The
+reference counts its jaxpr's collectives, those over axes of size 1
+included (and one psum a slab even where ``model`` = 1); the port counts
+what it issues: none over an axis of size 1.  The routed step counts
+dropped probe cells in ``index_probe_overflow_total`` of its index's
+``obs``.
 
-Left out: ``mesh``, ``phase1_full_mesh`` and ``psum_batch`` (the
-multi-device program, and the slab batching of its collectives) and with
-them the ``serve_step_collectives_*`` gauges; the reference's module-level
+Unlike the reference, which returns one global (n, B) array sharded over
+rows, a mesh step's ``d_local`` and :func:`build_allpairs_d1`'s result are
+this rank's own row block, rows :func:`local_rows` of the resident set;
+the ranks of one (pod, data) block hold the same rows.
+
+Left out: the segmented and the routed steps under a mesh of more than one
+rank (ROADMAP A item 7's second half; under a mesh of one they are the
+one-device step, which is the same program); the reference's module-level
 step cache and its re-trace sentinel (eager PyTorch traces nothing, so
 there is nothing to cache or re-trace; the port's cold start is a kernel
 library load, which :mod:`repro_torch.obs.sentinel` watches).
@@ -61,6 +97,8 @@ from repro_torch.core.distances import dists
 from repro_torch.core.lc_rwmd import (
     LCRWMDEngine,
     SegmentedEngine,
+    _offset_topk,
+    _phase1_from_t,
     _segment_dense,
     _segment_topk,
     as_f32,
@@ -72,7 +110,8 @@ from repro_torch.core.wcd import centroids_from_t, resident_centroids
 from repro_torch.core.wmd import wmd_candidate_values
 from repro_torch.data.docs import DocSet
 from repro_torch.device import resolve_device
-from repro_torch.index.cluster_index import pad_topk
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import MODEL_AXIS, batch_axes
 
 TopK = topk_lib.TopK
 _INF = 3.4e38       # the reference's mask value in the serve step
@@ -88,21 +127,35 @@ class ServeResult(NamedTuple):
     tier: int = 0                # the QualityTier the batch was served at
 
 
-def build_serve_step(*, k: int, refine: bool = False, bf16_matmul: bool = True,
+def build_serve_step(mesh=None, *, k: int, refine: bool = False,
+                     bf16_matmul: bool = True, phase1_full_mesh: bool = True,
                      engine=None, rerank_wmd: bool = False,
                      rerank_budget: int | None = None,
                      wmd_kw: dict | None = None, self_exclude: bool = False,
                      streaming: bool | None = None, row_block: int = 128,
-                     device=None, index=None, obs=None):
+                     psum_batch: int = 8, device=None, index=None, obs=None):
     """Returns ``serve(resident, queries, emb) -> ServeResult``, or with an
     ``engine`` ``serve(queries, query_ids=None, *, tier=0)``.
 
+    ``mesh``: a :class:`repro_torch.launch.mesh.Mesh`, or ``None`` for one
+    device.  Under a mesh every rank calls the step with the same
+    arguments; ``ServeResult.topk`` is then the same on every rank, and
+    ``d_local`` is this rank's row block (rows ``local_rows(mesh, n)``).
+    ``phase1_full_mesh`` shards the vocabulary over the whole mesh (each
+    rank's phase 1 scans v / ranks rows, then the Z slices are gathered
+    over the batch axes), ``False`` over ``model`` alone (the paper's
+    mapping: the ranks of a model line repeat one phase 1).
+    ``psum_batch``: under a mesh with ``model`` > 1, the streaming step
+    sums ``psum_batch`` slabs of ``row_block`` rows with one psum; it
+    changes the number of collectives, never the result.  The segmented
+    and routed steps take only a mesh of one rank.
+
     ``engine``: an :class:`LCRWMDEngine` or a :class:`SegmentedEngine`; the
-    step runs on the engine's device (``device``, if given, must be the
-    same).  Without one, the step runs on ``device`` (``None`` → ``"cuda"``,
-    which raises without a card) and takes the resident set each call: the
-    paper-faithful materialized path (no ``streaming``, no
-    ``self_exclude``).
+    step runs on the engine's device (``device``, and a mesh's device, if
+    given, must be the same).  Without one, the step runs on ``device``
+    (``None`` → the mesh's device, else ``"cuda"``, which raises without a
+    card) and takes the resident set each call: the paper-faithful
+    materialized path (no ``streaming``, no ``self_exclude``).
 
     ``refine=True`` tightens the (B, kc) one-sided candidates with the
     symmetric bound evaluated only on those pairs, then re-sorts them.
@@ -127,15 +180,24 @@ def build_serve_step(*, k: int, refine: bool = False, bf16_matmul: bool = True,
     if the engine grew without ``index.add``.
 
     ``obs``: the bundle that ``serve_step_host_seconds`` goes to (engine
-    steps only).
+    steps only), and under a mesh the monolithic step's
+    ``serve_step_collectives_*`` gauges (its first tier-0 or tier-1 call).
     """
     kc = max((rerank_budget or 2 * k) if rerank_wmd else k, k)
     if engine is not None:
         if device is not None and resolve_device(device) != engine.device:
             raise ValueError(f"device {device} is not the engine's "
                              f"({engine.device})")
+        if mesh is not None and not _same_device(mesh.device, engine.device):
+            raise ValueError(f"the mesh's device {mesh.device} is not the "
+                             f"engine's ({engine.device})")
         kc = min(kc, engine.n_docs if isinstance(engine, SegmentedEngine)
                  else engine.resident.n_docs)
+    if (mesh is not None and mesh.size > 1
+            and (index is not None or isinstance(engine, SegmentedEngine))):
+        raise NotImplementedError(
+            "the segmented and routed serve steps run on a mesh of one rank; "
+            "over more ranks they are ROADMAP A item 7's second half")
     if index is not None:
         if not isinstance(engine, SegmentedEngine):
             raise ValueError(
@@ -158,23 +220,40 @@ def build_serve_step(*, k: int, refine: bool = False, bf16_matmul: bool = True,
             engine, k=k, kc=kc, refine=refine, bf16_matmul=bf16_matmul,
             rerank_wmd=rerank_wmd, wmd_kw=wmd_kw, self_exclude=self_exclude))
     if engine is not None:
+        streaming = True if streaming is None else streaming
+        if mesh is not None:
+            return _timed(obs, "mono", _collectives(obs, "mono", mesh,
+                                                    _mesh_engine_serve_step(
+                mesh, engine, k=k, kc=kc, refine=refine,
+                bf16_matmul=bf16_matmul, full_mesh=phase1_full_mesh,
+                rerank_wmd=rerank_wmd, wmd_kw=wmd_kw,
+                self_exclude=self_exclude, streaming=streaming,
+                row_block=row_block, psum_batch=psum_batch)))
         return _timed(obs, "mono", _engine_serve_step(
             engine, k=k, kc=kc, refine=refine, bf16_matmul=bf16_matmul,
             rerank_wmd=rerank_wmd, wmd_kw=wmd_kw, self_exclude=self_exclude,
-            streaming=True if streaming is None else streaming,
-            row_block=row_block))
+            streaming=streaming, row_block=row_block))
     if self_exclude:
         raise ValueError("self_exclude requires an engine-backed serve step")
     if streaming:
         raise ValueError("streaming top-k requires an engine-backed serve step")
-    dev = resolve_device(device)
+    dev = _step_device(mesh, device)
 
     def serve(resident: DocSet, queries: DocSet, emb) -> ServeResult:
         resident, queries = resident.to(dev), queries.to(dev)
         emb = as_f32(emb, dev)
-        d_local = lc_rwmd_one_sided(resident, queries, emb,
-                                    bf16_matmul=bf16_matmul)       # (n, B)
-        tk = topk_lib.topk_smallest_cols(d_local, min(kc, resident.n_docs))
+        if mesh is None:
+            d_local = lc_rwmd_one_sided(resident, queries, emb,
+                                        bf16_matmul=bf16_matmul)   # (n, B)
+            tk = topk_lib.topk_smallest_cols(d_local,
+                                             min(kc, resident.n_docs))
+        else:
+            d_local, (lo, _) = _mesh_one_sided(
+                mesh, resident, queries, emb, bf16_matmul=bf16_matmul,
+                full_mesh=phase1_full_mesh)                 # (n_local, B)
+            tk = topk_lib.distributed_topk(
+                d_local, min(kc, resident.n_docs), mesh=mesh,
+                axis_names=batch_axes(mesh), shard_offset=lo)
         if refine:
             tk = _symmetric_refine(resident, queries, emb, tk)
         if rerank_wmd:
@@ -400,7 +479,7 @@ def _routed_serve_step(engine: SegmentedEngine, index, *, k, kc, refine,
         route = index.route(queries)
         probed, keep = pack(route)
         kcs = state["kc"]
-        tk = pad_topk(index.fold_cells(
+        tk = topk_lib.pad_topk(index.fold_cells(
             queries, kcs, probed, route.cells, keep, symmetric=False,
             q_gid=q_gid, bf16_matmul=bf16_matmul), kcs)
         # An empty slot carries the step's mask value, as in the reference:
@@ -458,18 +537,283 @@ def _wcd_topk(k: int, cent: torch.Tensor, engine, queries: DocSet,
     return topk_lib.topk_smallest_cols(d, k)
 
 
-def build_allpairs_d1(*, bf16_matmul: bool = True, device=None):
+def build_allpairs_d1(mesh=None, *, bf16_matmul: bool = True,
+                      phase1_full_mesh: bool = True, device=None):
     """All-pairs one-sided LC-RWMD: ``d1(set1, set2, emb)`` → D1 (n1, n2).
 
     The symmetric all-pairs bound runs it twice with the sets swapped and
     takes max(D1, D2ᵀ) (paper Sec. IV); n2 plays the role of a query batch
     and callers chunk it.  Phase 1 and the ELL SpMM are the kernels on
-    ``device`` (``None`` → ``"cuda"``).
+    ``device`` (``None`` → the mesh's device, else ``"cuda"``).  Under a
+    ``mesh`` the result is this rank's row block of D1, rows
+    ``local_rows(mesh, n1)``, sharded as the engine-less serve step shards
+    it (``phase1_full_mesh`` likewise).
     """
-    dev = resolve_device(device)
+    dev = _step_device(mesh, device)
 
     def d1(set1: DocSet, set2: DocSet, emb) -> torch.Tensor:
-        return lc_rwmd_one_sided(set1.to(dev), set2.to(dev), as_f32(emb, dev),
-                                 bf16_matmul=bf16_matmul)
+        set1, set2, emb = set1.to(dev), set2.to(dev), as_f32(emb, dev)
+        if mesh is None:
+            return lc_rwmd_one_sided(set1, set2, emb, bf16_matmul=bf16_matmul)
+        return _mesh_one_sided(mesh, set1, set2, emb, bf16_matmul=bf16_matmul,
+                               full_mesh=phase1_full_mesh)[0]
 
     return d1
+
+
+# ---------------------------------------------------------------------------
+# The mesh program
+# ---------------------------------------------------------------------------
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """One device, with a CUDA device of no index read as the current one."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return a.index == b.index
+    cur = torch.cuda.current_device
+    return (cur() if a.index is None else a.index) == (
+        cur() if b.index is None else b.index)
+
+
+def _step_device(mesh, device) -> torch.device:
+    """An engine-less step's device: ``device``, else the mesh's."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None and not _same_device(resolve_device(device),
+                                               mesh.device):
+        raise ValueError(f"device {device} is not the mesh's ({mesh.device})")
+    return mesh.device
+
+
+def _block(n: int, parts: int, i: int) -> tuple[int, int]:
+    """Block ``i`` of ``n`` rows cut into ``parts`` contiguous blocks of
+    ceil(n / parts) rows (the last ones short, or empty)."""
+    size = -(-n // parts)
+    lo = min(i * size, n)
+    return lo, min(lo + size, n)
+
+
+def local_rows(mesh, n: int) -> tuple[int, int]:
+    """The global rows ``[lo, hi)`` of an ``n``-row resident set that this
+    rank holds: row-major over the batch axes (pod, data), contiguous."""
+    b_axes = batch_axes(mesh)
+    return _block(n, mesh.size_over(b_axes), mesh.index_over(b_axes))
+
+
+class _Layout(NamedTuple):
+    rows: tuple[int, int]   # this rank's resident rows [lo, hi)
+    emb: tuple[int, int]    # this rank's embedding (vocabulary) rows
+    span: tuple[int, int]   # the vocabulary span its Z covers after step 2
+    shard: int              # rows of a full embedding shard
+
+
+def _layout(mesh, n: int, v: int, full_mesh: bool) -> _Layout:
+    """Where this rank's rows and vocabulary lie.  The embedding rows are
+    cut into ceil(v / shards)-row blocks, model-major over (model, *batch
+    axes) under a full mesh, over model alone otherwise: the reference's
+    blocks over its zero-padded table."""
+    b_axes = batch_axes(mesh)
+    nb, di = mesh.size_over(b_axes), mesh.index_over(b_axes)
+    nm, mi = mesh.shape[MODEL_AXIS], mesh.coords[MODEL_AXIS]
+    shards, si = (nm * nb, mi * nb + di) if full_mesh else (nm, mi)
+    size = -(-v // shards)
+    emb = _block(v, shards, si)
+    if full_mesh:
+        lo = min(mi * nb * size, v)
+        span = (lo, min(lo + nb * size, v))
+    else:
+        span = emb
+    return _Layout(local_rows(mesh, n), emb, span, size)
+
+
+def _span_z(mesh, z: torch.Tensor, lay: _Layout,
+            full_mesh: bool) -> torch.Tensor:
+    """This rank's Z slice as its model span's Z: under a full mesh the
+    slices of the batch axes, each padded to a whole shard, are gathered
+    (innermost axis first) and the padding cut off."""
+    if not full_mesh:
+        return z
+    pad = lay.shard - z.shape[0]
+    if pad:
+        z = torch.cat([z, z.new_zeros((pad, z.shape[1]))])
+    z = mesh.all_gather(z, tuple(reversed(batch_axes(mesh))), dim=0)
+    return z[:lay.span[1] - lay.span[0]]
+
+
+def _span_ids(ids: torch.Tensor, w: torch.Tensor, span: tuple[int, int],
+              v: int):
+    """ELL ids and weights against the vocabulary span ``[lo, hi)``: ids
+    made span-relative, and slots outside the span at weight 0 and id 0
+    (the SpMM reads no id of a zero-weight slot).  No pass when the span is
+    the whole vocabulary."""
+    lo, hi = span
+    if lo == 0 and hi >= v:
+        return ids, w
+    rel = ids - lo
+    inb = (rel >= 0) & (rel < hi - lo)
+    return (torch.where(inb, rel, 0).to(torch.int32).contiguous(),
+            torch.where(inb, w, 0.0).contiguous())
+
+
+def _phase1_z(emb_loc: torch.Tensor, t_q: torch.Tensor, q_w: torch.Tensor,
+              *, bf16_matmul: bool) -> torch.Tensor:
+    """Z (rows of ``emb_loc``, B) by the phase-1 kernel; none for no rows."""
+    if emb_loc.shape[0] == 0:
+        return t_q.new_zeros((0, q_w.shape[0]))
+    return _phase1_from_t(emb_loc, t_q, q_w, bf16_matmul=bf16_matmul)
+
+
+def _spmm(ids: torch.Tensor, w: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The ELL SpMM kernel; (0, B) for no rows."""
+    if ids.shape[0] == 0:
+        return z.new_zeros((0, z.shape[1]))
+    return ops.spmm_ell(ids, w, z)
+
+
+def _mesh_one_sided(mesh, resident: DocSet, queries: DocSet,
+                    emb: torch.Tensor, *, bf16_matmul: bool, full_mesh: bool):
+    """The engine-less shard program: this rank's rows of D1 (n_local, B)
+    after the psum over model, and their global row range."""
+    v = emb.shape[0]
+    lay = _layout(mesh, resident.n_docs, v, full_mesh)
+    (e_lo, e_hi), (r_lo, r_hi) = lay.emb, lay.rows
+    emb_loc = emb[e_lo:e_hi]
+    b_axes = batch_axes(mesh)
+    # 1. the query embeddings: a masked gather of this rank's rows, summed
+    rel = queries.ids.long() - e_lo
+    inb = (rel >= 0) & (rel < e_hi - e_lo)
+    if e_hi > e_lo:
+        t_q = torch.where(inb[..., None],
+                          emb_loc[rel.clamp(0, e_hi - e_lo - 1)], 0.0)
+    else:
+        t_q = emb.new_zeros((*queries.ids.shape, emb.shape[1]))
+    t_q = mesh.psum(t_q, (*b_axes, MODEL_AXIS) if full_mesh else (MODEL_AXIS,))
+    # 2. phase 1 on this rank's rows, as its model span's Z
+    z = _span_z(mesh, _phase1_z(emb_loc, t_q.reshape(-1, emb.shape[1]),
+                                queries.weights, bf16_matmul=bf16_matmul),
+                lay, full_mesh)
+    # 3. the phase-2 partial of this rank's rows, summed over model
+    ids, w = _span_ids(resident.ids[r_lo:r_hi], resident.weights[r_lo:r_hi],
+                       lay.span, v)
+    return mesh.psum(_spmm(ids, w, z), (MODEL_AXIS,)), lay.rows
+
+
+def _mesh_engine_serve_step(mesh, engine: LCRWMDEngine, *, k, kc, refine,
+                            bf16_matmul, full_mesh, rerank_wmd, wmd_kw,
+                            self_exclude, streaming, row_block, psum_batch):
+    """Serve step over a monolithic :class:`LCRWMDEngine` on a mesh.
+
+    Built once: this rank's rows of the engine's restricted ids and
+    weights (made relative to its model span) and its rows of the
+    restricted embedding table; the engine is the caller's.  A call
+    gathers the query targets from the full table, runs phase 1 on the
+    rank's vocabulary rows, and then:
+
+      * streaming, ``model`` = 1: the fused top-k kernel on the rank's
+        rows (self-exclusion by ``q_gid`` less the rank's first row), its
+        ids made global, then the cross-rank top-k over the batch axes;
+      * streaming, ``model`` > 1: slabs of ``psum_batch · row_block`` rows
+        through the ELL SpMM, one psum over model a slab, the self mask,
+        and a fold into a carry of global ids; then the cross-rank top-k;
+      * ``streaming=False``: the ELL SpMM on the rank's rows, a psum over
+        model, the self mask, then ``distributed_topk``.
+
+    A monolithic engine has no tombstones, so no ``row_valid`` is passed;
+    the port pads no rows, so none needs masking.  Tiers 0–2, the refine
+    and the rerank run replicated, as in the one-device step.
+    """
+    dev = engine.device
+    n_real = engine.resident.n_docs
+    emb_r = engine.emb_restricted
+    v_e = emb_r.shape[0]
+    lay = _layout(mesh, n_real, v_e, full_mesh)
+    (r_lo, r_hi), (e_lo, e_hi) = lay.rows, lay.emb
+    n_loc = r_hi - r_lo
+    emb_loc = emb_r[e_lo:e_hi].contiguous()
+    res = engine.resident_restricted
+    ids_loc, w_loc = _span_ids(res.ids[r_lo:r_hi].contiguous(),
+                               res.weights[r_lo:r_hi].contiguous(), lay.span,
+                               v_e)
+    b_axes = batch_axes(mesh)
+    n_model = mesh.shape[MODEL_AXIS]
+    slab = max(1, row_block) * max(1, psum_batch)
+    state: dict = {}
+
+    def candidates(z, b, q_gid):
+        if not streaming:
+            d = mesh.psum(_spmm(ids_loc, w_loc, z), (MODEL_AXIS,))
+            if q_gid is not None:
+                rows = torch.arange(r_lo, r_hi, dtype=torch.int32, device=dev)
+                d = d.masked_fill(rows[:, None] == q_gid[None, :], _INF)
+            return topk_lib.distributed_topk(d, kc, mesh=mesh,
+                                             axis_names=b_axes,
+                                             shard_offset=r_lo), d
+        if n_loc == 0:
+            local = topk_lib.TopK(torch.empty((b, 0), device=dev),
+                                  torch.empty((b, 0), dtype=torch.int32,
+                                              device=dev))
+        elif n_model == 1:
+            d, i = ops.streaming_phase2_topk(
+                ids_loc, w_loc, z, min(kc, n_loc), row_block=row_block,
+                q_gid=None if q_gid is None else q_gid - r_lo)
+            local = _offset_topk(topk_lib.TopK(d, i), r_lo)
+        else:
+            stk = topk_lib.StreamingTopK(min(kc, n_loc))
+            local = stk.init(b, device=dev)
+            for lo in range(0, n_loc, slab):
+                hi = min(lo + slab, n_loc)
+                d = mesh.psum(ops.spmm_ell(ids_loc[lo:hi], w_loc[lo:hi], z),
+                              (MODEL_AXIS,))                       # (R, B)
+                rows = torch.arange(r_lo + lo, r_lo + hi, dtype=torch.int32,
+                                    device=dev)
+                local = stk.update(local, *topk_lib.masked_entries(
+                    d.T, rows, None, q_gid))
+        return topk_lib.crossshard_topk(local, kc, mesh=mesh,
+                                        axis_names=b_axes), None
+
+    def serve(queries: DocSet, query_ids=None, *, tier: int = 0) -> ServeResult:
+        tier = int(tier)
+        queries = queries.to(dev)
+        q_gid = _query_gids(self_exclude, queries, query_ids, dev)
+        if tier >= 2:   # QualityTier.WCD, replicated
+            if "cent" not in state:
+                state["cent"] = resident_centroids(engine.resident,
+                                                   engine.emb_full)
+            return ServeResult(
+                topk=_wcd_topk(k, state["cent"], engine, queries, q_gid),
+                d_local=None, tier=tier)
+        t_q = engine._gather_flat(queries.ids)
+        z = _span_z(mesh, _phase1_z(emb_loc, t_q, queries.weights,
+                                    bf16_matmul=bf16_matmul), lay, full_mesh)
+        tk, d_local = candidates(z, queries.n_docs, q_gid)
+        return _finish(engine, queries, tk, k=k, kc=kc, n_cover=n_real,
+                       tier=tier, refine=refine, rerank_wmd=rerank_wmd,
+                       wmd_kw=wmd_kw, d_local=d_local)
+
+    return serve
+
+
+def _collectives(obs, variant: str, mesh, serve):
+    """``serve`` with its first tier-0 or tier-1 call's collectives set
+    into ``obs``'s ``serve_step_collectives_{psum,all_gather}{variant=...}``
+    gauges (``serve`` itself without an ``obs``)."""
+    if obs is None:
+        return serve
+    done = [False]
+
+    def counted(queries: DocSet, query_ids=None, *, tier: int = 0):
+        if done[0] or int(tier) >= 2 or not obs.metrics.enabled:
+            return serve(queries, query_ids, tier=tier)
+        before = dict(mesh.counts)
+        out = serve(queries, query_ids, tier=tier)
+        done[0] = True
+        for name in ("psum", "all_gather"):
+            obs.metrics.gauge(
+                f"serve_step_collectives_{name}",
+                "Collectives the mesh issued in one serve-step call (none "
+                "over an axis of size 1).", labels={"variant": variant}).set(
+                    mesh.counts[name] - before.get(name, 0))
+        return out
+
+    return counted

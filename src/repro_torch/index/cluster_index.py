@@ -44,7 +44,7 @@ import torch
 
 from repro_torch.core.distances import dists
 from repro_torch.core.lc_rwmd import EngineSegment, _segment_topk
-from repro_torch.core.topk import TopK, merge_topk, topk_smallest
+from repro_torch.core.topk import TopK, merge_topk, pad_topk, topk_smallest
 from repro_torch.core.wcd import centroids_from_t, resident_centroids
 from repro_torch.data.docs import DocSet
 from repro_torch.workloads.clustering import exact_dists
@@ -468,13 +468,3 @@ class ClusterIndex:
         tk = self.fold_cells(queries, k_out, route.probed, route.cells,
                              route.keep, symmetric=True)
         return pad_topk(tk, k_out)
-
-
-def pad_topk(tk: TopK, k: int) -> TopK:
-    """``tk`` widened to ``k`` columns with (+inf, -1)."""
-    pad = k - tk.dists.shape[-1]
-    if pad <= 0:
-        return tk
-    return TopK(torch.nn.functional.pad(tk.dists, (0, pad), value=_INF),
-                torch.nn.functional.pad(tk.indices, (0, pad), value=-1))
-

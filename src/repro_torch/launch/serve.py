@@ -7,8 +7,8 @@
 A synthetic corpus is loaded into a :class:`QueryServer` on one device and
 a stream of resident docs is served as queries; the self-recall@k says how
 many found themselves.  ``--full`` and ``--multi-pod`` (the reference's
-production serve step on its sharded mesh) raise: the port's multi-GPU
-program is ROADMAP A item 7.
+production serve step on its sharded mesh) raise: the port's launcher
+builds no production mesh yet (ROADMAP A item 7's second half).
 """
 
 from __future__ import annotations
@@ -35,9 +35,9 @@ def main(argv=None) -> dict:
 
     if args.full or args.multi_pod:
         raise NotImplementedError(
-            "--full/--multi-pod build the production serve step on a "
-            "multi-device mesh, which the port does not have yet (ROADMAP A "
-            "item 7); without them the launcher serves on one device")
+            "--full/--multi-pod serve the paper's cells on the production "
+            "mesh, which the port's launcher does not build yet (ROADMAP A "
+            "item 7's second half); without them it serves on one device")
 
     from repro_torch.data.synth import CorpusSpec, make_corpus
     from repro_torch.serving.query_server import QueryServer, ServerConfig

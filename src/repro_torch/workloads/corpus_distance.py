@@ -210,21 +210,18 @@ def corpus_self_topk_distributed(engine, mesh, k: int, *, tile: int = 64,
 
     Streams resident tiles as query batches through the engine-backed serve
     step (:func:`repro_torch.distributed.lcrwmd_dist.build_serve_step`,
-    ``self_exclude=True``): the candidate cascade (one-sided top-k →
-    symmetric refine → optional Sinkhorn rerank) matches serving semantics,
-    so the returned distances are exact symmetric RWMD (or WMD) for the
-    returned pairs.  ``mesh=None`` is one card; the reference shards the
-    tiles over a mesh, which the port does not have yet.
+    ``self_exclude=True``) on ``mesh`` (``None``: one device; under a mesh
+    every rank calls this and gets the same result): the candidate cascade
+    (one-sided top-k → symmetric refine → optional Sinkhorn rerank) matches
+    serving semantics, so the returned distances are exact symmetric RWMD
+    (or WMD) for the returned pairs.  A ``SegmentedEngine`` takes only a
+    mesh of one rank.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "corpus_self_topk_distributed runs on one device (mesh=None); the "
-            "multi-GPU mesh is ROADMAP A item 7")
     from repro_torch.distributed.lcrwmd_dist import build_serve_step
 
     n = engine.resident.n_docs
     tile = min(tile, n)
-    serve = build_serve_step(k=k, engine=engine, refine=refine,
+    serve = build_serve_step(mesh, k=k, engine=engine, refine=refine,
                              bf16_matmul=bf16_matmul, rerank_wmd=rerank_wmd,
                              wmd_kw=wmd_kw, self_exclude=True)
     parts: list[topk_lib.TopK] = []

@@ -1416,3 +1416,61 @@ def test_workload_primitives_and_scheduler_match_the_cpu(cuda):
     assert bool((sg.indices[[3, 470]] == -1).all())
     assert not bool(torch.isin(sg.indices, torch.tensor(
         [3, 470], dtype=torch.int32, device=cuda)).any())
+
+
+def _mesh_pair(cuda):
+    c = make_corpus(CorpusSpec(n_docs=6000, vocab_size=4000, emb_dim=64,
+                               h_max=32, mean_h=18.0, seed=11), device=cuda)
+    return c, tlc.LCRWMDEngine(c.docs, c.emb)
+
+
+@pytest.mark.parametrize("shards", [2, 8])
+def test_mesh_vocab_shard_partials_sum_to_one_sided(cuda, shards):
+    """Each model rank of a (1, shards) mesh, run alone in turn: its B1 on
+    its vocabulary rows and its B2 partial (ids outside its span at weight
+    0) sum in rank order to ``one_sided`` within B2's tolerance."""
+    from torch_mesh_ranks import RankAlone
+
+    from repro_torch.distributed.lcrwmd_dist import build_serve_step
+
+    c, eng = _mesh_pair(cuda)
+    q = c.docs[:64]
+    _build.reset_launches()
+    want = eng.one_sided(q)
+    b1 = _build.LAUNCHES["lc_rwmd_phase1"]
+    _build.reset_launches()
+    total = 0
+    for rank in range(shards):
+        step = build_serve_step(RankAlone(shards, rank, cuda), engine=eng,
+                                k=8, streaming=False, bf16_matmul=False)
+        total = total + step(q).d_local
+    assert _build.LAUNCHES["lc_rwmd_phase1"] == shards * b1
+    assert _build.LAUNCHES["spmm_ell"] == shards
+    torch.testing.assert_close(total, want, rtol=1e-5, atol=1e-5)
+
+
+def test_mesh_of_one_step_is_the_meshless_step_on_the_card(cuda):
+    """On a mesh of one rank (no process group), the monolithic step
+    (streaming and materialized, self-excluding), the engine-less step and
+    the all-pairs D1 equal the mesh-less ones bit for bit."""
+    from repro_torch.distributed.lcrwmd_dist import (build_allpairs_d1,
+                                                     build_serve_step)
+    from repro_torch.launch.mesh import make_host_mesh
+
+    c, eng = _mesh_pair(cuda)
+    mesh = make_host_mesh()
+    assert mesh.device.type == "cuda" and mesh.size == 1
+    q, ids = c.docs[:64], torch.arange(64, device=cuda)
+    for streaming in (True, False):
+        kw = dict(k=32, engine=eng, self_exclude=True, streaming=streaming)
+        a = build_serve_step(mesh, **kw)(q, ids)
+        b = build_serve_step(**kw)(q, ids)
+        assert torch.equal(a.topk.dists, b.topk.dists)
+        assert torch.equal(a.topk.indices, b.topk.indices)
+        assert streaming or torch.equal(a.d_local, b.d_local)
+    a = build_serve_step(mesh, k=32)(c.docs, q, c.emb)
+    b = build_serve_step(k=32)(c.docs, q, c.emb)
+    assert torch.equal(a.topk.indices, b.topk.indices)
+    assert torch.equal(a.d_local, b.d_local)
+    assert torch.equal(build_allpairs_d1(mesh)(c.docs, q, c.emb),
+                       build_allpairs_d1()(c.docs, q, c.emb))

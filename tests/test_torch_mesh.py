@@ -1,0 +1,386 @@
+"""The port's mesh program (``repro_torch.launch.mesh``, the cross-rank
+top-k, the serve step and all-pairs D1 under a mesh) against the
+reference, on the CPU.
+
+In process, on a mesh of one rank (no process group): each step equals the
+port's mesh-less step bit for bit, and the reference's step on
+``make_host_mesh(1, 1)`` within ``test_torch_engine``'s tolerances (2.5e-2
+absolute, the gram form's noise; 1e-4 relative; ids exact where the
+neighbouring gaps exceed that).
+
+On eight ranks: ``tests/torch_mesh_ranks.rank_main`` is spawned as 8
+gloo ranks (``torch.multiprocessing``; a file rendezvous under the test's
+temporary directory, one thread each) over the meshes of
+``tests/dist_check.py``:
+(4, 2), (2, 2, 2), (1, 8) and (8, 1), each with ``phase1_full_mesh`` False
+and True.  The spawn runs once and every eight-rank test reads its files.
+The ranks' results are held against the reference's single-device
+``lc_rwmd_one_sided`` and ``topk_smallest`` and its engine step, computed
+here, within ``dist_check.py``'s tolerance (1e-4 relative, 1e-2 absolute;
+ids by the distance they name, as there).
+"""
+
+import time
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+from repro.core import lc_rwmd as jlc
+from repro.core import lc_rwmd_one_sided, topk_smallest
+from repro.data.synth import CorpusSpec, make_corpus
+from repro.distributed import lcrwmd_dist as jd
+from repro.launch.mesh import make_host_mesh as jmesh
+from repro_torch.convert import from_numpy
+from repro_torch.core import lc_rwmd as tlc
+from repro_torch.core import topk as ttk
+from repro_torch.distributed import lcrwmd_dist as td
+from repro_torch.launch import mesh as tmesh
+from repro_torch.workloads import corpus_distance as tcd
+import torch_mesh_ranks
+from test_torch_engine import _np, assert_topk_close
+from test_torch_segments import RERANK_KW
+
+K = 6
+B = 8
+# few Sinkhorn iterations: tier 0 is held to the mesh-less step bit for bit
+RERANK = dict(refine=True, rerank_wmd=True, rerank_budget=2 * K,
+              wmd_kw=dict(RERANK_KW, max_iters=5))
+
+
+@pytest.fixture(scope="module")
+def small(small_corpus):
+    docs, emb = from_numpy(np.asarray(small_corpus.docs.ids),
+                           np.asarray(small_corpus.docs.weights),
+                           small_corpus.emb, device="cpu")
+    return small_corpus, docs, emb
+
+
+@pytest.fixture(scope="module")
+def jeng(small_corpus):
+    return jlc.LCRWMDEngine(small_corpus.docs, small_corpus.emb, row_block=32)
+
+
+@pytest.fixture(scope="module")
+def one():
+    return tmesh.make_host_mesh(device="cpu")
+
+
+def _equal(a, b):
+    assert torch.equal(a.topk.dists, b.topk.dists)
+    assert torch.equal(a.topk.indices, b.topk.indices)
+    for x, y in ((a.d_local, b.d_local), (a.pruned_exact, b.pruned_exact)):
+        assert (x is None) == (y is None)
+        assert x is None or torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# The mesh
+# ---------------------------------------------------------------------------
+def test_mesh_of_one_needs_no_process_group(one):
+    assert not torch.distributed.is_initialized()
+    assert tmesh.mesh_axis_names(one) == ("data", "model")
+    assert tmesh.batch_axes(one) == ("data",) and tmesh.n_chips(one) == 1
+    three = tmesh.make_host_mesh(1, 1, 1, device="cpu")
+    assert three.axis_names == ("pod", "data", "model")
+    assert tmesh.batch_axes(three) == ("pod", "data")
+    assert three.coords == {"pod": 0, "data": 0, "model": 0}
+    x = torch.arange(6.0).reshape(2, 3)
+    assert one.psum(x, ("data", "model")) is x
+    assert one.all_gather(x, ("data",), dim=1) is x
+    assert sum(one.counts.values()) == 0
+    assert td.local_rows(one, 96) == (0, 96)
+
+
+def test_mesh_must_be_the_world():
+    for shape in ((2, 1), (1, 2), (1, 1, 2)):
+        with pytest.raises(ValueError, match="> 1 ranks"):
+            tmesh.make_host_mesh(*shape, device="cpu")
+    for multi_pod in (False, True):
+        with pytest.raises(ValueError, match="ranks"):
+            tmesh.make_production_mesh(multi_pod=multi_pod)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tmesh.make_host_mesh()
+
+
+@pytest.mark.parametrize("n_local", [3, 10])
+def test_distributed_topk_on_one_rank(one, n_local):
+    """The local top-k, its ids moved by the offset, and a partial shorter
+    than k padded with unfilled slots that rank last."""
+    g = torch.Generator().manual_seed(n_local)
+    d = torch.rand(n_local, 4, generator=g)
+    got = ttk.distributed_topk(d, 5, mesh=one, axis_names=("data",),
+                               shard_offset=40)
+    want = ttk.topk_smallest(d.T, min(5, n_local))
+    assert got.dists.shape == (4, 5)
+    assert torch.equal(got.dists[:, :want.dists.shape[1]], want.dists)
+    assert torch.equal(got.indices[:, :want.dists.shape[1]], want.indices + 40)
+    assert (got.indices[:, n_local:] == -1).all()
+    assert torch.isinf(got.dists[:, n_local:]).all()
+
+
+# ---------------------------------------------------------------------------
+# A mesh of one: bit for bit the mesh-less step, close to the reference
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("refine", [False, True])
+def test_engineless_step_on_a_mesh_of_one(one, small, refine):
+    c, docs, emb = small
+    kw = dict(k=7, refine=refine, bf16_matmul=False)
+    got = td.build_serve_step(one, **kw)(docs, docs[:5], emb)
+    _equal(got, td.build_serve_step(device="cpu", **kw)(docs, docs[:5], emb))
+    want = jd.build_serve_step(jmesh(1, 1), **kw)(c.docs, c.docs[:5],
+                                                  jnp.asarray(c.emb))
+    np.testing.assert_allclose(_np(got.d_local), _np(want.d_local),
+                               rtol=1e-4, atol=2.5e-2)
+    assert_topk_close(got.topk, want.topk)
+
+
+@pytest.mark.parametrize("full_mesh", [False, True])
+def test_allpairs_d1_on_a_mesh_of_one(one, small, full_mesh):
+    c, docs, emb = small
+    got = td.build_allpairs_d1(one, bf16_matmul=False,
+                               phase1_full_mesh=full_mesh)(docs, docs[:4], emb)
+    assert torch.equal(got, td.build_allpairs_d1(bf16_matmul=False,
+                                                 device="cpu")(docs, docs[:4],
+                                                               emb))
+    want = jd.build_allpairs_d1(jmesh(1, 1), bf16_matmul=False,
+                                phase1_full_mesh=full_mesh)(
+        c.docs, c.docs[:4], jnp.asarray(c.emb))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=2.5e-2)
+
+
+def test_refine_only_tightens_on_a_mesh(one, small):
+    _, docs, emb = small
+    queries = docs[8:12]
+    base = td.build_serve_step(one, k=6, bf16_matmul=False)(docs, queries, emb)
+    ref = td.build_serve_step(one, k=6, refine=True, bf16_matmul=False)(
+        docs, queries, emb)
+    for j in range(4):
+        d1 = dict(zip(base.topk.indices[j].tolist(),
+                      base.topk.dists[j].tolist()))
+        for i, d in zip(ref.topk.indices[j].tolist(),
+                        ref.topk.dists[j].tolist()):
+            assert d >= d1[i]
+
+
+@pytest.mark.parametrize("streaming, tier",
+                         [(True, 0), (True, 1), (True, 2), (False, 1)])
+def test_monolithic_step_on_a_mesh_of_one(one, small, jeng, streaming, tier):
+    """Self-excluding, with the refine and the rerank configured: the mesh
+    step is the mesh-less step bit for bit at every tier, and tiers 1 and 2
+    match the reference's.  (Tier 2 never reads ``streaming``; tier 0 runs
+    tier 1's candidates through the same replicated refine and rerank.)"""
+    c, docs, emb = small
+    ids = torch.arange(B, dtype=torch.int32)
+    eng = tlc.LCRWMDEngine(docs, emb, device="cpu", row_block=32)
+    kw = dict(k=K, bf16_matmul=False, self_exclude=True, streaming=streaming,
+              row_block=32, **RERANK)
+    got = td.build_serve_step(one, engine=eng, **kw)(docs[:B], ids, tier=tier)
+    _equal(got, td.build_serve_step(engine=eng, **kw)(docs[:B], ids,
+                                                      tier=tier))
+    assert got.tier == tier and not (got.topk.indices == ids[:, None]).any()
+    if tier:
+        want = jd.build_serve_step(jmesh(1, 1), engine=jeng, **kw)(
+            c.docs[:B], query_ids=jnp.arange(B), tier=tier)
+        assert_topk_close(got.topk, want.topk)
+
+
+def test_corpus_self_topk_distributed_on_a_mesh_of_one(one, small):
+    """Bit for bit the mesh-less run, which
+    ``test_torch_workloads.test_self_topk_distributed_matches_reference``
+    holds against the reference's run on ``make_host_mesh(1, 1)``."""
+    _, docs, emb = small
+    eng = tlc.LCRWMDEngine(docs, emb, device="cpu")
+    got = tcd.corpus_self_topk_distributed(eng, one, 4, tile=48)
+    same = tcd.corpus_self_topk_distributed(eng, None, 4, tile=48)
+    assert torch.equal(got.dists, same.dists)
+    assert torch.equal(got.indices, same.indices)
+    assert not (got.indices == torch.arange(96)[:, None]).any()
+
+
+def test_segmented_step_on_a_mesh_of_one_is_the_one_device_step(one, small):
+    _, docs, emb = small
+    seg = tlc.SegmentedEngine(docs, emb, device="cpu")
+    kw = dict(k=K, bf16_matmul=False, refine=True)
+    _equal(td.build_serve_step(one, engine=seg, **kw)(docs[:B]),
+           td.build_serve_step(engine=seg, **kw)(docs[:B]))
+
+
+def test_mesh_device_must_be_the_engines(one, small):
+    _, docs, emb = small
+    eng = tlc.LCRWMDEngine(docs, emb, device="cpu")
+    meta = types.SimpleNamespace(size=1, device=torch.device("meta"))
+    with pytest.raises(ValueError, match="mesh's device"):
+        td.build_serve_step(meta, k=3, engine=eng)
+    with pytest.raises(ValueError, match="mesh's"):
+        td.build_serve_step(one, k=3, device="meta")
+    with pytest.raises(ValueError, match="mesh's"):
+        td.build_allpairs_d1(one, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# Eight gloo ranks, one spawn
+# ---------------------------------------------------------------------------
+MESHES = {"d4m2": (4, 2, None), "p2d2m2": (2, 2, 2), "d1m8": (1, 8, None),
+          "d8m1": (8, 1, None)}
+N, QB, KK, ROW_BLOCK = 64, 6, 5, 4
+RTOL, ATOL = 1e-4, 1e-2          # tests/dist_check.py's
+_RUN: dict = {}
+
+
+def _ranks(tmp_path_factory) -> dict:
+    """Spawn the 8 ranks once (inputs written here, from the reference's
+    corpus generator); returns the corpus, the references and each rank's
+    results."""
+    if _RUN:
+        return _RUN
+    corpus = make_corpus(CorpusSpec(n_docs=N, vocab_size=512, emb_dim=32,
+                                    h_max=8, mean_h=5.0, seed=3))
+    ds, emb = corpus.docs, jnp.asarray(corpus.emb)
+    out = tmp_path_factory.mktemp("mesh_ranks")
+    inputs = out / "inputs.npz"
+    np.savez(inputs, ids=np.asarray(ds.ids), weights=np.asarray(ds.weights),
+             emb=np.asarray(corpus.emb), b=QB, k=KK, row_block=ROW_BLOCK)
+    ctx = mp.spawn(torch_mesh_ranks.rank_main, args=(str(inputs), str(out)),
+                   nprocs=torch_mesh_ranks.WORLD, join=False)
+    try:
+        # the references, while the ranks run
+        d_ref = np.asarray(lc_rwmd_one_sided(ds, ds[:QB], emb))      # (n, B)
+        jeng = jlc.LCRWMDEngine(ds, corpus.emb, row_block=ROW_BLOCK)
+        mono_ref = jd.build_serve_step(
+            jmesh(1, 1), k=KK, bf16_matmul=False, engine=jeng,
+            self_exclude=True, row_block=ROW_BLOCK)(
+                ds[:QB], query_ids=jnp.arange(QB))
+        deadline = time.monotonic() + 270
+        while not ctx.join(timeout=1):      # raises if a rank failed
+            assert time.monotonic() < deadline, "the ranks did not finish"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [dict(np.load(out / f"rank{i}.npz")) for i in range(8)]
+    _RUN.update(ranks=ranks, d_ref=d_ref, mono_ref=mono_ref)
+    return _RUN
+
+
+def _check_topk(dists, idx, d_ref, want_dists, what):
+    """Distances within tolerance of the reference's; each id names a doc
+    at (within tolerance) the distance of its slot."""
+    np.testing.assert_allclose(dists, want_dists, rtol=RTOL, atol=ATOL,
+                               err_msg=what)
+    for j in range(idx.shape[0]):
+        np.testing.assert_allclose(d_ref[idx[j], j], want_dists[j],
+                                   rtol=RTOL, atol=ATOL, err_msg=what)
+
+
+def _self_masked(d_ref):
+    d = d_ref.copy()
+    d[np.arange(QB), np.arange(QB)] = np.inf
+    return d
+
+
+def _blocks_cover(run, name, key, want):
+    """Every rank's row block of ``key`` matches ``want``'s rows, and the
+    blocks of one model column cover all rows."""
+    seen = np.zeros(N, bool)
+    for r in run["ranks"]:
+        lo, hi = r[f"{name}/rows"]
+        np.testing.assert_allclose(r[key], want[lo:hi], rtol=RTOL, atol=ATOL,
+                                   err_msg=key)
+        seen[lo:hi] = True
+    assert seen.all()
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("full_mesh", [0, 1])
+@pytest.mark.parametrize("name", list(MESHES))
+def test_eight_ranks_engineless_step(tmp_path_factory, name, full_mesh):
+    run = _ranks(tmp_path_factory)
+    d_ref = run["d_ref"]
+    want = np.asarray(topk_smallest(jnp.asarray(d_ref).T, KK).dists)
+    tag = f"{name}/fm{full_mesh}/el"
+    r0 = run["ranks"][0]
+    _check_topk(r0[f"{tag}/d"], r0[f"{tag}/i"], d_ref, want, tag)
+    _blocks_cover(run, name, f"{tag}/d_local", d_ref)
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("full_mesh", [0, 1])
+@pytest.mark.parametrize("name", list(MESHES))
+def test_eight_ranks_allpairs_d1(tmp_path_factory, name, full_mesh):
+    run = _ranks(tmp_path_factory)
+    _blocks_cover(run, name, f"{name}/fm{full_mesh}/d1", run["d_ref"])
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("full_mesh", [0, 1])
+@pytest.mark.parametrize("name", ["p2d2m2", "d1m8"])
+def test_eight_ranks_monolithic_step(tmp_path_factory, name, full_mesh):
+    """Self-excluding: streaming at psum_batch 1 and 8 bit for bit, and the
+    materialized step, against the reference engine's step and the
+    single-device distances with each query's own row left out."""
+    run = _ranks(tmp_path_factory)
+    r0 = run["ranks"][0]
+    tag = f"{name}/fm{full_mesh}"
+    assert np.array_equal(r0[f"{tag}/stream1/d"], r0[f"{tag}/stream8/d"])
+    assert np.array_equal(r0[f"{tag}/stream1/i"], r0[f"{tag}/stream8/i"])
+    d_self = _self_masked(run["d_ref"])
+    want = np.asarray(run["mono_ref"].topk.dists)
+    np.testing.assert_allclose(want, np.sort(d_self, axis=0)[:KK].T,
+                               rtol=RTOL, atol=ATOL)
+    for mode in ("stream1", "dense"):
+        _check_topk(r0[f"{tag}/{mode}/d"], r0[f"{tag}/{mode}/i"], d_self,
+                    want, f"{tag}/{mode}")
+    d_masked = np.where(np.isinf(d_self), 3.4e38, d_self)
+    _blocks_cover(run, name, f"{tag}/dense/d_local", d_masked)
+
+
+@pytest.mark.timeout(300)
+def test_eight_ranks_hold_one_topk(tmp_path_factory):
+    ranks = _ranks(tmp_path_factory)["ranks"]
+    keys = [k for k in ranks[0] if k.endswith(("/d", "/i"))]
+    assert len(keys) == 2 * (8 + 4 * 3)
+    for r in ranks[1:]:
+        for key in keys:
+            assert np.array_equal(r[key], ranks[0][key]), key
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("full_mesh", [0, 1])
+@pytest.mark.parametrize("name", ["d1m8", "d8m1"])
+def test_eight_ranks_collective_counts(tmp_path_factory, name, full_mesh):
+    """``serve_step_collectives_*`` of the monolithic streaming step: one
+    psum over model a slab of psum_batch · row_block rows (none where
+    model = 1), and one all_gather over each batch axis of size > 1 for
+    the top-k, one more for Z under a full mesh."""
+    r0 = _ranks(tmp_path_factory)["ranks"][0]
+    data, model, _ = MESHES[name]
+    n_local = -(-N // data)
+    for psb in (1, 8):
+        psum = -(-n_local // (ROW_BLOCK * psb)) if model > 1 else 0
+        gather = (data > 1) * (1 + full_mesh)
+        tag = f"{name}/fm{full_mesh}/count{psb}"
+        assert int(r0[f"{tag}/psum"]) == psum
+        assert int(r0[f"{tag}/all_gather"]) == gather
+
+
+@pytest.mark.timeout(300)
+def test_eight_ranks_refusals_and_layout(tmp_path_factory):
+    ranks = _ranks(tmp_path_factory)["ranks"]
+    for r in ranks:
+        for name in ("segmented", "routed"):
+            msg = str(r[f"raise/{name}"])
+            assert msg.startswith("NotImplementedError") and "item 7" in msg
+        assert str(r["raise/smaller"]).startswith("ValueError")
+        assert str(r["raise/larger"]).startswith("ValueError")
+    for name, (data, model, pod) in MESHES.items():
+        shape = (pod or 1, data, model)
+        for rank, r in enumerate(ranks):     # row-major, model fastest
+            assert tuple(r[f"{name}/coords"]) == np.unravel_index(rank, shape)
+            block = -(-N // (shape[0] * data))
+            lo = (rank // model) * block
+            assert tuple(r[f"{name}/rows"]) == (lo, min(lo + block, N))

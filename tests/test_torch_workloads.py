@@ -14,6 +14,8 @@ cross-corpus top-k fails on 2 of 384 such ids), so ids are compared only
 where the reference's neighbouring gaps exceed 1e-2.
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -223,8 +225,11 @@ def test_self_topk_distributed_matches_reference(small_corpus, engines):
         je, make_host_mesh(data=1, model=1), 4, tile=40, refine=True)
     _assert_topk(got, want)
     assert not (got.indices.numpy() == np.arange(96)[:, None]).any()
+    # over more than one rank a segmented engine has no mesh program yet
+    eight = types.SimpleNamespace(size=8, device=te.device)
+    seg = tlc.SegmentedEngine(te.resident, te.emb_full, device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
-        tcd.corpus_self_topk_distributed(te, object(), 4)
+        tcd.corpus_self_topk_distributed(seg, eight, 4)
 
 
 # ---------------------------------------------------------------------------
