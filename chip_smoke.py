@@ -175,9 +175,23 @@ Phases, each of which exits non-zero on failure:
    shards run rank by rank, their B1 + B2 partials summed against
    ``one_sided`` within B2's tolerance (launches counted); with two cards
    or more, min(cards, 4) spawned NCCL ranks at (1, n) and (n, 1) on the
-   first 65,536 docs against the one-card step (skipped, and logged, on
-   one card).  The peak memory and the phase's seconds are printed; each
-   kernel's entry in the kernels line carries its ``mesh_launches``.
+   first 65,536 docs, the monolithic step and the segmented one over two
+   segments with a tombstone every 97th doc, against the one-card steps
+   (skipped, and logged, on one card).  The peak memory and the phase's
+   seconds are printed; each kernel's entry in the kernels line carries
+   its ``mesh_launches``: this phase's and 6f's, summed, and apart in
+   ``mesh_launches_by_phase``.
+6f. (inside 6, after the index phase and before ``compact``, on its
+   engine and its 64-cell index) the segmented and routed steps and the
+   server on a 1x1 mesh, in a world-size-1 NCCL group set up and torn
+   down there, with the counts reset just before and read just after:
+   the segmented step (k = 32), its tier 0 with the refine and the
+   rerank (budget 64), the routed step (top_p 4) and a ``QueryServer``
+   on the mesh answering the 64 queries; B1, B3 and B4 must run and no
+   collective be issued; each equal to the mesh-less call (and the
+   mesh-less server) bit for bit, the steps timed beside it, no dead doc
+   or filler in a result, every query finding itself in the server's
+   answers.  The peak memory and the phase's seconds are printed.
 7. flash attention: the kernel against its plain version at llama3.2-1b's
    heads (B=4, S=T=4,096, 32 query and 8 KV heads, dh 64), causal in bf16
    and f32, non-causal, at a length that is not a tile multiple, and with
@@ -2222,6 +2236,9 @@ def segmented_phase(docs, emb, labels, smi: str) -> dict:
     t0 = time.perf_counter()
     idx, index_info = index_phase(eng, q, res, kw, true, smi)
     log(f"index phase (before compact): {time.perf_counter() - t0:.1f} s")
+    # 6f. the segmented and routed steps and the server on a 1x1 mesh
+    mesh_info = mesh_segmented_phase(eng, idx, docs, emb, q, smi)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
     # compact: one segment, the same ids and answers
@@ -2275,6 +2292,7 @@ def segmented_phase(docs, emb, labels, smi: str) -> dict:
     log(f"index lifecycle (after compact): {time.perf_counter() - t0:.1f} s")
     log("index: " + json.dumps(index_info))
     info["index"] = index_info
+    info["mesh"] = mesh_info
     return info
 
 
@@ -3590,11 +3608,26 @@ def _same(a, b) -> bool:
     return all(_same(x, y) for x, y in zip(a, b) if not isinstance(x, int))
 
 
+def _mesh_segments(docs, emb, device):
+    """The multi-card check's segmented engine: two segments split at
+    ``MESH_SEG_SPLIT`` (or half the docs), a tombstone every
+    ``MESH_SEG_DEAD_EVERY``-th doc from doc 64."""
+    import numpy as np
+
+    from repro_torch.core.lc_rwmd import SegmentedEngine
+
+    cut = min(MESH_SEG_SPLIT, docs.n_docs // 2)
+    seg = SegmentedEngine(docs[:cut], emb, device=device)
+    seg.append(docs[cut:])
+    seg.delete(np.arange(64, docs.n_docs, MESH_SEG_DEAD_EVERY))
+    return seg
+
+
 def _mesh_rank(rank: int, n: int, device_type: str, inputs: str,
                out_dir: str) -> None:
     """One rank of the multi-card check: a file rendezvous (NCCL on the
     card, gloo on the CPU), a copy of the docs on its own device, and the
-    monolithic streaming step at (1, n) and (n, 1)."""
+    monolithic and the segmented streaming steps at (1, n) and (n, 1)."""
     import os
 
     import numpy as np
@@ -3615,16 +3648,21 @@ def _mesh_rank(rank: int, n: int, device_type: str, inputs: str,
         data = np.load(inputs)
         docs = DocSet(ids=torch.tensor(data["ids"], device=dev),
                       weights=torch.tensor(data["weights"], device=dev))
-        eng = LCRWMDEngine(docs, data["emb"], device=dev)
+        engines = {"": LCRWMDEngine(docs, data["emb"], device=dev),
+                   "seg/": _mesh_segments(docs, data["emb"], dev)}
         out = {}
         for name, shape in (("1xn", (1, n)), ("nx1", (n, 1))):
             mesh = make_host_mesh(*shape, device=device_type)
-            tk = build_serve_step(mesh, k=int(data["k"]), engine=eng,
-                                  bf16_matmul=False)(docs[:int(data["b"])]).topk
-            out[f"{name}/d"] = tk.dists.cpu().numpy()
-            out[f"{name}/i"] = tk.indices.cpu().numpy()
-            out[f"{name}/collectives"] = np.array(
-                [mesh.counts["psum"], mesh.counts["all_gather"]])
+            for tag, eng in engines.items():
+                before = (mesh.counts["psum"], mesh.counts["all_gather"])
+                tk = build_serve_step(mesh, k=int(data["k"]), engine=eng,
+                                      bf16_matmul=False)(
+                    docs[:int(data["b"])]).topk
+                out[f"{tag}{name}/d"] = tk.dists.cpu().numpy()
+                out[f"{tag}{name}/i"] = tk.indices.cpu().numpy()
+                out[f"{tag}{name}/collectives"] = np.array(
+                    [mesh.counts["psum"] - before[0],
+                     mesh.counts["all_gather"] - before[1]])
         np.savez(f"{out_dir}/rank{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
@@ -3632,8 +3670,9 @@ def _mesh_rank(rank: int, n: int, device_type: str, inputs: str,
 
 def mesh_multi_card(docs, emb, n: int, device_type: str = "cuda") -> dict:
     """``n`` spawned ranks, one device each, on the first
-    ``MESH_SPAWN_DOCS`` docs: every rank's TopK the same, and within B2's
-    tolerance of the one-device step's (ids by the distance they name)."""
+    ``MESH_SPAWN_DOCS`` docs, monolithic and as two segments with
+    tombstones: every rank's TopK the same, and within B2's tolerance of
+    the one-device step's (ids by the distance they name)."""
     import tempfile
 
     import numpy as np
@@ -3644,11 +3683,13 @@ def mesh_multi_card(docs, emb, n: int, device_type: str = "cuda") -> dict:
     from repro_torch.distributed.lcrwmd_dist import build_serve_step
 
     sub = docs[:min(MESH_SPAWN_DOCS, docs.n_docs)]
-    eng = LCRWMDEngine(sub, emb, device=sub.device)
     q = sub[:B]
-    want = build_serve_step(k=MESH_K, engine=eng, bf16_matmul=False)(q).topk
-    d_one = eng.one_sided(q).cpu().numpy()
-    want_d = want.dists.cpu().numpy()
+    wants = {}
+    for tag, eng in (("", LCRWMDEngine(sub, emb, device=sub.device)),
+                     ("seg/", _mesh_segments(sub, emb, sub.device))):
+        want = build_serve_step(k=MESH_K, engine=eng, bf16_matmul=False)(q)
+        wants[tag] = (want.topk.dists.cpu().numpy(),
+                      eng.one_sided(q).cpu().numpy())
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="mesh_ranks_") as tmp:
         inputs = f"{tmp}/inputs.npz"
@@ -3659,8 +3700,9 @@ def mesh_multi_card(docs, emb, n: int, device_type: str = "cuda") -> dict:
                  join=True)
         ranks = [dict(np.load(f"{tmp}/rank{r}.npz")) for r in range(n)]
     info = dict(ranks=n, docs=sub.n_docs, s=time.perf_counter() - t0)
-    tol = MESH_TOL * (1 + np.abs(want_d))
-    for name in ("1xn", "nx1"):
+    for name in [f"{t}{s}" for t in wants for s in ("1xn", "nx1")]:
+        want_d, d_one = wants[name[:-3]]
+        tol = MESH_TOL * (1 + np.abs(want_d))
         d, i = ranks[0][f"{name}/d"], ranks[0][f"{name}/i"]
         if not all(np.array_equal(r[f"{name}/{x}"], ranks[0][f"{name}/{x}"])
                    for r in ranks for x in ("d", "i")):
@@ -3688,7 +3730,8 @@ def mesh_phase(docs, emb, smi: str) -> dict:
     rank by rank in this process, its B1 and B2 partial, the partials
     summed in rank order against ``one_sided`` within B2's tolerance (B1
     and B2 launches counted); and, where there are two cards or more,
-    min(cards, 4) spawned NCCL ranks at (1, n) and (n, 1)."""
+    min(cards, 4) spawned NCCL ranks at (1, n) and (n, 1), the monolithic
+    and the segmented step."""
     import tempfile
 
     import torch
@@ -3807,6 +3850,112 @@ def mesh_phase(docs, emb, smi: str) -> dict:
             f"{k} {v['mesh_ms'][0]:.2f}/{v['meshless_ms'][0]:.2f}"
             for k, v in times.items()) + f"; phase {info['s']:.1f} s")
     log("mesh: " + json.dumps(info, default=float))
+    return info
+
+
+MESH_SEG_SPLIT = 49_152   # the multi-card check's segments: [0, this), the rest
+MESH_SEG_DEAD_EVERY = 97  # and a tombstone every 97th doc from doc 64
+
+
+def mesh_segmented_phase(eng, idx, docs, emb, q, smi: str) -> dict:
+    """The segmented and routed steps and ``QueryServer`` on a 1x1 mesh,
+    over the segmented phase's engine (4 segments, its tombstones) and its
+    64-cell index, in a world-size-1 NCCL group set up and torn down here.
+    With the counts reset just before and read just after: the segmented
+    step (k = 32), its tier 0 with the refine and the rerank (budget 64),
+    the routed step (top_p 4) and a ``QueryServer`` on the mesh answering
+    the 64 queries (its own engine of all the docs); B1, B3 and B4 must
+    each run, and no collective be issued.  Each equal to the mesh-less
+    call (and server) bit for bit, the steps timed beside it."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.lcrwmd_dist import build_serve_step
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving import QueryServer, ServerConfig
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(k=MESH_K, bf16_matmul=False)
+    rerank = dict(refine=True, rerank_wmd=True, rerank_budget=MESH_BUDGET,
+                  wmd_kw=KW_RERANK)
+    builds = {
+        "seg_k32": lambda m: build_serve_step(m, engine=eng, **kw),
+        "seg_tier0_rerank": lambda m: build_serve_step(m, engine=eng, **kw,
+                                                       **rerank),
+        "routed_p4": lambda m: build_serve_step(m, engine=eng, index=idx,
+                                                **kw),
+    }
+    cfg = dict(k=SERVE_K, max_batch=B, h_max=48, refine_symmetric=True,
+               rerank_wmd=True, wmd_kw=KW_RERANK, max_wait_s=1.0)
+    stream = _host_rows(q)
+    with tempfile.TemporaryDirectory(prefix="mesh_seg_") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh()
+            if mesh.size != 1 or mesh.device.type != eng.device.type:
+                fail(f"make_host_mesh() in a world of one: {mesh}")
+            steps = {name: (b(mesh), b(None)) for name, b in builds.items()}
+            servers, build_ms = {}, {}
+            for name, m in (("mesh", mesh), ("meshless", None)):
+                servers[name], build_ms[name] = clocked(
+                    lambda m=m: QueryServer(docs, emb, ServerConfig(**cfg),
+                                            mesh=m))
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            got = {name: m(q) for name, (m, _) in steps.items()}
+            answers = _serve_sync(servers["mesh"], stream, B)[0]
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+            _launched("mesh segmented", launches,
+                      ("lc_rwmd_phase1", "fused_topk", "sinkhorn_wmd"))
+            if sum(mesh.counts.values()):
+                fail(f"a 1x1 mesh issued collectives: {dict(mesh.counts)}")
+            for name, (_, one) in steps.items():
+                if not _same(got[name], one(q)):
+                    fail(f"mesh {name}: the 1x1 mesh step differs from the "
+                         "mesh-less one")
+            want = _serve_sync(servers["meshless"], stream, B)[0]
+            for j, (a, b) in enumerate(zip(answers, want)):
+                if not (_bit_equal(a, b) and a.tier == b.tier == 0):
+                    fail(f"mesh QueryServer: answer {j} differs from the "
+                         "mesh-less server's")
+            live = eng.live_mask()
+            for name, r in got.items():
+                i = r.topk.indices.cpu().numpy()
+                if (i < 0).any() or not live[i].all():
+                    fail(f"mesh {name}: a dead doc or filler in the result")
+            if not all(j in a[0] for j, a in enumerate(answers)):
+                fail("mesh QueryServer: a query did not find itself")
+            del got
+            times = {}
+            for name, (m, one) in steps.items():
+                a = wall_ms(lambda: m(q))
+                b = wall_ms(lambda: one(q))
+                times[name] = dict(mesh_ms=[a, wall_ms(lambda: m(q))],
+                                   meshless_ms=[b, wall_ms(lambda: one(q))])
+            for name in ("mesh", "meshless"):
+                times[f"server_{name}"] = dict(stream_ms=(_serve_sync(
+                    servers[name], stream, B)[2]) * 1e3)
+            del servers
+        finally:
+            dist.destroy_process_group()
+    info = dict(card=smi, launches=launches, times=times,
+                server_build_ms=build_ms,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                s=time.perf_counter() - t_phase)
+    log(f"mesh segmented ({smi}): the 1x1 mesh bit-equal to the mesh-less "
+        f"step in {list(steps)} and the QueryServer; ms mesh / mesh-less: "
+        + ", ".join(f"{k} {v['mesh_ms'][0]:.2f}/{v['meshless_ms'][0]:.2f}"
+                    for k, v in times.items() if "mesh_ms" in v)
+        + f"; phase {info['s']:.1f} s")
+    log("mesh segmented: " + json.dumps(info, default=float))
     return info
 
 
@@ -3936,7 +4085,7 @@ def lcrwmd_phases(scale: float, smi: str) -> dict:
     log(f"monolithic engine freed: {torch.cuda.memory_allocated() / 1e9:.2f} "
         "GB still allocated")
     t0 = time.perf_counter()
-    segmented_phase(docs, corpus.emb, corpus.labels, smi)
+    seg = segmented_phase(docs, corpus.emb, corpus.labels, smi)
     log(f"segmented phase: {time.perf_counter() - t0:.1f} s")
 
     # 6b. the serving plane on the same corpus (its own counts)
@@ -3978,7 +4127,10 @@ def lcrwmd_phases(scale: float, smi: str) -> dict:
             k: v.get(name, 0) for k, v in wl["launches"].items()}
         report[name]["entry_point_launches"] = ep["launches"].get(name, 0)
     for name, r in report.items():
-        r["mesh_launches"] = mesh["launches"].get(name, 0)
+        by_phase = {"mono": mesh["launches"].get(name, 0),
+                    "seg": seg["mesh"]["launches"].get(name, 0)}
+        r["mesh_launches"] = sum(by_phase.values())
+        r["mesh_launches_by_phase"] = by_phase
     return report
 
 
@@ -4036,7 +4188,8 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
             mesh_launches=r.get("mesh_launches", 0)))
-        for key in ("workloads_launches", "entry_point_launches"):
+        for key in ("workloads_launches", "entry_point_launches",
+                    "mesh_launches_by_phase"):
             if key in r:
                 kernels[-1][key] = r[key]
         if name in EXTRA:

@@ -51,6 +51,18 @@ On CPU tensors each kernel's plain version runs.  Kept from the reference:
 :class:`~repro_torch.core.lc_rwmd.SegmentedEngine` step re-reads its state
 when ``engine.version`` changes, and only then.
 
+Under a mesh a :class:`~repro_torch.core.lc_rwmd.SegmentedEngine` step cuts
+each segment as the monolithic step cuts the engine (its rows over the
+batch axes, its restricted table over model or the whole mesh) and folds
+every segment's candidates, with its live mask and its offset, into one
+carry before one cross-rank top-k; a routed step cuts each cell so and
+folds each probed cell on its routed queries.  Every rank holds the
+whole engine and index and runs the same host work (versions, routing,
+packing), so every rank issues the same collectives in the same order; a
+rank with no row of a segment or cell still runs its phase 1 and joins
+its gathers and psums.  Any mesh, one of one rank included, runs this
+program.
+
 With ``index=`` (a :class:`~repro_torch.index.ClusterIndex`) the step is
 routed: each probed cell runs phase 1 over its own vocabulary and the
 fused top-k with its live mask on the queries routed to it only.  The
@@ -62,12 +74,12 @@ routed (query, cell) pairs are the same.
 of each engine step's call as ``serve_step_host_seconds{variant=mono|seg|
 routed}``: on the card the kernels are queued when the call returns, so
 this is launch cost, not device time.  Under a mesh, the first tier-0 or
-tier-1 call of a monolithic step also sets
-``serve_step_collectives_psum`` and ``serve_step_collectives_all_gather``
-``{variant=mono}`` to the collectives the mesh issued in that call.  The
-reference counts its jaxpr's collectives, those over axes of size 1
-included (and one psum a slab even where ``model`` = 1); the port counts
-what it issues: none over an axis of size 1.  The routed step counts
+tier-1 call of an engine step also sets ``serve_step_collectives_psum``
+and ``serve_step_collectives_all_gather`` ``{variant=mono|seg|routed}``
+to the collectives the mesh issued in that call.  The reference counts
+its jaxpr's collectives, those over axes of size 1 included (and one psum
+a slab even where ``model`` = 1); the port counts what it issues: none
+over an axis of size 1.  The routed step counts
 dropped probe cells in ``index_probe_overflow_total`` of its index's
 ``obs``.
 
@@ -76,12 +88,10 @@ rows, a mesh step's ``d_local`` and :func:`build_allpairs_d1`'s result are
 this rank's own row block, rows :func:`local_rows` of the resident set;
 the ranks of one (pod, data) block hold the same rows.
 
-Left out: the segmented and the routed steps under a mesh of more than one
-rank (ROADMAP A item 7's second half; under a mesh of one they are the
-one-device step, which is the same program); the reference's module-level
-step cache and its re-trace sentinel (eager PyTorch traces nothing, so
-there is nothing to cache or re-trace; the port's cold start is a kernel
-library load, which :mod:`repro_torch.obs.sentinel` watches).
+Left out: the reference's module-level step cache and its re-trace
+sentinel (eager PyTorch traces nothing, so there is nothing to cache or
+re-trace; the port's cold start is a kernel library load, which
+:mod:`repro_torch.obs.sentinel` watches).
 """
 
 from __future__ import annotations
@@ -97,6 +107,7 @@ from repro_torch.core.distances import dists
 from repro_torch.core.lc_rwmd import (
     LCRWMDEngine,
     SegmentedEngine,
+    SegmentTensors,
     _offset_topk,
     _phase1_from_t,
     _segment_dense,
@@ -148,7 +159,8 @@ def build_serve_step(mesh=None, *, k: int, refine: bool = False,
     ``psum_batch``: under a mesh with ``model`` > 1, the streaming step
     sums ``psum_batch`` slabs of ``row_block`` rows with one psum; it
     changes the number of collectives, never the result.  The segmented
-    and routed steps take only a mesh of one rank.
+    and routed steps run the mesh program under any mesh (one of one rank
+    included); between calls every rank makes the same corpus changes.
 
     ``engine``: an :class:`LCRWMDEngine` or a :class:`SegmentedEngine`; the
     step runs on the engine's device (``device``, and a mesh's device, if
@@ -180,7 +192,7 @@ def build_serve_step(mesh=None, *, k: int, refine: bool = False,
     if the engine grew without ``index.add``.
 
     ``obs``: the bundle that ``serve_step_host_seconds`` goes to (engine
-    steps only), and under a mesh the monolithic step's
+    steps only), and under a mesh each engine step's
     ``serve_step_collectives_*`` gauges (its first tier-0 or tier-1 call).
     """
     kc = max((rerank_budget or 2 * k) if rerank_wmd else k, k)
@@ -193,11 +205,10 @@ def build_serve_step(mesh=None, *, k: int, refine: bool = False,
                              f"engine's ({engine.device})")
         kc = min(kc, engine.n_docs if isinstance(engine, SegmentedEngine)
                  else engine.resident.n_docs)
-    if (mesh is not None and mesh.size > 1
-            and (index is not None or isinstance(engine, SegmentedEngine))):
-        raise NotImplementedError(
-            "the segmented and routed serve steps run on a mesh of one rank; "
-            "over more ranks they are ROADMAP A item 7's second half")
+    cascade = dict(k=k, kc=kc, refine=refine, rerank_wmd=rerank_wmd,
+                   wmd_kw=wmd_kw, self_exclude=self_exclude)
+    shard_kw = dict(bf16_matmul=bf16_matmul, full_mesh=phase1_full_mesh,
+                    row_block=row_block, psum_batch=psum_batch)
     if index is not None:
         if not isinstance(engine, SegmentedEngine):
             raise ValueError(
@@ -207,28 +218,37 @@ def build_serve_step(mesh=None, *, k: int, refine: bool = False,
             raise ValueError(
                 "the routed serve step is streaming-only (d_local "
                 "diagnostics are a monolithic-engine feature)")
-        return _timed(obs, "routed", _routed_serve_step(
-            engine, index, k=k, kc=kc, refine=refine,
-            bf16_matmul=bf16_matmul, rerank_wmd=rerank_wmd, wmd_kw=wmd_kw,
-            self_exclude=self_exclude))
+        if mesh is None:
+            def fold(queries, kcs, probed, cells, keep, q_gid):
+                return index.fold_cells(queries, kcs, probed, cells, keep,
+                                        symmetric=False, q_gid=q_gid,
+                                        bf16_matmul=bf16_matmul)
+        else:
+            fold = _mesh_cell_fold(mesh, engine, index, **shard_kw)
+        return _timed(obs, "routed", _collectives(
+            obs, "routed", mesh, _routed_serve_step(engine, index, fold=fold,
+                                                    **cascade)))
     if isinstance(engine, SegmentedEngine):
         if streaming is False:
             raise ValueError(
                 "the segmented serve step is streaming-only (d_local "
                 "diagnostics are a monolithic-engine feature)")
-        return _timed(obs, "seg", _segmented_serve_step(
-            engine, k=k, kc=kc, refine=refine, bf16_matmul=bf16_matmul,
-            rerank_wmd=rerank_wmd, wmd_kw=wmd_kw, self_exclude=self_exclude))
+        if mesh is None:
+            def fold(queries, q_gid):
+                return engine.fold_topk(queries, kc, symmetric=False,
+                                        q_gid=q_gid, bf16_matmul=bf16_matmul)
+        else:
+            fold = _mesh_segment_fold(mesh, engine, kc=kc, **shard_kw)
+        return _timed(obs, "seg", _collectives(
+            obs, "seg", mesh, _segmented_serve_step(engine, fold=fold,
+                                                    **cascade)))
     if engine is not None:
         streaming = True if streaming is None else streaming
         if mesh is not None:
-            return _timed(obs, "mono", _collectives(obs, "mono", mesh,
-                                                    _mesh_engine_serve_step(
-                mesh, engine, k=k, kc=kc, refine=refine,
-                bf16_matmul=bf16_matmul, full_mesh=phase1_full_mesh,
-                rerank_wmd=rerank_wmd, wmd_kw=wmd_kw,
-                self_exclude=self_exclude, streaming=streaming,
-                row_block=row_block, psum_batch=psum_batch)))
+            return _timed(obs, "mono", _collectives(
+                obs, "mono", mesh, _mesh_engine_serve_step(
+                    mesh, engine, streaming=streaming, **cascade,
+                    **shard_kw)))
         return _timed(obs, "mono", _engine_serve_step(
             engine, k=k, kc=kc, refine=refine, bf16_matmul=bf16_matmul,
             rerank_wmd=rerank_wmd, wmd_kw=wmd_kw, self_exclude=self_exclude,
@@ -372,17 +392,19 @@ def _engine_serve_step(engine: LCRWMDEngine, *, k, kc, refine, bf16_matmul,
     return serve
 
 
-def _segmented_serve_step(engine: SegmentedEngine, *, k, kc, refine,
-                          bf16_matmul, rerank_wmd, wmd_kw, self_exclude):
+def _segmented_serve_step(engine: SegmentedEngine, *, fold, k, kc, refine,
+                          rerank_wmd, wmd_kw, self_exclude):
     """Serve step over a :class:`SegmentedEngine`.
 
-    Each segment phase-1s against its own restricted vocabulary and runs
-    the fused top-k with its tombstone mask and, under ``self_exclude``,
-    the query ids shifted by its offset; the (distance, global id)
-    candidates merge into one (B, kc) top-k.  The engine's device masks are
-    copied once per corpus version, and tier 2's centroids (tombstoned rows
-    out of reach) are remade at the first tier-2 call of a new version, so
-    the SAME callable keeps serving across append, delete and compact.
+    ``fold(queries, q_gid)`` gives the one-sided (B, kc) candidates: on one
+    device ``engine.fold_topk`` (each segment phase-1s against its own
+    restricted vocabulary and runs the fused top-k with its tombstone mask
+    and, under ``self_exclude``, the query ids shifted by its offset; the
+    (distance, global id) candidates merge into one top-k), under a mesh
+    :func:`_mesh_segment_fold`.  The engine's device masks are copied once
+    per corpus version, and tier 2's centroids (tombstoned rows out of
+    reach) are remade at the first tier-2 call of a new version, so the
+    SAME callable keeps serving across append, delete and compact.
     """
     dev = engine.device
     state: dict = {"version": None}
@@ -404,36 +426,37 @@ def _segmented_serve_step(engine: SegmentedEngine, *, k, kc, refine,
             return ServeResult(
                 topk=_wcd_topk(k, state["cent"], engine, queries, q_gid),
                 d_local=None, tier=tier)
-        tk = engine.fold_topk(queries, kc, symmetric=False, q_gid=q_gid,
-                              bf16_matmul=bf16_matmul)
-        return _finish(engine, queries, tk, k=k, kc=kc, n_cover=engine.n_live,
-                       tier=tier, refine=refine, rerank_wmd=rerank_wmd,
-                       wmd_kw=wmd_kw)
+        return _finish(engine, queries, fold(queries, q_gid), k=k, kc=kc,
+                       n_cover=engine.n_live, tier=tier, refine=refine,
+                       rerank_wmd=rerank_wmd, wmd_kw=wmd_kw)
 
     return serve
 
 
-def _routed_serve_step(engine: SegmentedEngine, index, *, k, kc, refine,
-                       bf16_matmul, rerank_wmd, wmd_kw, self_exclude):
+def _routed_serve_step(engine: SegmentedEngine, index, *, fold, k, kc, refine,
+                       rerank_wmd, wmd_kw, self_exclude):
     """Serve step routed through a :class:`~repro_torch.index.ClusterIndex`.
 
     Per batch: ``index.route`` picks each query's cells, the batch's
-    probed union is capped at ``index.probe_cap`` cells, and each probed
-    cell runs phase 1 over its own vocabulary and the one-sided fused top-k
-    with its live mask (under ``self_exclude``, each query's row in that
-    cell) on the queries routed to it; the (distance, global id)
+    probed union is capped at ``index.probe_cap`` cells, and ``fold(queries,
+    kc, probed, cells, keep, q_gid)`` runs each probed cell's phase 1 over
+    its own vocabulary and the one-sided fused top-k with its live mask
+    (under ``self_exclude``, each query's row in that cell) on the queries
+    routed to it: ``index.fold_cells`` on one device,
+    :func:`_mesh_cell_fold` under a mesh.  The (distance, global id)
     candidates merge into (B, kc), empty slots at (3.4e38, -1).  The
     index's live masks and the tier-2 centroids (the index's doc
     centroids, tombstoned rows out of reach) are re-read when
-    ``engine.version`` or ``index.version`` moves, and only then.  ``pruned_exact`` is relative to the routed cells, and
-    unconditional only when routing kept every cell for every query.
+    ``engine.version`` or ``index.version`` moves, and only then.
+    ``pruned_exact`` is relative to the routed cells, and unconditional
+    only when routing kept every cell for every query.
     """
     dev = engine.device
     p_max = index.probe_cap
     state: dict = {"key": None}
 
     def refresh():
-        index._sync_live()   # raises if the engine grew without index.add
+        index.sync_live()   # raises if the engine grew without index.add
         key = (engine.version, index.version)
         if state["key"] == key:
             return
@@ -479,9 +502,8 @@ def _routed_serve_step(engine: SegmentedEngine, index, *, k, kc, refine,
         route = index.route(queries)
         probed, keep = pack(route)
         kcs = state["kc"]
-        tk = topk_lib.pad_topk(index.fold_cells(
-            queries, kcs, probed, route.cells, keep, symmetric=False,
-            q_gid=q_gid, bf16_matmul=bf16_matmul), kcs)
+        tk = topk_lib.pad_topk(
+            fold(queries, kcs, probed, route.cells, keep, q_gid), kcs)
         # An empty slot carries the step's mask value, as in the reference:
         # a query left with fewer than k candidates is then not certified.
         tk = TopK(tk.dists.masked_fill(tk.indices < 0, _INF), tk.indices)
@@ -665,9 +687,10 @@ def _phase1_z(emb_loc: torch.Tensor, t_q: torch.Tensor, q_w: torch.Tensor,
 
 
 def _spmm(ids: torch.Tensor, w: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """The ELL SpMM kernel; (0, B) for no rows."""
-    if ids.shape[0] == 0:
-        return z.new_zeros((0, z.shape[1]))
+    """The ELL SpMM kernel; (0, B) for no rows, zeros for an empty span
+    (every slot lies outside it and weighs 0)."""
+    if ids.shape[0] == 0 or z.shape[0] == 0:
+        return z.new_zeros((ids.shape[0], z.shape[1]))
     return ops.spmm_ell(ids, w, z)
 
 
@@ -699,6 +722,80 @@ def _mesh_one_sided(mesh, resident: DocSet, queries: DocSet,
     return mesh.psum(_spmm(ids, w, z), (MODEL_AXIS,)), lay.rows
 
 
+class _Shard(NamedTuple):
+    """This rank's part of one resident corpus (an engine's, a segment's or
+    a cell's): its rows' ELL ids and weights against its model span, its
+    rows of the restricted embedding table, and where they lie."""
+    lay: _Layout
+    emb: torch.Tensor   # (e_hi - e_lo, m)
+    ids: torch.Tensor   # (n_loc, h1) span-relative ids
+    w: torch.Tensor     # (n_loc, h1)
+
+
+def _shard(mesh, t: SegmentTensors, full_mesh: bool) -> _Shard:
+    v = t.emb_r.shape[0]
+    lay = _layout(mesh, t.r_ids.shape[0], v, full_mesh)
+    (r_lo, r_hi), (e_lo, e_hi) = lay.rows, lay.emb
+    ids, w = _span_ids(t.r_ids[r_lo:r_hi].contiguous(),
+                       t.r_w[r_lo:r_hi].contiguous(), lay.span, v)
+    return _Shard(lay, t.emb_r[e_lo:e_hi].contiguous(), ids, w)
+
+
+def _shard_z(mesh, sh: _Shard, t_q: torch.Tensor, q_w: torch.Tensor, *,
+             bf16_matmul: bool, full_mesh: bool) -> torch.Tensor:
+    """Phase 1 on the rank's vocabulary rows, as its model span's Z.  Every
+    rank runs it, rows or none: under a full mesh it joins the gather."""
+    return _span_z(mesh, _phase1_z(sh.emb, t_q, q_w, bf16_matmul=bf16_matmul),
+                   sh.lay, full_mesh)
+
+
+def _shard_topk(mesh, sh: _Shard, z: torch.Tensor, kc: int, *,
+                row_block: int, slab: int, live: torch.Tensor | None,
+                q_row: torch.Tensor | None) -> TopK | None:
+    """The rank's candidates of one resident corpus: TopK (B, min(kc,
+    n_loc)), ids counted from the corpus's first row (unfilled slots -1),
+    or None for a rank with no rows.
+
+    ``live`` (n_loc,): the rank's slice of the live mask; ``q_row`` (B,):
+    each query's own row in the corpus (any other value excludes nothing).
+    ``model`` = 1: the fused top-k kernel on the rank's rows.  ``model`` >
+    1: slabs of ``slab`` rows through the ELL SpMM kernel, one psum over
+    model a slab, the masks, and a fold into a carry; the ranks of a model
+    line hold the same rows, so they issue the same psums.
+    """
+    n_loc = sh.ids.shape[0]
+    r_lo = sh.lay.rows[0]
+    if not n_loc:
+        return None
+    if mesh.shape[MODEL_AXIS] == 1:
+        d, i = ops.streaming_phase2_topk(
+            sh.ids, sh.w, z, min(kc, n_loc), row_block=row_block,
+            q_gid=None if q_row is None else q_row - r_lo, row_valid=live)
+        return _offset_topk(TopK(d, i), r_lo)
+    stk = topk_lib.StreamingTopK(min(kc, n_loc))
+    carry = stk.init(z.shape[1], device=z.device)
+    for lo in range(0, n_loc, slab):
+        hi = min(lo + slab, n_loc)
+        d = mesh.psum(_spmm(sh.ids[lo:hi], sh.w[lo:hi], z),
+                      (MODEL_AXIS,))                               # (R, B)
+        rows = torch.arange(r_lo + lo, r_lo + hi, dtype=torch.int32,
+                            device=z.device)
+        carry = stk.update(carry, *topk_lib.masked_entries(
+            d.T, rows, None if live is None else live[lo:hi], q_row))
+    return carry
+
+
+def _merge_local(parts: list, b: int, kc: int, dev) -> TopK:
+    """The rank's parts merged into one (B, min(kc, Σ widths)) carry."""
+    if not parts:
+        return TopK(torch.empty((b, 0), device=dev),
+                    torch.empty((b, 0), dtype=torch.int32, device=dev))
+    width = sum(p.dists.shape[1] for p in parts)
+    if len(parts) == 1 and width <= kc:
+        return parts[0]
+    return topk_lib.merge_topk(parts, min(kc, width))
+
+
 def _mesh_engine_serve_step(mesh, engine: LCRWMDEngine, *, k, kc, refine,
                             bf16_matmul, full_mesh, rerank_wmd, wmd_kw,
                             self_exclude, streaming, row_block, psum_batch):
@@ -710,12 +807,9 @@ def _mesh_engine_serve_step(mesh, engine: LCRWMDEngine, *, k, kc, refine,
     gathers the query targets from the full table, runs phase 1 on the
     rank's vocabulary rows, and then:
 
-      * streaming, ``model`` = 1: the fused top-k kernel on the rank's
-        rows (self-exclusion by ``q_gid`` less the rank's first row), its
-        ids made global, then the cross-rank top-k over the batch axes;
-      * streaming, ``model`` > 1: slabs of ``psum_batch · row_block`` rows
-        through the ELL SpMM, one psum over model a slab, the self mask,
-        and a fold into a carry of global ids; then the cross-rank top-k;
+      * streaming: the rank's candidates by :func:`_shard_topk`
+        (self-exclusion by ``q_gid``), then the cross-rank top-k over the
+        batch axes;
       * ``streaming=False``: the ELL SpMM on the rank's rows, a psum over
         model, the self mask, then ``distributed_topk``.
 
@@ -725,50 +819,24 @@ def _mesh_engine_serve_step(mesh, engine: LCRWMDEngine, *, k, kc, refine,
     """
     dev = engine.device
     n_real = engine.resident.n_docs
-    emb_r = engine.emb_restricted
-    v_e = emb_r.shape[0]
-    lay = _layout(mesh, n_real, v_e, full_mesh)
-    (r_lo, r_hi), (e_lo, e_hi) = lay.rows, lay.emb
-    n_loc = r_hi - r_lo
-    emb_loc = emb_r[e_lo:e_hi].contiguous()
-    res = engine.resident_restricted
-    ids_loc, w_loc = _span_ids(res.ids[r_lo:r_hi].contiguous(),
-                               res.weights[r_lo:r_hi].contiguous(), lay.span,
-                               v_e)
+    sh = _shard(mesh, engine._segment_tensors(), full_mesh)
+    r_lo, r_hi = sh.lay.rows
     b_axes = batch_axes(mesh)
-    n_model = mesh.shape[MODEL_AXIS]
     slab = max(1, row_block) * max(1, psum_batch)
     state: dict = {}
 
     def candidates(z, b, q_gid):
         if not streaming:
-            d = mesh.psum(_spmm(ids_loc, w_loc, z), (MODEL_AXIS,))
+            d = mesh.psum(_spmm(sh.ids, sh.w, z), (MODEL_AXIS,))
             if q_gid is not None:
                 rows = torch.arange(r_lo, r_hi, dtype=torch.int32, device=dev)
                 d = d.masked_fill(rows[:, None] == q_gid[None, :], _INF)
             return topk_lib.distributed_topk(d, kc, mesh=mesh,
                                              axis_names=b_axes,
                                              shard_offset=r_lo), d
-        if n_loc == 0:
-            local = topk_lib.TopK(torch.empty((b, 0), device=dev),
-                                  torch.empty((b, 0), dtype=torch.int32,
-                                              device=dev))
-        elif n_model == 1:
-            d, i = ops.streaming_phase2_topk(
-                ids_loc, w_loc, z, min(kc, n_loc), row_block=row_block,
-                q_gid=None if q_gid is None else q_gid - r_lo)
-            local = _offset_topk(topk_lib.TopK(d, i), r_lo)
-        else:
-            stk = topk_lib.StreamingTopK(min(kc, n_loc))
-            local = stk.init(b, device=dev)
-            for lo in range(0, n_loc, slab):
-                hi = min(lo + slab, n_loc)
-                d = mesh.psum(ops.spmm_ell(ids_loc[lo:hi], w_loc[lo:hi], z),
-                              (MODEL_AXIS,))                       # (R, B)
-                rows = torch.arange(r_lo + lo, r_lo + hi, dtype=torch.int32,
-                                    device=dev)
-                local = stk.update(local, *topk_lib.masked_entries(
-                    d.T, rows, None, q_gid))
+        part = _shard_topk(mesh, sh, z, kc, row_block=row_block, slab=slab,
+                           live=None, q_row=q_gid)
+        local = _merge_local([] if part is None else [part], b, kc, dev)
         return topk_lib.crossshard_topk(local, kc, mesh=mesh,
                                         axis_names=b_axes), None
 
@@ -783,9 +851,9 @@ def _mesh_engine_serve_step(mesh, engine: LCRWMDEngine, *, k, kc, refine,
             return ServeResult(
                 topk=_wcd_topk(k, state["cent"], engine, queries, q_gid),
                 d_local=None, tier=tier)
-        t_q = engine._gather_flat(queries.ids)
-        z = _span_z(mesh, _phase1_z(emb_loc, t_q, queries.weights,
-                                    bf16_matmul=bf16_matmul), lay, full_mesh)
+        z = _shard_z(mesh, sh, engine._gather_flat(queries.ids),
+                     queries.weights, bf16_matmul=bf16_matmul,
+                     full_mesh=full_mesh)
         tk, d_local = candidates(z, queries.n_docs, q_gid)
         return _finish(engine, queries, tk, k=k, kc=kc, n_cover=n_real,
                        tier=tier, refine=refine, rerank_wmd=rerank_wmd,
@@ -794,11 +862,148 @@ def _mesh_engine_serve_step(mesh, engine: LCRWMDEngine, *, k, kc, refine,
     return serve
 
 
+def _reuse(old: list, parts, make) -> list:
+    """``(part, make(part))`` for each of ``parts``, reusing the entry of
+    ``old`` made for the same object (a part whose tensors did not change
+    keeps its slices)."""
+    out = []
+    for part in parts:
+        hit = next((sh for p, sh in old if p is part), None)
+        out.append((part, make(part) if hit is None else hit))
+    return out
+
+
+def _mesh_segment_fold(mesh, engine: SegmentedEngine, *, kc, bf16_matmul,
+                       full_mesh, row_block, psum_batch):
+    """The segmented step's candidates on a mesh: ``fold(queries, q_gid)``
+    → the (B, kc) TopK every rank holds.
+
+    Each segment's rows are cut over the batch axes and its restricted
+    table over model (or the whole mesh), as the monolithic step cuts the
+    engine's.  Per segment: phase 1 on the rank's vocabulary rows, then
+    :func:`_shard_topk` on its rows with its slice of the segment's live
+    mask and each query's id less the segment's offset; the ids are made
+    global by the offset.  Every segment folds into one carry, and one
+    cross-rank top-k over the batch axes follows the last.  The rank's
+    slices are made once per segment object (a delete changes only the
+    masks; ``append`` adds a segment; ``compact`` replaces them), its
+    masks once per ``engine.version``.
+    """
+    b_axes = batch_axes(mesh)
+    slab = max(1, row_block) * max(1, psum_batch)
+    state: dict = {"version": None, "shards": []}
+
+    def refresh():
+        if state["version"] == engine.version:
+            return
+        state["shards"] = _reuse(state["shards"], engine.segments,
+                                 lambda seg: _shard(mesh, seg.tensors,
+                                                    full_mesh))
+        state["live"] = [live[slice(*sh.lay.rows)] for (_, sh), live in zip(
+            state["shards"], engine.segment_live_device())]
+        state["version"] = engine.version
+
+    def fold(queries: DocSet, q_gid) -> TopK:
+        refresh()
+        t_q = engine._gather_flat(queries.ids)
+        parts = []
+        for (seg, sh), live in zip(state["shards"], state["live"]):
+            z = _shard_z(mesh, sh, t_q, queries.weights,
+                         bf16_matmul=bf16_matmul, full_mesh=full_mesh)
+            tk = _shard_topk(mesh, sh, z, kc, row_block=row_block, slab=slab,
+                             live=live, q_row=None if q_gid is None
+                             else q_gid - seg.offset)
+            if tk is not None:
+                parts.append(_offset_topk(tk, seg.offset))
+        local = _merge_local(parts, queries.n_docs, kc, engine.device)
+        return topk_lib.crossshard_topk(local, kc, mesh=mesh,
+                                        axis_names=b_axes)
+
+    return fold
+
+
+def _mesh_cell_fold(mesh, engine: SegmentedEngine, index, *, bf16_matmul,
+                    full_mesh, row_block, psum_batch):
+    """The routed step's candidates on a mesh: ``fold(queries, kc, probed,
+    cells, keep, q_gid)`` → the (B, kc) TopK every rank holds.
+
+    Each cell's rows are cut over the batch axes and its restricted table
+    over model (or the whole mesh).  Each probed cell runs on its routed
+    queries only, as ``ClusterIndex.fold_cells`` does: phase 1 on the
+    rank's vocabulary rows, then :func:`_shard_topk` on its rows with its
+    slice of the cell's live mask and each query's row in the cell (-1
+    for a query whose doc is not a member); ids are made global through
+    the cell's gid table.  A rank with no row of a cell still runs its
+    phase 1 (and its part of the gathers and psums).  All cells fold into
+    one carry, then one cross-rank top-k.  The routing is replicated: every
+    rank routes the same batch from the same state to the same cells.
+    """
+    dev = engine.device
+    b_axes = batch_axes(mesh)
+    slab = max(1, row_block) * max(1, psum_batch)
+    state: dict = {"key": None, "shards": []}
+
+    def refresh():
+        index.sync_live()
+        key = (engine.version, index.version)
+        if state["key"] == key:
+            return
+        alive = [c for c, cell in enumerate(index.cells) if cell is not None]
+        state["shards"] = _reuse(
+            state["shards"], [index.cells[c] for c in alive],
+            lambda cell: _shard(mesh, cell.segment.tensors, full_mesh))
+        state["cells"] = {
+            c: (cell, sh, index.cell_live(c)[slice(*sh.lay.rows)])
+            for c, (cell, sh) in zip(alive, state["shards"])}
+        state["key"] = key
+
+    def fold(queries: DocSet, kc: int, probed, cells: np.ndarray,
+             keep: np.ndarray, q_gid) -> TopK:
+        refresh()
+        b = queries.n_docs
+        t_q = engine.gather_queries(queries.ids)                 # (B, h, m)
+        rows = None if q_gid is None else index.query_rows(q_gid)
+        parts = []
+        for c in np.asarray(probed, dtype=np.int64):
+            qmask = ((cells == c) & keep).any(axis=1)
+            if int(c) not in state["cells"] or not qmask.any():
+                continue
+            cell, sh, live = state["cells"][int(c)]
+            every = bool(qmask.all())
+            sel = (slice(None) if every else
+                   torch.from_numpy(np.nonzero(qmask)[0]).to(dev))
+            tq = t_q[sel]
+            z = _shard_z(mesh, sh, tq.reshape(-1, tq.shape[-1]),
+                         queries.weights[sel], bf16_matmul=bf16_matmul,
+                         full_mesh=full_mesh)
+            q_row = None if rows is None else torch.where(
+                rows[0] == int(c), rows[1], -1).to(torch.int32)[sel]
+            tk = _shard_topk(mesh, sh, z, kc, row_block=row_block, slab=slab,
+                             live=live, q_row=q_row)
+            if tk is None:
+                continue
+            filled = tk.indices >= 0
+            g = torch.where(filled, cell.gids[tk.indices.clamp(min=0).long()],
+                            -1)
+            d = torch.where(filled, tk.dists, float("inf"))
+            if not every:
+                full_d = torch.full((b, d.shape[1]), float("inf"), device=dev)
+                full_i = torch.full((b, d.shape[1]), -1, dtype=torch.int32,
+                                    device=dev)
+                full_d[sel], full_i[sel] = d, g
+                d, g = full_d, full_i
+            parts.append(TopK(d, g))
+        return topk_lib.crossshard_topk(_merge_local(parts, b, kc, dev), kc,
+                                        mesh=mesh, axis_names=b_axes)
+
+    return fold
+
+
 def _collectives(obs, variant: str, mesh, serve):
     """``serve`` with its first tier-0 or tier-1 call's collectives set
     into ``obs``'s ``serve_step_collectives_{psum,all_gather}{variant=...}``
-    gauges (``serve`` itself without an ``obs``)."""
-    if obs is None:
+    gauges (``serve`` itself without an ``obs`` or a mesh)."""
+    if obs is None or mesh is None:
         return serve
     done = [False]
 

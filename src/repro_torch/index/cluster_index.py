@@ -309,9 +309,9 @@ class ClusterIndex:
                     for c in self.cells if c is not None)
         return cells + self.centroid_nbytes
 
-    def _sync_live(self) -> None:
+    def sync_live(self) -> None:
         """Re-derive the cells' live masks and means when the engine or the
-        index moved."""
+        index moved; raises if the engine grew without :meth:`add`."""
         key = (self.engine.version, self.version)
         if self._live_sync == key:
             return
@@ -328,6 +328,19 @@ class ClusterIndex:
         self._refresh_centroids()
         self._live_sync = key
 
+    def cell_live(self, c: int) -> torch.Tensor:
+        """(n_c,) device live mask of cell ``c``'s rows (synced first)."""
+        self.sync_live()
+        return self._live_dev[int(c)]
+
+    def query_rows(self, q_gid: torch.Tensor):
+        """For global doc ids ``q_gid`` (B,): each one's cell (-1 for an id
+        out of range) and its row in that cell, as (B,) device tensors."""
+        q = q_gid.to(self.device).long()
+        ok = (q >= 0) & (q < len(self._labels))
+        q = q.clamp(0, len(self._labels) - 1)
+        return torch.where(ok, self._labels_dev[q], -1), self._local_dev[q]
+
     # -- routing + routed queries -------------------------------------------
     def route(self, queries: DocSet, *, top_p: int | None = None,
               bound_slack: float | None | str = "cfg") -> RouteResult:
@@ -336,7 +349,7 @@ class ClusterIndex:
         ``bound_slack="cfg"`` uses the index default; ``None`` disables the
         bound for this call.
         """
-        self._sync_live()
+        self.sync_live()
         slack = self.bound_slack if bound_slack == "cfg" else bound_slack
         p = min(int(top_p or self.top_p), self.num_cells)
         queries = queries.to(self.device)
@@ -397,19 +410,13 @@ class ClusterIndex:
         self-exclude: each cell gets the query's row in it, -1 where the
         query's doc is not a member.
         """
-        self._sync_live()
+        self.sync_live()
         eng = self.engine
         queries = queries.to(self.device)
         bf16 = eng.bf16_matmul if bf16_matmul is None else bf16_matmul
         b, h = queries.ids.shape
         t_q = eng.gather_queries(queries.ids)                  # (B, h, m)
-        local = None
-        if q_gid is not None:
-            q = q_gid.to(self.device).long()
-            ok = (q >= 0) & (q < len(self._labels))
-            q = q.clamp(0, len(self._labels) - 1)
-            cell_of = torch.where(ok, self._labels_dev[q], -1)
-            local = (cell_of, self._local_dev[q])
+        local = None if q_gid is None else self.query_rows(q_gid)
         parts = []
         for c in np.asarray(probed, dtype=np.int64):
             cell = self.cells[int(c)]

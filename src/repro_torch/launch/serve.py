@@ -7,8 +7,9 @@
 A synthetic corpus is loaded into a :class:`QueryServer` on one device and
 a stream of resident docs is served as queries; the self-recall@k says how
 many found themselves.  ``--full`` and ``--multi-pod`` (the reference's
-production serve step on its sharded mesh) raise: the port's launcher
-builds no production mesh yet (ROADMAP A item 7's second half).
+production serve step on its sharded mesh, over the paper's cells) raise:
+the port's launcher builds no production mesh and has no cells yet
+(ROADMAP A item 7's last part, 7d).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def main(argv=None) -> dict:
         raise NotImplementedError(
             "--full/--multi-pod serve the paper's cells on the production "
             "mesh, which the port's launcher does not build yet (ROADMAP A "
-            "item 7's second half); without them it serves on one device")
+            "item 7's last part, 7d); without them it serves on one device")
 
     from repro_torch.data.synth import CorpusSpec, make_corpus
     from repro_torch.serving.query_server import QueryServer, ServerConfig

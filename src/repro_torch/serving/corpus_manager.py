@@ -70,8 +70,10 @@ class CorpusState:
     ``serve`` is filled lazily by the serving core (``None`` right after
     :meth:`CorpusManager.add_corpus` or a readmission) and swapped on
     adaptive-budget rebuilds; dropping the state drops the device
-    residency (the engine and the serve closure hold the segment
-    tensors).
+    residency (the engine holds the segment tensors, and under a mesh the
+    serve closure holds this rank's slices of them: its rows, ELL ids
+    made relative to its vocabulary span, and its rows of each restricted
+    table, which are freed with it).
     """
 
     __slots__ = ("corpus_id", "engine", "budget", "serve")

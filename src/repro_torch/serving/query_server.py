@@ -1,5 +1,5 @@
 """LC-RWMD query serving: batched similarity against a resident corpus (the
-counterpart of ``repro.serving.query_server``, on one device).
+counterpart of ``repro.serving.query_server``, on one device or a mesh).
 
 Production loop per the paper's deployment (Sec. VI): a RESIDENT document
 set is loaded once onto the card; TRANSIENT query documents stream in, are
@@ -73,8 +73,20 @@ Both servers preserve the
 changes rebuild the serve step (O(log) times), with the full trajectory
 recorded in ``stats``.
 
-Differences from the reference: no ``mesh`` argument (the multi-device
-program); ``ServerConfig`` has ``device`` and no ``delta_pad`` /
+Meshes: ``QueryServer(..., mesh=)`` serves through the mesh program of
+:mod:`repro_torch.distributed.lcrwmd_dist` (one process a rank, each rank
+running the same server on the same stream; the reference drives every
+device from one controller and takes ``mesh`` positionally).  Under a mesh
+of more than one rank the decisions that read the clock (which queries'
+deadlines lapsed, the queue depth the degradation tier is chosen from, and
+``serve_stream``'s flushes) are rank 0's, shared by one small
+``all_gather`` over the whole mesh before the step is called, so every
+rank serves the same queries at the same tier.  :class:`AsyncQueryServer`
+takes only a mesh of one rank (its clock-driven batching over more ranks
+is ROADMAP A item 7's last part).
+
+Differences from the reference: ``mesh`` is a keyword;
+``ServerConfig`` has ``device`` and no ``delta_pad`` /
 ``vocab_pad`` / ``streaming_topk`` (nothing here reads the last); a batch
 is served at its real query count, each query padded or truncated to
 ``h_max`` words (the reference pads every batch to
@@ -102,7 +114,11 @@ from repro_torch.core.lc_rwmd import SegmentedEngine
 from repro_torch.core.pipeline import AdaptiveRefineBudget
 from repro_torch.data.docs import DocSet
 from repro_torch.device import resolve_device
-from repro_torch.distributed.lcrwmd_dist import ServeResult, build_serve_step
+from repro_torch.distributed.lcrwmd_dist import (
+    ServeResult,
+    _same_device,
+    build_serve_step,
+)
 from repro_torch.obs import (
     COUNT_BUCKETS,
     BudgetRebuild,
@@ -373,10 +389,18 @@ class _ServeCore:
     """
 
     def __init__(self, resident: DocSet, emb, cfg: ServerConfig,
-                 faults=None):
+                 faults=None, mesh=None):
         self.resident = resident
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(cfg.device)
+        elif cfg.device is None or _same_device(resolve_device(cfg.device),
+                                                mesh.device):
+            self.device = mesh.device
+        else:
+            raise ValueError(f"ServerConfig.device {cfg.device!r} is not the "
+                             f"mesh's ({mesh.device})")
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         if faults is not None and not hasattr(faults, "on_dispatch"):
@@ -546,10 +570,22 @@ class _ServeCore:
         # read by nothing here, so the port's config has none).
         cfg = self.cfg
         return build_serve_step(
-            k=cfg.k, refine=cfg.refine_symmetric,
+            self.mesh, k=cfg.k, refine=cfg.refine_symmetric,
             bf16_matmul=False, engine=self.engine, rerank_wmd=cfg.rerank_wmd,
             rerank_budget=rerank_budget, wmd_kw=cfg.wmd_kw,
             streaming=True, obs=self.obs, index=self._active.index)
+
+    def agree(self, values: Sequence[int]) -> list[int]:
+        """Rank 0's ``values`` on every rank of a mesh of more than one rank
+        (one ``all_gather`` over the whole mesh, outside any serve step, so
+        no step's collective gauges count it); ``values`` otherwise.  Every
+        rank passes as many values."""
+        mesh = self.mesh
+        if mesh is None or mesh.size == 1:
+            return [int(v) for v in values]
+        x = torch.tensor([[int(v) for v in values]], dtype=torch.int64,
+                         device=mesh.device)
+        return mesh.all_gather(x, mesh.axis_names)[0].tolist()
 
     def _activate(self, corpus_id: str | None) -> CorpusState:
         """Check out (readmitting if evicted) and make a corpus active."""
@@ -879,13 +915,24 @@ class QueryServer:
     ``flush`` delivers a :class:`DeadlineExceeded` instance POSITIONALLY
     for any query whose deadline lapsed while pending (never raises for
     it — batch-mates keep their answers).
+
+    ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`): serve through the
+    mesh program, on the mesh's device (a ``cfg.device`` that is not it
+    raises ``ValueError``).  Every rank builds the server alike, submits
+    the same queries and calls ``flush`` / ``serve_stream`` alike; the
+    lapsed deadlines, the queue depth that picks the tier and the stream's
+    flushes are rank 0's, and every rank gets the same answers.  Corpus
+    changes (``add_corpus``, ``ingest``, ``delete_docs``, ``compact``, and
+    so the evictions that follow from them) are the caller's to make at
+    the same point on every rank.
     """
 
     def __init__(self, resident: DocSet, emb, cfg: ServerConfig,
-                 *, preprocess: Callable[[QueryLike],
-                                         tuple[np.ndarray, np.ndarray]] | None = None,
+                 *, mesh=None,
+                 preprocess: Callable[[QueryLike],
+                                      tuple[np.ndarray, np.ndarray]] | None = None,
                  faults=None):
-        self._core = _ServeCore(resident, emb, cfg, faults=faults)
+        self._core = _ServeCore(resident, emb, cfg, faults=faults, mesh=mesh)
         self._preprocess = preprocess
         # Pending entries:
         # (ids, weights, absolute deadline|None, corpus_id, QueryTrace|None).
@@ -1018,8 +1065,11 @@ class QueryServer:
         :class:`DeadlineExceeded` instance in the returned list.
         """
         now = time.monotonic()
-        live = [j for j, q in enumerate(qs) if q[2] is None or q[2] > now]
-        dead = [j for j in range(len(qs)) if j not in set(live)]
+        depth, *lapsed = self._core.agree(
+            [len(self._pending)]
+            + [q[2] is not None and q[2] <= now for q in qs])
+        live = [j for j, x in enumerate(lapsed) if not x]
+        dead = [j for j, x in enumerate(lapsed) if x]
         out: list = [None] * len(qs)
         for j in dead:
             self._core.bump("deadline_misses")
@@ -1035,7 +1085,7 @@ class QueryServer:
         if live:
             answers = self._core.collect(
                 self._core.dispatch([qs[j][:2] for j in live],
-                                    queue_depth=len(self._pending),
+                                    queue_depth=depth,
                                     corpus_id=corpus_id,
                                     traces=[qs[j][4] for j in live]))
             for j, a in zip(live, answers):
@@ -1110,7 +1160,7 @@ class QueryServer:
                 t0 is not None
                 and (time.perf_counter() - t0) > self.cfg.max_wait_s
             )
-            if full or stale:
+            if self._core.agree([full or stale])[0]:
                 yield from self.flush()
                 t0 = None
         yield from self.flush()
@@ -1160,13 +1210,26 @@ class AsyncQueryServer:
     idempotent, safe to race with ``submit``, and with ``timeout=`` it
     force-fails whatever a wedged worker never answered.  ``drain`` blocks
     until every accepted query has been answered.
+
+    ``mesh``: a mesh of one rank (the mesh program on its device); over
+    more ranks this raises ``NotImplementedError``: the worker forms
+    batches and commits ingests by the clock, which over several ranks
+    needs rank 0 to order them for the others (ROADMAP A item 7's last
+    part).
     """
 
     def __init__(self, resident: DocSet, emb, cfg: ServerConfig,
-                 *, preprocess: Callable[[QueryLike],
-                                         tuple[np.ndarray, np.ndarray]] | None = None,
+                 *, mesh=None,
+                 preprocess: Callable[[QueryLike],
+                                      tuple[np.ndarray, np.ndarray]] | None = None,
                  faults=None):
-        self._core = _ServeCore(resident, emb, cfg, faults=faults)
+        if mesh is not None and mesh.size > 1:
+            raise NotImplementedError(
+                "AsyncQueryServer serves on a mesh of one rank; over "
+                f"{mesh.size} ranks its clock-driven batching needs rank 0 "
+                "to order batches and corpus changes for the others "
+                "(ROADMAP A item 7's last part)")
+        self._core = _ServeCore(resident, emb, cfg, faults=faults, mesh=mesh)
         self._preprocess = preprocess
         self._capacity = cfg.queue_capacity or 4 * cfg.max_batch
         self._depth = max(1, cfg.pipeline_depth)

@@ -214,8 +214,9 @@ def corpus_self_topk_distributed(engine, mesh, k: int, *, tile: int = 64,
     every rank calls this and gets the same result): the candidate cascade
     (one-sided top-k → symmetric refine → optional Sinkhorn rerank) matches
     serving semantics, so the returned distances are exact symmetric RWMD
-    (or WMD) for the returned pairs.  A ``SegmentedEngine`` takes only a
-    mesh of one rank.
+    (or WMD) for the returned pairs.  A ``SegmentedEngine`` runs the
+    segmented step's mesh program on any mesh; every rank holds the same
+    engine.
     """
     from repro_torch.distributed.lcrwmd_dist import build_serve_step
 

@@ -1474,3 +1474,89 @@ def test_mesh_of_one_step_is_the_meshless_step_on_the_card(cuda):
     assert torch.equal(a.d_local, b.d_local)
     assert torch.equal(build_allpairs_d1(mesh)(c.docs, q, c.emb),
                        build_allpairs_d1()(c.docs, q, c.emb))
+
+
+def _mesh_segmented(cuda):
+    """A 6,000-doc corpus as two segments with 60 tombstones (query 3's
+    own doc among them), and a 16-cell index over them."""
+    from repro_torch.index import ClusterIndex
+
+    c, _ = _mesh_pair(cuda)
+    seg = tlc.SegmentedEngine(c.docs[:4000], c.emb)
+    seg.append(c.docs[4000:])
+    idx = ClusterIndex(seg, num_cells=16, top_p=4, seed=0)
+    seg.delete(np.r_[3, np.arange(100, 6000, 100)])
+    return c, seg, idx
+
+
+def test_mesh_segment_shards_combine_to_the_segmented_step(cuda):
+    """Each rank of a (1, 2) and a (2, 1) mesh over two segments with
+    tombstones, run alone in turn.  (1, 2): each rank's B1 on its
+    vocabulary rows of each segment and its B2 partial sum in rank order
+    to ``one_sided`` (live rows) within B2's tolerance.  (2, 1): each
+    rank's self-excluding candidates (B1 + B3 on its row blocks) merge to
+    the one-device segmented step's bit for bit."""
+    from torch_mesh_ranks import RankAlone
+
+    from repro_torch.core.topk import merge_topk
+    from repro_torch.distributed import lcrwmd_dist as td
+
+    c, seg, _ = _mesh_segmented(cuda)
+    q, ids = c.docs[:64], torch.arange(64, device=cuda)
+    live = seg.live_mask_device()
+    want = seg.one_sided(q)
+    t_q = seg._gather_flat(q.ids)
+    total = None
+    _build.reset_launches()
+    for rank in range(2):
+        mesh = RankAlone(2, rank, cuda)
+        parts = []
+        for s in seg.segments:
+            sh = td._shard(mesh, s.tensors, False)
+            z = td._shard_z(mesh, sh, t_q, q.weights, bf16_matmul=False,
+                            full_mesh=False)
+            parts.append(td._spmm(sh.ids, sh.w, z))
+        d = torch.cat(parts)
+        total = d if total is None else total + d
+    assert _build.LAUNCHES["spmm_ell"] == 2 * seg.n_segments
+    torch.testing.assert_close(total[live], want[live], rtol=1e-5, atol=1e-5)
+    kw = dict(k=32, engine=seg, self_exclude=True, bf16_matmul=False)
+    one = td.build_serve_step(**kw)(q, ids, tier=1).topk
+    _build.reset_launches()
+    # the rank alone gathers no Z slices: its phase 1 covers the vocabulary
+    halves = [td.build_serve_step(RankAlone(1, rank, cuda, data=2),
+                                  phase1_full_mesh=False, **kw)(
+        q, ids, tier=1).topk for rank in range(2)]
+    assert _build.LAUNCHES["fused_topk"] == 2 * seg.n_segments
+    got = merge_topk(halves, 32)
+    assert torch.equal(got.dists, one.dists)
+    assert torch.equal(got.indices, one.indices)
+
+
+def test_mesh_of_one_segmented_and_routed_steps_on_the_card(cuda):
+    """On a mesh of one rank (no process group) the segmented and routed
+    steps run the mesh program: at tiers 0 (refine and rerank) and 1,
+    self-excluding, bit for bit the mesh-less steps, across a delete and
+    a compact."""
+    from repro_torch.distributed.lcrwmd_dist import build_serve_step
+    from repro_torch.launch.mesh import make_host_mesh
+
+    c, seg, idx = _mesh_segmented(cuda)
+    mesh = make_host_mesh()
+    q, ids = c.docs[:64], torch.arange(64, device=cuda)
+    kw = dict(k=16, engine=seg, self_exclude=True, refine=True,
+              rerank_wmd=True, rerank_budget=32,
+              wmd_kw=dict(eps=0.05, eps_scaling=2, max_iters=100))
+    for extra in ({}, dict(index=idx)):
+        a, b = build_serve_step(mesh, **kw, **extra), build_serve_step(
+            **kw, **extra)
+        for change in (None, "delete", "compact"):
+            if change == "delete":
+                seg.delete([5, 4321])
+            elif change == "compact" and not extra:
+                seg.compact()
+            for tier in (0, 1):
+                x, y = a(q, ids, tier=tier), b(q, ids, tier=tier)
+                assert torch.equal(x.topk.dists, y.topk.dists)
+                assert torch.equal(x.topk.indices, y.topk.indices)
+                assert not bool((x.topk.indices == ids[:, None]).any())

@@ -17,7 +17,12 @@ and True.  The spawn runs once and every eight-rank test reads its files.
 The ranks' results are held against the reference's single-device
 ``lc_rwmd_one_sided`` and ``topk_smallest`` and its engine step, computed
 here, within ``dist_check.py``'s tolerance (1e-4 relative, 1e-2 absolute;
-ids by the distance they name, as there).
+ids by the distance they name, as there).  The spawn also serves the
+segmented and routed steps over a three-segment engine with tombstones and
+a 16-cell index, self-excluding, through a delete, an append and a
+compact (``torch_mesh_ranks.VERSIONS``); the reference's single-device
+steps after the same changes, and its ``QueryServer`` on the same stream
+with the same lapsed deadline, are computed here while the ranks run.
 """
 
 import time
@@ -31,16 +36,24 @@ import torch.multiprocessing as mp
 
 from repro.core import lc_rwmd as jlc
 from repro.core import lc_rwmd_one_sided, topk_smallest
+from repro.data.docs import DocSet as JDocSet
 from repro.data.synth import CorpusSpec, make_corpus
 from repro.distributed import lcrwmd_dist as jd
+from repro.index import ClusterIndex as JIndex
 from repro.launch.mesh import make_host_mesh as jmesh
+from repro.serving import query_server as jqs
 from repro_torch.convert import from_numpy
 from repro_torch.core import lc_rwmd as tlc
 from repro_torch.core import topk as ttk
 from repro_torch.distributed import lcrwmd_dist as td
+from repro_torch.index import ClusterIndex
 from repro_torch.launch import mesh as tmesh
+from repro_torch.serving import query_server as tqs
 from repro_torch.workloads import corpus_distance as tcd
 import torch_mesh_ranks
+from torch_mesh_ranks import (APPEND, CELLS, DEAD, LAPSE_S, LAPSED,
+                              RECOVER_AFTER, ROUTED_RUNS, SEG_RUNS, SEGMENTS,
+                              SERVER_BATCH, SERVER_PICKS, VERSIONS)
 from test_torch_engine import _np, assert_topk_close
 from test_torch_segments import RERANK_KW
 
@@ -202,12 +215,74 @@ def test_corpus_self_topk_distributed_on_a_mesh_of_one(one, small):
     assert not (got.indices == torch.arange(96)[:, None]).any()
 
 
+SEG_DEAD = [2, 65, 90]
+SEG_CUTS = ((0, 60), (60, 80), (80, 96))
+
+
+def _segmented(docs, emb):
+    """Three segments, then tombstones (query 2's own doc among them)."""
+    eng = tlc.SegmentedEngine(docs[slice(*SEG_CUTS[0])], emb, device="cpu",
+                              row_block=32)
+    for lo, hi in SEG_CUTS[1:]:
+        eng.append(docs[lo:hi])
+    eng.delete(SEG_DEAD)
+    return eng
+
+
 def test_segmented_step_on_a_mesh_of_one_is_the_one_device_step(one, small):
+    """Self-excluding over three segments with tombstones, the refine and
+    the rerank configured: bit for bit the mesh-less step at every tier,
+    and the same callable at tier 1 across a delete and a compact."""
     _, docs, emb = small
-    seg = tlc.SegmentedEngine(docs, emb, device="cpu")
-    kw = dict(k=K, bf16_matmul=False, refine=True)
-    _equal(td.build_serve_step(one, engine=seg, **kw)(docs[:B]),
-           td.build_serve_step(engine=seg, **kw)(docs[:B]))
+    seg = _segmented(docs, emb)
+    ids = torch.arange(B, dtype=torch.int32)
+    kw = dict(k=K, bf16_matmul=False, self_exclude=True, row_block=32,
+              **RERANK)
+    mesh_step = td.build_serve_step(one, engine=seg, **kw)
+    flat = td.build_serve_step(engine=seg, **kw)
+    for change in (None, "delete", "compact"):
+        if change == "delete":
+            seg.delete([7, 70])
+        elif change == "compact":
+            seg.compact()
+        for tier in (1,) if change else (0, 1, 2):
+            got = mesh_step(docs[:B], ids, tier=tier)
+            _equal(got, flat(docs[:B], ids, tier=tier))
+            i = _np(got.topk.indices)
+            assert not (i == np.arange(B)[:, None]).any()
+            assert not np.isin(i, SEG_DEAD).any()
+
+
+SERVE_KW = dict(k=K, max_batch=6, h_max=16)
+SERVE_PICKS = (3, 50, 17, 88, 2, 61, 40, 9, 72, 33, 5, 94, 21)
+
+
+def _served(server, stream):
+    for q in stream:
+        server.submit(*q)
+    return server.flush()
+
+
+def test_servers_on_a_mesh_device_and_rank_count(one, small):
+    """A ``cfg.device`` that is not the mesh's raises; the async server
+    takes a mesh of one (the mesh program, its answers the sync server's)
+    and refuses more ranks, naming ROADMAP A item 7."""
+    _, docs, emb = small
+    with pytest.raises(ValueError, match="mesh's"):
+        tqs.QueryServer(docs, emb, tqs.ServerConfig(device="meta"), mesh=one)
+    eight = types.SimpleNamespace(size=8, device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tqs.AsyncQueryServer(docs, emb, tqs.ServerConfig(device="cpu"),
+                             mesh=eight)
+    ids, w = docs.ids.numpy(), docs.weights.numpy()
+    cfg = tqs.ServerConfig(device="cpu", **SERVE_KW)
+    with tqs.AsyncQueryServer(docs, emb, cfg, mesh=one) as srv:
+        futures = [srv.submit(ids[p], w[p]) for p in SERVE_PICKS[:6]]
+        got = [f.result(timeout=120) for f in futures]
+    want = _served(tqs.QueryServer(docs, emb, cfg),
+                   [(ids[p], w[p]) for p in SERVE_PICKS[:6]])
+    for a, b in zip(got, want):
+        assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
 
 
 def test_mesh_device_must_be_the_engines(one, small):
@@ -255,6 +330,8 @@ def _ranks(tmp_path_factory) -> dict:
             jmesh(1, 1), k=KK, bf16_matmul=False, engine=jeng,
             self_exclude=True, row_block=ROW_BLOCK)(
                 ds[:QB], query_ids=jnp.arange(QB))
+        life_ref = _reference_lifecycle(ds, corpus.emb)
+        server_ref = _reference_server(ds, corpus.emb)
         deadline = time.monotonic() + 270
         while not ctx.join(timeout=1):      # raises if a rank failed
             assert time.monotonic() < deadline, "the ranks did not finish"
@@ -263,8 +340,65 @@ def _ranks(tmp_path_factory) -> dict:
             if p.is_alive():
                 p.kill()
     ranks = [dict(np.load(out / f"rank{i}.npz")) for i in range(8)]
-    _RUN.update(ranks=ranks, d_ref=d_ref, mono_ref=mono_ref)
+    _RUN.update(ranks=ranks, d_ref=d_ref, mono_ref=mono_ref,
+                life_ref=life_ref, server_ref=server_ref, inputs=inputs)
     return _RUN
+
+
+def _reference_lifecycle(ds, emb) -> dict:
+    """The reference's single-device segmented and routed steps over the
+    ranks' engine and index, after the same changes, at every version
+    (the routed step before the append), with each version's route and
+    live mask."""
+    cut = lambda lo, hi: JDocSet(ids=ds.ids[lo:hi],       # noqa: E731
+                                 weights=ds.weights[lo:hi])
+    eng = jlc.SegmentedEngine(cut(*SEGMENTS[0]), emb)
+    for lo, hi in SEGMENTS[1:]:
+        eng.append(cut(lo, hi))
+    idx = JIndex(eng, **CELLS)
+    eng.delete(list(DEAD[0]))
+    kw = dict(k=KK, bf16_matmul=False, self_exclude=True, streaming=True,
+              row_block=ROW_BLOCK)
+    steps = {"seg": jd.build_serve_step(jmesh(1, 1), engine=eng, **kw),
+             "routed": jd.build_serve_step(jmesh(1, 1), engine=eng,
+                                           index=idx, **kw)}
+    out = {}
+    for ver in VERSIONS:
+        if ver == "delete":
+            eng.delete(list(DEAD[1]))
+        elif ver == "append":
+            # the routed step is held to the reference until here; after
+            # it, to the port's one-device routed step (tested against the
+            # reference's in test_torch_index), which spares the
+            # reference's index.add, rebuild and new traces
+            eng.append(cut(*APPEND))
+            steps.pop("routed")
+        elif ver == "compact":
+            eng.compact()
+        for tag, step in steps.items():
+            tk = step(ds[:QB], query_ids=jnp.arange(QB)).topk
+            out[f"{tag}/{ver}"] = (np.asarray(tk.dists),
+                                   np.asarray(tk.indices))
+            if tag == "routed":
+                route = idx.route(ds[:QB])
+                out[f"route/{ver}"] = (np.asarray(route.cells),
+                                       np.asarray(route.keep))
+        out[f"live/{ver}"] = np.asarray(eng.live_mask())
+    return out
+
+
+def _reference_server(ds, emb) -> list:
+    """The reference's QueryServer on the ranks' stream, its deadline
+    ``LAPSED`` let lapse."""
+    server = jqs.QueryServer(ds, emb, jmesh(), jqs.ServerConfig(
+        k=KK, max_batch=SERVER_BATCH, h_max=ds.h_max, degradation=True,
+        recover_after=RECOVER_AFTER))
+    ids, w = np.asarray(ds.ids), np.asarray(ds.weights)
+    for j, pick in enumerate(SERVER_PICKS):
+        server.submit(ids[pick], w[pick],
+                      deadline=LAPSE_S if j == LAPSED else None)
+    time.sleep(20 * LAPSE_S)
+    return server.flush()
 
 
 def _check_topk(dists, idx, d_ref, want_dists, what):
@@ -342,8 +476,10 @@ def test_eight_ranks_monolithic_step(tmp_path_factory, name, full_mesh):
 @pytest.mark.timeout(300)
 def test_eight_ranks_hold_one_topk(tmp_path_factory):
     ranks = _ranks(tmp_path_factory)["ranks"]
-    keys = [k for k in ranks[0] if k.endswith(("/d", "/i"))]
-    assert len(keys) == 2 * (8 + 4 * 3)
+    keys = [k for k in ranks[0] if k.endswith(("/d", "/i", "/tier", "/err",
+                                               "/cells", "/keep"))]
+    steps = len(SEG_RUNS) + len(ROUTED_RUNS) + 2     # and the one-device two
+    assert len(keys) == 2 * (8 + 4 * 3) + len(VERSIONS) * (2 * steps + 2) + 8
     for r in ranks[1:]:
         for key in keys:
             assert np.array_equal(r[key], ranks[0][key]), key
@@ -372,9 +508,12 @@ def test_eight_ranks_collective_counts(tmp_path_factory, name, full_mesh):
 def test_eight_ranks_refusals_and_layout(tmp_path_factory):
     ranks = _ranks(tmp_path_factory)["ranks"]
     for r in ranks:
+        # the segmented and routed steps build over 8 ranks; the async
+        # server refuses them, naming ROADMAP A item 7's last part
         for name in ("segmented", "routed"):
-            msg = str(r[f"raise/{name}"])
-            assert msg.startswith("NotImplementedError") and "item 7" in msg
+            assert str(r[f"raise/{name}"]) == "nothing"
+        msg = str(r["raise/async"])
+        assert msg.startswith("NotImplementedError") and "item 7" in msg
         assert str(r["raise/smaller"]).startswith("ValueError")
         assert str(r["raise/larger"]).startswith("ValueError")
     for name, (data, model, pod) in MESHES.items():
@@ -384,3 +523,202 @@ def test_eight_ranks_refusals_and_layout(tmp_path_factory):
             block = -(-N // (shape[0] * data))
             lo = (rank // model) * block
             assert tuple(r[f"{name}/rows"]) == (lo, min(lo + block, N))
+
+
+# ---------------------------------------------------------------------------
+# Eight ranks: the segmented and routed steps, the server
+# ---------------------------------------------------------------------------
+STEP_RUNS = ([f"seg/{n}/fm{f}" for n, f in SEG_RUNS]
+             + [f"routed/{n}/fm{f}" for n, f in ROUTED_RUNS])
+
+
+def _version_dists(run, ver):
+    """The single-device one-sided distances with the docs outside the
+    engine at ``ver``, the dead ones and each query's own doc at +inf."""
+    d = _self_masked(run["d_ref"])
+    live = run["life_ref"][f"live/{ver}"]
+    d[len(live):] = np.inf
+    d[:len(live)][~live] = np.inf
+    return d
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("ver", VERSIONS)
+@pytest.mark.parametrize("tag", STEP_RUNS)
+def test_eight_ranks_segmented_and_routed_steps(tmp_path_factory, tag, ver):
+    """One callable a mesh served across the changes: self-excluding,
+    never a dead doc, within tolerance of the reference's single-device
+    step (ids by the distance they name), bit for bit the port's
+    one-device step where ``model`` = 1 and the vocabulary is not cut
+    over the batch axes.  From the append on, the routed step is held to
+    the port's one-device routed step (``test_torch_index`` holds that to
+    the reference's; after ``compact`` the reference's k-centers may pick
+    a dead doc, ROADMAP C, so its cells differ)."""
+    run = _ranks(tmp_path_factory)
+    r0 = run["ranks"][0]
+    variant, name, fm = tag.split("/")
+    d, i = r0[f"{tag}/{ver}/d"], r0[f"{tag}/{ver}/i"]
+    one_d, one_i = r0[f"{variant}/one/{ver}/d"], r0[f"{variant}/one/{ver}/i"]
+    d_ver = _version_dists(run, ver)
+    assert np.isfinite(d_ver[i, np.arange(QB)[:, None].repeat(KK, 1)]).all()
+    if variant == "routed" and ver in ("append", "compact"):
+        want = one_d
+    else:
+        want = run["life_ref"][f"{variant}/{ver}"][0]
+    _check_topk(d, i, d_ver, want, f"{tag}/{ver}")
+    if name == "d8m1" and fm == "fm0":
+        assert np.array_equal(d, one_d) and np.array_equal(i, one_i)
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("ver", VERSIONS)
+def test_eight_ranks_route_alike(tmp_path_factory, ver):
+    """Every rank routes each version's batch to the same cells (the
+    hold-one test compares them); before the append, the reference's."""
+    run = _ranks(tmp_path_factory)
+    r0 = run["ranks"][0]
+    if f"route/{ver}" in run["life_ref"]:
+        cells, keep = run["life_ref"][f"route/{ver}"]
+        assert np.array_equal(r0[f"route/{ver}/keep"], keep)
+        assert np.array_equal(r0[f"route/{ver}/cells"], cells)
+    # some rank of a 4- and an 8-way row cut holds no row of a probed cell
+    rows = r0[f"route/{ver}/rows"][np.unique(r0[f"route/{ver}/cells"][
+        r0[f"route/{ver}/keep"]])]
+    assert (rows < 8).any()
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("fm", [0, 1])
+@pytest.mark.parametrize("name", ["d1m8", "d8m1"])
+@pytest.mark.parametrize("variant", ["seg", "routed"])
+def test_eight_ranks_seg_and_routed_collective_counts(tmp_path_factory,
+                                                      variant, name, fm):
+    """``serve_step_collectives_*{variant=seg|routed}`` on rank 0 (after
+    the compact): one psum over model a slab of psum_batch · row_block of
+    its rows of each segment or probed cell (none where model = 1); one
+    all_gather over each batch axis of size > 1 for the top-k and, under
+    a full mesh, one more a segment or probed cell for Z."""
+    r0 = _ranks(tmp_path_factory)["ranks"][0]
+    data, model, _ = MESHES[name]
+    if variant == "seg":
+        rows = r0["segments/compact"]
+    else:
+        run = np.unique(r0["route/compact/cells"][r0["route/compact/keep"]])
+        rows = r0["route/compact/rows"][run]
+    mine = np.minimum(-(-rows // data), rows)       # rank 0's block
+    slab = ROW_BLOCK * 8
+    psum = int((-(-mine // slab)).sum()) if model > 1 else 0
+    gather = (data > 1) * (fm * len(rows) + 1)
+    tag = f"gauge/{variant}/{name}/fm{fm}"
+    assert int(r0[f"{tag}/psum"]) == psum
+    assert int(r0[f"{tag}/all_gather"]) == gather
+
+
+@pytest.mark.timeout(300)
+def test_eight_ranks_query_server(tmp_path_factory):
+    """A QueryServer on (8, 1): the deadline that lapsed on rank 0 alone
+    lapsed for every rank (the hold-one test compares every rank's
+    answers, tiers and errors), the tier stepped down on the miss and back
+    up as the reference's did, and the answers are the reference's
+    server's; then ``serve_stream`` with rank 0's flushes, every query
+    finding itself."""
+    run = _ranks(tmp_path_factory)
+    r0 = run["ranks"][0]
+    _check_server({k[len("server/flush/"):]: v for k, v in r0.items()
+                   if k.startswith("server/flush/")}, run["server_ref"])
+    assert not any(str(e) for e in r0["server/stream/err"])
+    assert (r0["server/stream/i"] == np.array(SERVER_PICKS)[:, None]).any(1).all()
+
+
+def _check_server(got: dict, want: list):
+    """A server's flush (``torch_mesh_ranks._answers`` arrays) against the
+    reference server's answers: the lapsed deadline, the tiers, and the
+    answers within ``test_torch_engine``'s tolerance."""
+    err = [str(e) for e in got["err"]]
+    assert err == ["DeadlineExceeded" if j == LAPSED else ""
+                   for j in range(len(SERVER_PICKS))]
+    assert type(want[LAPSED]).__name__ == "DeadlineExceeded"
+    tiers = got["tier"]
+    assert [int(t) for t in tiers] == [
+        -1 if j == LAPSED else a.tier for j, a in enumerate(want)]
+    assert set(tiers) == {-1, 0, 1}
+    ok = [j for j in range(len(SERVER_PICKS)) if j != LAPSED]
+    assert_topk_close(
+        ttk.TopK(torch.as_tensor(got["d"][ok]), torch.as_tensor(got["i"][ok])),
+        ttk.TopK(torch.as_tensor(np.stack([want[j][1] for j in ok])),
+                 torch.as_tensor(np.stack([want[j][0] for j in ok]))))
+
+
+def _rank_corpus(run):
+    """The ranks' corpus as port tensors on the CPU."""
+    from repro_torch.data.docs import DocSet
+
+    inputs = np.load(run["inputs"])
+    docs = DocSet(ids=torch.tensor(inputs["ids"]),
+                  weights=torch.tensor(inputs["weights"]))
+    return docs, torch.tensor(inputs["emb"])
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("variant", ["seg", "routed"])
+def test_segmented_and_routed_steps_on_a_mesh_of_one_match_reference(
+        tmp_path_factory, one, variant):
+    """In this process, on a mesh of one: the ranks' engine, index and
+    changes; at every version the 1x1 step is the mesh-less step bit for
+    bit and within ``test_torch_engine``'s tolerance of the reference's
+    single-device step (the routed one before the append)."""
+    run = _ranks(tmp_path_factory)
+    docs, emb = _rank_corpus(run)
+    eng = tlc.SegmentedEngine(docs[slice(*SEGMENTS[0])], emb, device="cpu")
+    for lo, hi in SEGMENTS[1:]:
+        eng.append(docs[lo:hi])
+    idx = ClusterIndex(eng, **CELLS)
+    eng.delete(list(DEAD[0]))
+    extra = dict(index=idx) if variant == "routed" else {}
+    kw = dict(k=KK, bf16_matmul=False, self_exclude=True, row_block=ROW_BLOCK,
+              **extra)
+    mesh_step = td.build_serve_step(one, engine=eng, **kw)
+    flat = td.build_serve_step(engine=eng, **kw)
+    qids = torch.arange(QB, dtype=torch.int32)
+    for ver in VERSIONS:
+        if ver == "delete":
+            eng.delete(list(DEAD[1]))
+        elif ver == "append":
+            idx.add(eng.append(docs[slice(*APPEND)]), docs[slice(*APPEND)])
+        elif ver == "compact":
+            eng.compact()
+            idx.rebuild()
+        got = mesh_step(docs[:QB], qids)
+        _equal(got, flat(docs[:QB], qids))
+        _equal(mesh_step(docs[:QB], qids, tier=2),
+               flat(docs[:QB], qids, tier=2))
+        want = run["life_ref"].get(f"{variant}/{ver}")
+        if want is not None:
+            assert_topk_close(got.topk, ttk.TopK(torch.tensor(want[0]),
+                                                 torch.tensor(want[1])))
+
+
+@pytest.mark.timeout(300)
+def test_query_server_on_a_mesh_of_one(tmp_path_factory, one):
+    """The ranks' server run in this process on a mesh of one: bit for bit
+    the mesh-less server (answers, tiers, the lapsed deadline), and the
+    reference's server on ``make_host_mesh()``."""
+    run = _ranks(tmp_path_factory)
+    docs, emb = _rank_corpus(run)
+    ids, w = docs.ids.numpy(), docs.weights.numpy()
+
+    def flush(mesh):
+        server = tqs.QueryServer(docs, emb, tqs.ServerConfig(
+            k=KK, max_batch=SERVER_BATCH, h_max=docs.h_max, degradation=True,
+            recover_after=RECOVER_AFTER, device="cpu"), mesh=mesh)
+        for j, pick in enumerate(SERVER_PICKS):
+            server.submit(ids[pick], w[pick],
+                          deadline=LAPSE_S if j == LAPSED else None)
+        time.sleep(20 * LAPSE_S)
+        return dict(zip(("i", "d", "tier", "err"), torch_mesh_ranks._answers(
+            server.flush(), KK)))
+
+    got, same = flush(one), flush(None)
+    for key in got:
+        assert np.array_equal(got[key], same[key]), key
+    _check_server(got, run["server_ref"])

@@ -14,7 +14,6 @@ cross-corpus top-k fails on 2 of 384 such ids), so ids are compared only
 where the reference's neighbouring gaps exceed 1e-2.
 """
 
-import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -225,11 +224,18 @@ def test_self_topk_distributed_matches_reference(small_corpus, engines):
         je, make_host_mesh(data=1, model=1), 4, tile=40, refine=True)
     _assert_topk(got, want)
     assert not (got.indices.numpy() == np.arange(96)[:, None]).any()
-    # over more than one rank a segmented engine has no mesh program yet
-    eight = types.SimpleNamespace(size=8, device=te.device)
+    # a segmented engine runs the segmented step's mesh program on a mesh:
+    # on a mesh of one it is the mesh-less run bit for bit
+    from repro_torch.launch.mesh import make_host_mesh as tmesh
+
     seg = tlc.SegmentedEngine(te.resident, te.emb_full, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tcd.corpus_self_topk_distributed(seg, eight, 4)
+    on_mesh = tcd.corpus_self_topk_distributed(seg, tmesh(device="cpu"), 4,
+                                               tile=48, refine=False)
+    alone = tcd.corpus_self_topk_distributed(seg, None, 4, tile=48,
+                                             refine=False)
+    assert torch.equal(on_mesh.dists, alone.dists)
+    assert torch.equal(on_mesh.indices, alone.indices)
+    assert not (on_mesh.indices.numpy() == np.arange(96)[:, None]).any()
 
 
 # ---------------------------------------------------------------------------

@@ -10,10 +10,17 @@ ranks (``torch.multiprocessing`` spawn) meet through a file under
 ``OUT_DIR`` (no TCP port) and each writes ``OUT_DIR/rank{r}.npz``: for
 every mesh and ``phase1_full_mesh`` its engine-less step's TopK and
 ``d_local``, its all-pairs D1 block and the block's global rows, the
-monolithic steps' TopKs and gauges, and what the refusals raised.
+monolithic steps' TopKs and gauges, and what the refusals raised.  Then
+the corpus's first ``SEGMENTS[-1][1]`` docs as a segmented engine of
+three segments with tombstones, a cluster index over it, and the
+segmented and routed steps (self-excluding) of ``SEG_RUNS`` and
+``ROUTED_RUNS`` with the one-device steps beside them, each called at
+every one of ``VERSIONS`` (a delete, an append and a compact made alike on
+every rank between them); their gauges; and a ``QueryServer`` on (8, 1)
+whose deadline ``LAPSED`` lapses on rank 0 only.
 
-:class:`RankAlone` runs one rank of a (1, model) mesh by itself, for the
-card's checks of each vocabulary shard's kernel work.
+:class:`RankAlone` runs one rank of a (data, model) mesh by itself, for
+the card's checks of each shard's kernel work.
 """
 
 from __future__ import annotations
@@ -39,20 +46,40 @@ MONO = ("p2d2m2", "d1m8")        # the monolithic step at both full-mesh modes
 COUNTED = ("d1m8", "d8m1")       # the collective gauges
 TIMEOUT = datetime.timedelta(seconds=120)
 
+# The segmented engine and its index: three segments, the index, tombstones
+# (query 2's own doc among them), then a delete, an append and a compact.
+SEGMENTS = ((0, 36), (36, 46), (46, 56))
+APPEND = (56, 64)
+DEAD = ((2, 5, 38, 50), (10, 20, 47))
+CELLS = dict(num_cells=16, top_p=3, probe_cap=16, seed=0)
+VERSIONS = ("v0", "delete", "append", "compact")
+SEG_RUNS = (("p2d2m2", 0), ("p2d2m2", 1), ("d8m1", 0), ("d8m1", 1))
+ROUTED_RUNS = (("d1m8", 0), ("d1m8", 1), ("d4m2", 0), ("d4m2", 1),
+               ("d8m1", 0))
+# The server on (8, 1): batches of SERVER_BATCH, the deadline of query
+# LAPSED (LAPSE_S) lapses on rank 0 only; degradation steps the tier down
+# on the miss and back up after RECOVER_AFTER batches.
+SERVER_PICKS = (3, 17, 41, 8, 60, 29, 33, 12, 50, 1)
+SERVER_BATCH = 4
+LAPSED = 1
+LAPSE_S = 1e-3
+RECOVER_AFTER = 2
+
 
 class RankAlone:
-    """Rank ``rank`` of a (1, ``model``) mesh, run alone in this process.
+    """Rank ``rank`` of a (``data``, ``model``) mesh, run alone in this
+    process (ranks row-major, model fastest).
 
     Its collectives are the identity: a serve step built on it computes
-    that rank's shard of the work, and its ``d_local`` is the rank's
-    partial D before the psum over model.
+    that rank's shard of the work; its ``d_local`` is the rank's partial D
+    before the psum over model, and its TopK the rank's own candidates.
     """
 
-    def __init__(self, model: int, rank: int, device):
-        self.shape = {"data": 1, "model": model}
+    def __init__(self, model: int, rank: int, device, data: int = 1):
+        self.shape = {"data": data, "model": model}
         self.axis_names = tuple(self.shape)
-        self.coords = {"data": 0, "model": rank}
-        self.size = model
+        self.coords = {"data": rank // model, "model": rank % model}
+        self.size = data * model
         self.device = torch.device(device)
         self.counts: Counter = Counter()
 
@@ -101,22 +128,131 @@ def _gauges(mesh, engine, queries, k, row_block, fm, out, tag):
 def _refusals(mesh, docs, emb, out):
     from repro_torch.core.lc_rwmd import SegmentedEngine
     from repro_torch.distributed.lcrwmd_dist import build_serve_step
+    from repro_torch.index import ClusterIndex
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving.query_server import AsyncQueryServer, ServerConfig
 
     seg = SegmentedEngine(docs, emb, device="cpu")
     for name, kw in (("segmented", dict(engine=seg)),
-                     ("routed", dict(engine=seg, index=object()))):
+                     ("routed", dict(engine=seg, index=ClusterIndex(
+                         seg, num_cells=4, seed=0)))):
         try:
             build_serve_step(mesh, k=3, **kw)
             out[f"raise/{name}"] = np.array("nothing")
         except NotImplementedError as e:
             out[f"raise/{name}"] = np.array(f"NotImplementedError: {e}")
+    try:
+        AsyncQueryServer(docs, emb, ServerConfig(device="cpu"), mesh=mesh)
+        out["raise/async"] = np.array("nothing")
+    except NotImplementedError as e:
+        out["raise/async"] = np.array(f"NotImplementedError: {e}")
     for name, shape in (("smaller", (2, 2)), ("larger", (4, 4))):
         try:
             make_host_mesh(*shape, device="cpu")
             out[f"raise/{name}"] = np.array("nothing")
         except ValueError as e:
             out[f"raise/{name}"] = np.array(f"ValueError: {e}")
+
+
+def _lifecycle(meshes, docs, emb, queries, qids, k, row_block, out):
+    """The segmented and routed steps of ``SEG_RUNS`` / ``ROUTED_RUNS`` and
+    the one-device steps, each ONE callable served at every version; the
+    route of every version; the seg and routed gauges at ``COUNTED``."""
+    from repro_torch.core.lc_rwmd import SegmentedEngine
+    from repro_torch.data.docs import DocSet
+    from repro_torch.distributed.lcrwmd_dist import build_serve_step
+    from repro_torch.index import ClusterIndex
+    from repro_torch.obs import Observability
+
+    eng = SegmentedEngine(docs[slice(*SEGMENTS[0])], emb, device="cpu")
+    for lo, hi in SEGMENTS[1:]:
+        eng.append(docs[lo:hi])
+    idx = ClusterIndex(eng, **CELLS)
+    eng.delete(list(DEAD[0]))        # honoured by the index without a call
+    kw = dict(k=k, bf16_matmul=False, self_exclude=True, row_block=row_block)
+    steps = {"seg/one": build_serve_step(engine=eng, **kw),
+             "routed/one": build_serve_step(engine=eng, index=idx, **kw)}
+    for name, fm in SEG_RUNS:
+        steps[f"seg/{name}/fm{fm}"] = build_serve_step(
+            meshes[name], engine=eng, phase1_full_mesh=bool(fm), **kw)
+    for name, fm in ROUTED_RUNS:
+        steps[f"routed/{name}/fm{fm}"] = build_serve_step(
+            meshes[name], engine=eng, index=idx, phase1_full_mesh=bool(fm),
+            **kw)
+    for ver in VERSIONS:
+        if ver == "delete":
+            eng.delete(list(DEAD[1]))
+        elif ver == "append":
+            ext = docs[slice(*APPEND)]
+            idx.add(eng.append(ext), ext)
+        elif ver == "compact":
+            eng.compact()
+            idx.rebuild()
+        for tag, step in steps.items():
+            tk = step(queries, qids).topk
+            out[f"{tag}/{ver}/d"] = tk.dists.numpy()
+            out[f"{tag}/{ver}/i"] = tk.indices.numpy()
+        route = idx.route(queries)
+        out[f"route/{ver}/cells"] = route.cells
+        out[f"route/{ver}/keep"] = route.keep
+        out[f"route/{ver}/rows"] = np.array(
+            [0 if c is None else c.segment.n_rows for c in idx.cells])
+        out[f"segments/{ver}"] = np.array([g.n_rows for g in eng.segments])
+    for name in COUNTED:
+        for fm in (0, 1):
+            for variant, extra in (("seg", {}), ("routed", dict(index=idx))):
+                obs = Observability()
+                build_serve_step(meshes[name], engine=eng, obs=obs,
+                                 phase1_full_mesh=bool(fm), **extra, **kw)(
+                    queries, qids)
+                snap = obs.metrics.snapshot()
+                for what in ("psum", "all_gather"):
+                    (series,) = snap[f"serve_step_collectives_{what}"][
+                        "series"]
+                    assert series["labels"] == {"variant": variant}
+                    out[f"gauge/{variant}/{name}/fm{fm}/{what}"] = np.array(
+                        series["value"])
+
+
+def _answers(answers, k):
+    """A server's answers as arrays: ids (-1 rows for an error), dists,
+    tiers (-1 for an error) and the error types."""
+    n = len(answers)
+    ids, d = np.full((n, k), -1, np.int64), np.full((n, k), np.inf, np.float32)
+    tier, err = np.full(n, -1), []
+    for j, a in enumerate(answers):
+        if isinstance(a, Exception):
+            err.append(type(a).__name__)
+            continue
+        err.append("")
+        ids[j], d[j], tier[j] = a[0], a[1], a.tier
+    return ids, d, tier, np.array(err)
+
+
+def _server(mesh, docs, emb, k, rank, out):
+    """A QueryServer on ``mesh``: one flush of ``SERVER_PICKS`` whose query
+    ``LAPSED`` has a deadline only rank 0 lets lapse, then the same stream
+    through ``serve_stream``."""
+    import time
+
+    from repro_torch.serving.query_server import QueryServer, ServerConfig
+
+    cfg = ServerConfig(k=k, max_batch=SERVER_BATCH, h_max=docs.h_max,
+                       degradation=True, recover_after=RECOVER_AFTER,
+                       device="cpu")
+    server = QueryServer(docs, emb, cfg, mesh=mesh)
+    ids, w = docs.ids.numpy(), docs.weights.numpy()
+    for j, pick in enumerate(SERVER_PICKS):
+        lapse = j == LAPSED and rank == 0
+        server.submit(ids[pick], w[pick],
+                      deadline=LAPSE_S if lapse else None)
+    time.sleep(20 * LAPSE_S)
+    runs = {"flush": server.flush(),
+            "stream": list(server.serve_stream(
+                [(ids[p], w[p]) for p in SERVER_PICKS]))}
+    for name, answers in runs.items():
+        for key, x in zip(("i", "d", "tier", "err"), _answers(answers, k)):
+            out[f"server/{name}/{key}"] = x
 
 
 def rank_main(rank: int, inputs: str, out_dir: str) -> None:
@@ -140,8 +276,9 @@ def rank_main(rank: int, inputs: str, out_dir: str) -> None:
         qids = torch.arange(b, dtype=torch.int32)
         engine = LCRWMDEngine(docs, emb, device="cpu")
         out: dict = {}
+        meshes = {}
         for name, (da, mo, po) in MESHES.items():
-            mesh = make_host_mesh(da, mo, po, device="cpu")
+            mesh = meshes[name] = make_host_mesh(da, mo, po, device="cpu")
             out[f"{name}/rows"] = np.array(local_rows(mesh, docs.n_docs))
             out[f"{name}/coords"] = np.array(
                 [mesh.coords.get(a, 0) for a in ("pod", "data", "model")])
@@ -161,6 +298,8 @@ def rank_main(rank: int, inputs: str, out_dir: str) -> None:
                 if name in COUNTED:
                     _gauges(mesh, engine, queries, k, row_block, fm, out, tag)
         _refusals(mesh, docs, emb, out)
+        _lifecycle(meshes, docs, emb, queries, qids, k, row_block, out)
+        _server(meshes["d8m1"], docs, emb, k, rank, out)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     except BaseException:
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
