@@ -164,7 +164,8 @@ Phases, each of which exits non-zero on failure:
    the d21 mode must each run; each holds its gate (the quickstart's
    self-matches, accuracies above chance, the planted duplicate groups,
    serve_queries' recall > 0.9, the launcher's self-recall), and
-   ``--full`` / ``--multi-pod`` must raise naming ROADMAP A item 7.
+   ``--full`` and ``--full --multi-pod`` must raise the production mesh's
+   ``ValueError`` (a world of one rank, not 256 or 512).
 6e. the mesh (``repro_torch.launch.mesh``) on the same corpus, in a
    world-size-1 NCCL group that the phase sets up and tears down, with
    the counts reset just before and read just after: the 1x1 mesh's
@@ -176,8 +177,10 @@ Phases, each of which exits non-zero on failure:
    ``one_sided`` within B2's tolerance (launches counted); with two cards
    or more, min(cards, 4) spawned NCCL ranks at (1, n) and (n, 1) on the
    first 65,536 docs, the monolithic step and the segmented one over two
-   segments with a tombstone every 97th doc, against the one-card steps
-   (skipped, and logged, on one card).  The peak memory and the phase's
+   segments with a tombstone every 97th doc, against the one-card steps,
+   and an ``AsyncQueryServer`` at (1, n) whose ranks answer alike and
+   within B2's tolerance of the one-card async server (skipped, and
+   logged, on one card).  The peak memory and the phase's
    seconds are printed; each kernel's entry in the kernels line carries
    its ``mesh_launches``: this phase's and 6f's, summed, and apart in
    ``mesh_launches_by_phase``.
@@ -186,12 +189,33 @@ Phases, each of which exits non-zero on failure:
    server on a 1x1 mesh, in a world-size-1 NCCL group set up and torn
    down there, with the counts reset just before and read just after:
    the segmented step (k = 32), its tier 0 with the refine and the
-   rerank (budget 64), the routed step (top_p 4) and a ``QueryServer``
-   on the mesh answering the 64 queries; B1, B3 and B4 must run and no
+   rerank (budget 64), the routed step (top_p 4), a ``QueryServer``
+   on the mesh answering the 64 queries and an ``AsyncQueryServer`` on the
+   mesh answering them as raw texts through an ingest pool of 2 workers
+   (the serving phase's vectorizer); B1, B3 and B4 must run and no
    collective be issued; each equal to the mesh-less call (and the
-   mesh-less server) bit for bit, the steps timed beside it, no dead doc
-   or filler in a result, every query finding itself in the server's
+   mesh-less servers) bit for bit, the steps timed beside it, the async
+   answers also the sync mesh server's on the same texts, no dead doc or
+   filler in a result, every query finding itself in both servers'
    answers.  The peak memory and the phase's seconds are printed.
+6g. the paper's four cells (``repro_torch.configs.lcrwmd``:
+   ``serve_set1_1m``, ``serve_set2_2p8m``, ``allpairs_64k``,
+   ``serve_1m_k128``) at full size, after the LC-RWMD phases free their
+   memory: each ``build_cell("lcrwmd", name, mesh)`` on a 1x1 mesh in a
+   world-size-1 NCCL group, its ``step_fn`` (``bf16_matmul=True``) on
+   inputs of the cell's exact shapes drawn on the card
+   (``cells.make_args``: Zipf ids, repeats as padding; the mean h
+   printed).  With the counts reset just before and read just after one
+   call, B1 and B2 must run (``cells_launches`` in the kernels line); the
+   call equals the mesh-less step (or D1) bit for bit; B1 under bf16
+   matches its plain version on the first 65,536 vocabulary rows; every
+   query finds its own row (D1's diagonal for ``allpairs_64k``) within
+   the gram form's bf16 floor.  Printed: ms a call, the device split
+   phase 1 / phase 2 / top-k of a profiled call (CUDA activity only) and
+   of the parts timed apart by CUDA events (the split reported where
+   every trace lost B1's records), TFLOP/s of
+   ``model_flops``, the peak memory, and B1 at ``serve_set1_1m``'s shape
+   under bf16 and f32 beside its bound (``cells_b1_bf16`` in the line).
 7. flash attention: the kernel against its plain version at llama3.2-1b's
    heads (B=4, S=T=4,096, 32 query and 8 KV heads, dh 64), causal in bf16
    and f32, non-causal, at a length that is not a tile multiple, and with
@@ -2730,7 +2754,8 @@ def _latency(lat, wall, n) -> dict:
 
 
 def _busy_window(fn, families: dict = SERVE_FAMILIES,
-                 what: str = "serving", wall_ms: float | None = None) -> dict:
+                 what: str = "serving", wall_ms: float | None = None,
+                 required: bool = True) -> dict | None:
     """A window's device time (``torch.profiler`` with CUDA activity only,
     so the profiler adds no per-operator host records to a host-heavy
     loop) over its wall time, the window run once without the profiler and
@@ -2739,7 +2764,9 @@ def _busy_window(fn, families: dict = SERVE_FAMILIES,
     starts after a ``gc.collect()``: a collection of a finished stream's
     futures and traces (~0.3 s) would otherwise land in the window.  A
     caller that timed the window already passes ``wall_ms``, and the run
-    without the profiler is not repeated."""
+    without the profiler is not repeated.  If every trace shows no device
+    time, the phase fails, or, where not ``required`` (the caller times
+    the parts with CUDA events instead), None is returned."""
     import gc
 
     import torch
@@ -2772,6 +2799,8 @@ def _busy_window(fn, families: dict = SERVE_FAMILIES,
             break
         PROFILE_STATS["retries"] += 1
     else:
+        if not required:
+            return None
         fail(f"{what}: profiles of a window show no device time")
     return dict(wall_ms=wall_ms, profiled_wall_ms=prof_ms, device_ms=dev_ms,
                 busy_share=dev_ms / wall_ms,
@@ -2805,6 +2834,22 @@ def _host_rows(ds):
     return [(ids[j], w[j]) for j in range(len(ids))]
 
 
+def _text_vectorizer(vocab: int):
+    """The serving phase's text vectorizer: word ``w{i}`` is row i."""
+    from repro_torch.data.vectorizer import VocabVectorizer
+
+    return VocabVectorizer(h_max=48).fit([" ".join(
+        f"w{i}" for i in range(vocab))])
+
+
+def _texts(stream) -> list:
+    """Raw text payloads of (ids, weights) rows: each word repeated in
+    proportion to its weight (32 copies for a weight of 1)."""
+    return [" ".join(" ".join([f"w{i}"] * max(1, round(float(x) * 32)))
+                     for i, x in zip(ids, w) if x > 0)
+            for ids, w in stream]
+
+
 def serving_phase(docs, emb, smi: str) -> dict:
     """The serving plane on the card: ``QueryServer`` and
     ``AsyncQueryServer`` (self-recall, async = sync bit for bit, the
@@ -2819,7 +2864,6 @@ def serving_phase(docs, emb, smi: str) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.data.vectorizer import VocabVectorizer
     from repro_torch.distributed.lcrwmd_dist import build_serve_step
     from repro_torch.index import IndexConfig
     from repro_torch.kernels import _build
@@ -2894,9 +2938,7 @@ def serving_phase(docs, emb, smi: str) -> dict:
 
     # -- 2. AsyncQueryServer: the same stream, its overlap and busy share;
     # the text preprocess hook is the ingest pool's in-thread baseline
-    vocab = emb.shape[0]
-    vec = VocabVectorizer(h_max=48).fit([" ".join(
-        f"w{i}" for i in range(vocab))])
+    vec = _text_vectorizer(emb.shape[0])
     srv = build("async", lambda: AsyncQueryServer(
         docs, emb, ServerConfig(**kw), preprocess=vec.query_histogram))
     _serve_async(srv, stream[:B])                    # warm-up
@@ -2945,9 +2987,7 @@ def serving_phase(docs, emb, smi: str) -> dict:
         ln for ln in prom.splitlines()
         if not ln.startswith("#") and "_bucket{" not in ln))
     # in-thread text path, the pool's baseline (SERVE_POOL_QUERIES texts)
-    texts = [" ".join(" ".join([f"w{i}"] * max(1, round(float(x) * 32)))
-                      for i, x in zip(ids, w) if x > 0)
-             for ids, w in stream[:SERVE_POOL_QUERIES]]
+    texts = _texts(stream[:SERVE_POOL_QUERIES])
     text_want, lat_t, wall_t = _serve_async(srv, texts)
     info["text_in_thread"] = _latency(lat_t, wall_t, len(texts))
     srv.close()
@@ -3562,14 +3602,15 @@ def entry_points_phase(smi: str, argv: tuple = ()) -> dict:
              f"{cc['ari']} vs {cc['ari_wcd']}")
     if out["launch.serve"]["self_recall"] < 0.99:
         fail(f"launch.serve: self-recall {out['launch.serve']['self_recall']}")
-    for flag in ("--full", "--multi-pod"):
+    for flags, shape in ((["--full"], "16x16"),
+                         (["--full", "--multi-pod"], "2x16x16")):
         try:
-            launcher.main([flag])
-        except NotImplementedError as e:
-            if "item 7" not in str(e):
-                fail(f"launch.serve {flag}: {e}")
+            launcher.main(flags)
+        except ValueError as e:   # the production mesh refuses one rank
+            if f"{shape} > 1 ranks" not in str(e):
+                fail(f"launch.serve {flags}: {e}")
         else:
-            fail(f"launch.serve {flag} did not raise")
+            fail(f"launch.serve {flags} did not raise")
     info = dict(card=smi, ms=times, launches=launches,
                 quickstart=dict(top1=qs["top_ids"][:, 0].tolist(),
                                 lc_vs_quadratic=qs["lc_vs_quadratic_max_diff"],
@@ -3626,8 +3667,9 @@ def _mesh_segments(docs, emb, device):
 def _mesh_rank(rank: int, n: int, device_type: str, inputs: str,
                out_dir: str) -> None:
     """One rank of the multi-card check: a file rendezvous (NCCL on the
-    card, gloo on the CPU), a copy of the docs on its own device, and the
-    monolithic and the segmented streaming steps at (1, n) and (n, 1)."""
+    card, gloo on the CPU), a copy of the docs on its own device, the
+    monolithic and the segmented streaming steps at (1, n) and (n, 1), and
+    an ``AsyncQueryServer`` at (1, n) answering the queries."""
     import os
 
     import numpy as np
@@ -3638,6 +3680,7 @@ def _mesh_rank(rank: int, n: int, device_type: str, inputs: str,
     from repro_torch.data.docs import DocSet
     from repro_torch.distributed.lcrwmd_dist import build_serve_step
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving import AsyncQueryServer, ServerConfig
 
     os.environ["LOCAL_RANK"] = str(rank)
     dist.init_process_group(
@@ -3663,16 +3706,40 @@ def _mesh_rank(rank: int, n: int, device_type: str, inputs: str,
                 out[f"{tag}{name}/collectives"] = np.array(
                     [mesh.counts["psum"] - before[0],
                      mesh.counts["all_gather"] - before[1]])
+        # the async server over the ranks: rank 0's decisions, every
+        # rank's own copy of the queries
+        b = int(data["b"])
+        cfg = ServerConfig(**_mesh_server_cfg(b, int(data["k"]), docs.h_max))
+        mesh = make_host_mesh(1, n, device=device_type)
+        with AsyncQueryServer(docs, torch.tensor(data["emb"]), cfg,
+                              mesh=mesh) as srv:
+            futs = [srv.submit(i, w) for i, w in zip(data["ids"][:b],
+                                                     data["weights"][:b])]
+            srv.drain()
+            answers = [f.result() for f in futs]
+        out["async/d"] = np.stack([a[1] for a in answers])
+        out["async/i"] = np.stack([a[0] for a in answers])
+        out["async/tier"] = np.array([a.tier for a in answers])
         np.savez(f"{out_dir}/rank{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
+
+
+def _mesh_server_cfg(b: int, k: int, h_max: int) -> dict:
+    """The multi-card check's async server: one batch of the b queries
+    through the plain streaming step at the default tier (no refine, no
+    rerank)."""
+    return dict(k=k, max_batch=b, h_max=h_max, max_wait_s=1.0)
 
 
 def mesh_multi_card(docs, emb, n: int, device_type: str = "cuda") -> dict:
     """``n`` spawned ranks, one device each, on the first
     ``MESH_SPAWN_DOCS`` docs, monolithic and as two segments with
     tombstones: every rank's TopK the same, and within B2's tolerance of
-    the one-device step's (ids by the distance they name)."""
+    the one-device step's (ids by the distance they name); an
+    ``AsyncQueryServer`` at (1, n): every rank's answers the same, within
+    B2's tolerance of the one-device async server's (ids equal where the
+    neighbouring gaps exceed it)."""
     import tempfile
 
     import numpy as np
@@ -3681,6 +3748,7 @@ def mesh_multi_card(docs, emb, n: int, device_type: str = "cuda") -> dict:
 
     from repro_torch.core.lc_rwmd import LCRWMDEngine
     from repro_torch.distributed.lcrwmd_dist import build_serve_step
+    from repro_torch.serving import AsyncQueryServer, ServerConfig
 
     sub = docs[:min(MESH_SPAWN_DOCS, docs.n_docs)]
     q = sub[:B]
@@ -3690,6 +3758,11 @@ def mesh_multi_card(docs, emb, n: int, device_type: str = "cuda") -> dict:
         want = build_serve_step(k=MESH_K, engine=eng, bf16_matmul=False)(q)
         wants[tag] = (want.topk.dists.cpu().numpy(),
                       eng.one_sided(q).cpu().numpy())
+    with AsyncQueryServer(sub, emb, ServerConfig(
+            device=sub.device, **_mesh_server_cfg(B, MESH_K, sub.h_max))) as srv:
+        futs = [srv.submit(i, w) for i, w in _host_rows(q)]
+        srv.drain()
+        one_card = [f.result() for f in futs]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="mesh_ranks_") as tmp:
         inputs = f"{tmp}/inputs.npz"
@@ -3716,6 +3789,24 @@ def mesh_multi_card(docs, emb, n: int, device_type: str = "cuda") -> dict:
                  f"by {err}")
         info[name] = dict(max_abs_err=err,
                           collectives=ranks[0][f"{name}/collectives"].tolist())
+    if not all(np.array_equal(r[f"async/{x}"], ranks[0][f"async/{x}"])
+               for r in ranks for x in ("d", "i", "tier")):
+        fail(f"mesh AsyncQueryServer on {n} cards: the ranks' answers differ")
+    want_d = np.stack([a[1] for a in one_card])
+    want_i = np.stack([a[0] for a in one_card])
+    d, i = ranks[0]["async/d"], ranks[0]["async/i"]
+    tol = MESH_TOL * (1 + np.abs(want_d))
+    gaps = np.diff(want_d, axis=1)
+    clear = np.ones(want_d.shape, bool)
+    clear[:, 1:] &= gaps > tol[:, 1:]
+    clear[:, :-1] &= gaps > tol[:, :-1]
+    if ((np.abs(d - want_d) > tol).any() or (i != want_i)[clear].any()
+            or (ranks[0]["async/tier"] != 0).any()):
+        fail(f"mesh AsyncQueryServer on {n} cards: off the one-card "
+             f"server's answers by {float(np.abs(d - want_d).max())}")
+    info["async_server"] = dict(
+        max_abs_err=float(np.abs(d - want_d).max()),
+        ids_equal_share=float((i == want_i).mean()))
     return info
 
 
@@ -3858,15 +3949,19 @@ MESH_SEG_DEAD_EVERY = 97  # and a tombstone every 97th doc from doc 64
 
 
 def mesh_segmented_phase(eng, idx, docs, emb, q, smi: str) -> dict:
-    """The segmented and routed steps and ``QueryServer`` on a 1x1 mesh,
+    """The segmented and routed steps and both servers on a 1x1 mesh,
     over the segmented phase's engine (4 segments, its tombstones) and its
     64-cell index, in a world-size-1 NCCL group set up and torn down here.
     With the counts reset just before and read just after: the segmented
     step (k = 32), its tier 0 with the refine and the rerank (budget 64),
-    the routed step (top_p 4) and a ``QueryServer`` on the mesh answering
-    the 64 queries (its own engine of all the docs); B1, B3 and B4 must
-    each run, and no collective be issued.  Each equal to the mesh-less
-    call (and server) bit for bit, the steps timed beside it."""
+    the routed step (top_p 4), a ``QueryServer`` on the mesh answering
+    the 64 queries (its own engine of all the docs) and an
+    ``AsyncQueryServer`` on the mesh answering them as raw texts through an
+    ingest pool of 2 workers (the serving phase's vectorizer); B1, B3 and
+    B4 must each run, and no collective be issued.  Each equal to the
+    mesh-less call (and server) bit for bit, the steps timed beside it;
+    the async server's answers also equal the sync mesh server's on the
+    same texts, and every query finds itself."""
     import tempfile
 
     import numpy as np
@@ -3876,7 +3971,7 @@ def mesh_segmented_phase(eng, idx, docs, emb, q, smi: str) -> dict:
     from repro_torch.distributed.lcrwmd_dist import build_serve_step
     from repro_torch.kernels import _build
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.serving import QueryServer, ServerConfig
+    from repro_torch.serving import AsyncQueryServer, QueryServer, ServerConfig
 
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
@@ -3894,6 +3989,8 @@ def mesh_segmented_phase(eng, idx, docs, emb, q, smi: str) -> dict:
     cfg = dict(k=SERVE_K, max_batch=B, h_max=48, refine_symmetric=True,
                rerank_wmd=True, wmd_kw=KW_RERANK, max_wait_s=1.0)
     stream = _host_rows(q)
+    vec = _text_vectorizer(emb.shape[0])
+    texts = _texts(stream)
     with tempfile.TemporaryDirectory(prefix="mesh_seg_") as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
                                 rank=0, world_size=1)
@@ -3902,15 +3999,22 @@ def mesh_segmented_phase(eng, idx, docs, emb, q, smi: str) -> dict:
             if mesh.size != 1 or mesh.device.type != eng.device.type:
                 fail(f"make_host_mesh() in a world of one: {mesh}")
             steps = {name: (b(mesh), b(None)) for name, b in builds.items()}
-            servers, build_ms = {}, {}
+            servers, asyncs, build_ms = {}, {}, {}
             for name, m in (("mesh", mesh), ("meshless", None)):
                 servers[name], build_ms[name] = clocked(
                     lambda m=m: QueryServer(docs, emb, ServerConfig(**cfg),
-                                            mesh=m))
+                                            mesh=m,
+                                            preprocess=vec.query_histogram))
+                asyncs[name], build_ms[f"async_{name}"] = clocked(
+                    lambda m=m: AsyncQueryServer(
+                        docs, emb, ServerConfig(
+                            ingest_workers=SERVE_POOL_WORKERS, **cfg),
+                        mesh=m, preprocess=vec.query_histogram))
             torch.cuda.synchronize()
             _build.reset_launches()
             got = {name: m(q) for name, (m, _) in steps.items()}
             answers = _serve_sync(servers["mesh"], stream, B)[0]
+            async_got = _serve_async(asyncs["mesh"], texts)[0]
             torch.cuda.synchronize()
             launches = dict(_build.LAUNCHES)
             _launched("mesh segmented", launches,
@@ -3933,6 +4037,19 @@ def mesh_segmented_phase(eng, idx, docs, emb, q, smi: str) -> dict:
                     fail(f"mesh {name}: a dead doc or filler in the result")
             if not all(j in a[0] for j, a in enumerate(answers)):
                 fail("mesh QueryServer: a query did not find itself")
+            # the async server on the mesh: raw texts through its pool
+            async_want = _serve_async(asyncs["meshless"], texts)[0]
+            for t in texts:
+                servers["mesh"].submit(t)
+            sync_texts = servers["mesh"].flush()
+            for j, a in enumerate(async_got):
+                if not (_bit_equal(a, async_want[j]) and _bit_equal(
+                        a, sync_texts[j]) and a.tier == 0):
+                    fail(f"mesh AsyncQueryServer: answer {j} differs from "
+                         "the mesh-less async server's or the sync mesh "
+                         "server's on the same texts")
+            if not all(j in a[0] for j, a in enumerate(async_got)):
+                fail("mesh AsyncQueryServer: a query did not find itself")
             del got
             times = {}
             for name, (m, one) in steps.items():
@@ -3943,7 +4060,10 @@ def mesh_segmented_phase(eng, idx, docs, emb, q, smi: str) -> dict:
             for name in ("mesh", "meshless"):
                 times[f"server_{name}"] = dict(stream_ms=(_serve_sync(
                     servers[name], stream, B)[2]) * 1e3)
-            del servers
+                times[f"async_{name}"] = dict(stream_ms=(_serve_async(
+                    asyncs[name], texts)[2]) * 1e3)
+                asyncs[name].close()
+            del servers, asyncs
         finally:
             dist.destroy_process_group()
     info = dict(card=smi, launches=launches, times=times,
@@ -3951,7 +4071,8 @@ def mesh_segmented_phase(eng, idx, docs, emb, q, smi: str) -> dict:
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                 s=time.perf_counter() - t_phase)
     log(f"mesh segmented ({smi}): the 1x1 mesh bit-equal to the mesh-less "
-        f"step in {list(steps)} and the QueryServer; ms mesh / mesh-less: "
+        f"step in {list(steps)}, the QueryServer and the AsyncQueryServer "
+        "(texts through a pool of 2); ms mesh / mesh-less: "
         + ", ".join(f"{k} {v['mesh_ms'][0]:.2f}/{v['meshless_ms'][0]:.2f}"
                     for k, v in times.items() if "mesh_ms" in v)
         + f"; phase {info['s']:.1f} s")
@@ -4134,6 +4255,277 @@ def lcrwmd_phases(scale: float, smi: str) -> dict:
     return report
 
 
+# 6g: the paper's four cells (src/repro_torch/configs/lcrwmd.py) at full
+# size, through launch/cells.py's build_cell on a 1x1 mesh; inputs drawn on
+# the card from CELL_SEED (cells.make_args).
+CELLS = ("serve_set1_1m", "serve_set2_2p8m", "allpairs_64k", "serve_1m_k128")
+CELL_SEED = 0
+CELL_REPS = 3             # timed calls after a warm-up
+CELL_CHECK_VOCAB = 65_536  # B1 under bf16 against its plain version: first rows
+CELL_CHECK_CHUNK = 8192    # the plain version's rows at a time
+# bf16 products round each operand to 8 bits: the gram form's noise on a
+# near-zero distance is ~sqrt(2^-8 * 2 * max|e|^2), as the f32 floor is
+# with 2^-23.
+BF16_EPS = 2.0 ** -8
+# the device split of a cell's call: B1 (its prep and GEMM), B2, the top-k
+# (the two stable radix sorts and their gathers); the rest is "other"
+CELL_GROUPS = {"phase1": ("phase1_",), "phase2": ("spmm_ell",),
+               "topk": ("ort", "ather", "opk")}
+CELL_PROFILE_TRIES = 2
+
+
+def _cell_window(fn, what: str, ms: float) -> dict | None:
+    """One call's device time by CELL_GROUPS (``_busy_window``: CUDA
+    activity only; on an H100 a whole-host trace of a serve cell took
+    25-35 s at its sort sizes), retaken while it lost B1's or B2's
+    records or every device record; None if every trace lost them (the
+    port's kernels, launched through ctypes, drop out of some traces:
+    ROADMAP C)."""
+    for attempt in range(1, CELL_PROFILE_TRIES + 1):
+        out = _busy_window(fn, CELL_GROUPS, what, wall_ms=ms, required=False)
+        if (out is not None and out["by_group"]["phase1"] > 0
+                and out["by_group"]["phase2"] > 0):
+            return out
+        PROFILE_STATS["first_lost" if attempt == 1 else "retries"] += 1
+        log(f"{what}: trace {attempt} lost B1's or B2's records: "
+            f"{out['by_group'] if out else 'no device time at all'}")
+    return None
+
+
+def _cell_parts(args, k: int | None) -> dict:
+    """CUDA-event ms of the step's parts on the cell's inputs, run apart
+    as the mesh-less step runs them: phase 1 (the query gather and B1),
+    phase 2 (B2), and for a serve cell the top-k of the (n, B) block."""
+    from repro_torch.core.topk import topk_smallest_cols
+    from repro_torch.kernels import ops
+
+    res, q, emb = args
+    z = ops.lc_rwmd_phase1(emb, q.ids, q.weights, bf16_matmul=True)
+    d = ops.spmm_ell(res.ids, res.weights, z)
+    out = dict(
+        phase1=time_ms(lambda: ops.lc_rwmd_phase1(
+            emb, q.ids, q.weights, bf16_matmul=True), CELL_REPS),
+        phase2=time_ms(lambda: ops.spmm_ell(res.ids, res.weights, z),
+                       CELL_REPS))
+    if k is not None:
+        out["topk"] = time_ms(lambda: topk_smallest_cols(d, k), CELL_REPS)
+    return out
+
+
+def _b1_bf16_check(emb, q) -> dict:
+    """B1 under bf16_matmul against its plain version on the first
+    CELL_CHECK_VOCAB vocabulary rows at the cell's queries (squared Z,
+    tolerance 1e-5*(|e|^2+|t|^2) as the card test's), the plain version
+    in row chunks."""
+    import torch
+
+    from repro_torch.kernels import lc_rwmd_phase1 as p1
+
+    rows = emb[:CELL_CHECK_VOCAB]
+    t = emb[q.ids.reshape(-1).long()].reshape(*q.ids.shape, emb.shape[1])
+    valid = (q.weights > 0).to(torch.float32)
+    got = p1.phase1_sq_cuda(rows, t, valid, bf16_matmul=True)
+    t2 = ((t * t).sum(2) * valid).amax(1)[None, :]
+    worst = 0.0
+    for lo in range(0, rows.shape[0], CELL_CHECK_CHUNK):
+        e = rows[lo:lo + CELL_CHECK_CHUNK]
+        want = p1.phase1_sq_plain(e, t, valid, bf16_matmul=True)
+        diff = (got[lo:lo + CELL_CHECK_CHUNK] - want).abs()
+        tol = 1e-5 * ((e * e).sum(1)[:, None] + t2)
+        if not bool((diff <= tol).all()):
+            fail(f"cells: B1 under bf16 exceeds 1e-5*(|e|^2+|t|^2) at "
+                 f"{int((diff > tol).sum())} entries (max {float(diff.max())})")
+        worst = max(worst, float(diff.max()))
+    return dict(max_abs_err=worst, rows=rows.shape[0],
+                tol="1e-5*(|e|^2+|t|^2), squared Z, bf16_matmul")
+
+
+def _b1_bf16_time(emb, q) -> dict:
+    """B1 at the cell's whole vocabulary and queries, under bf16_matmul and
+    in f32, beside its bound.  The operands are rounded to bf16, so the
+    bound is the card's bf16 tensor-core rate; the FP32 FMA bound (what
+    the kernel's f32 arithmetic allows) is kept beside it."""
+    import torch
+
+    from repro_torch.kernels import lc_rwmd_phase1 as p1
+
+    v, m = emb.shape
+    b, h = q.ids.shape
+    t = emb[q.ids.reshape(-1).long()].reshape(b, h, m)
+    valid = (q.weights > 0).to(torch.float32)
+    n_valid = int(valid.sum())
+    flop = 2.0 * v * m * n_valid
+    nbytes = 4 * (v * m + b * h * m + b * h + v * b)
+    bnd, by = bound_ms(nbytes, flop, BF16_FLOP_PER_S)
+    out = dict(
+        v=v, b=b, h=h, valid_words=n_valid, flop=flop, bound_ms=bnd,
+        bound_by=by, bound_fp32_ms=bound_ms(nbytes, flop)[0],
+        ms=time_ms(lambda: p1.phase1_sq_cuda(emb, t, valid, bf16_matmul=True),
+                   CELL_REPS),
+        f32_ms=time_ms(lambda: p1.phase1_sq_cuda(emb, t, valid), CELL_REPS))
+    out["tflops"] = flop / out["ms"] / 1e9
+    return out
+
+
+def cells_phase(smi: str) -> dict:
+    """6g: the paper's four cells at full size on one card.  Each is
+    ``build_cell("lcrwmd", name, mesh)`` on a 1x1 mesh in a world-size-1
+    NCCL group set up and torn down here; its ``step_fn`` runs on inputs of
+    ``cell.args``' exact shapes and dtypes, drawn on the card
+    (``cells.make_args``).  With the counts reset just before and read just
+    after one call, B1 and B2 must run; the call must equal the mesh-less
+    engine-less step (or D1) bit for bit; B1 under ``bf16_matmul`` must
+    match its plain version on the first 65,536 vocabulary rows; every
+    query must find its own row (D1's diagonal for the all-pairs cell)
+    within the gram form's bf16 floor.  Printed: ms a call (warm-up, then
+    CELL_REPS calls), the device split phase 1 / phase 2 / top-k of one
+    profiled call and of the parts timed apart (CUDA events; the split
+    reported where every trace lost B1's records), the TFLOP/s of
+    ``model_flops``, the peak memory, and B1
+    at ``serve_set1_1m``'s shape under bf16 and f32 beside its bound."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    info: dict = {"card": smi}
+    with tempfile.TemporaryDirectory(prefix="cells_") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh()
+            if mesh.size != 1:
+                fail(f"make_host_mesh() in a world of one: {mesh}")
+            for name in CELLS:
+                info[name] = _one_cell(name, mesh, smi)
+                torch.cuda.empty_cache()
+            if sum(mesh.counts.values()):
+                fail(f"cells: a 1x1 mesh issued collectives: {dict(mesh.counts)}")
+        finally:
+            dist.destroy_process_group()
+    info["s"] = time.perf_counter() - t_phase
+    log(f"cells ({smi}): " + ", ".join(
+        f"{n} {info[n]['ms']:.1f} ms ({info[n]['tflops']:.1f} TFLOP/s, peak "
+        f"{info[n]['peak_gb']:.1f} GB)" for n in CELLS)
+        + f"; phase {info['s']:.1f} s")
+    log("cells: " + json.dumps(info, default=float))
+    return info
+
+
+def _one_cell(name: str, mesh, smi: str) -> dict:
+    """One cell of 6g (see ``cells_phase``)."""
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.distributed.lcrwmd_dist import (build_allpairs_d1,
+                                                     build_serve_step)
+    from repro_torch.kernels import _build
+    from repro_torch.launch.cells import build_cell, make_args
+
+    cell = build_cell("lcrwmd", name, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_part = {"start": time.perf_counter()}
+    args, gen_ms = clocked(lambda: make_args(cell, seed=CELL_SEED,
+                                             device=mesh.device))
+    res, q, emb = args
+    shapes = [(tuple(t.shape), t.dtype) for t in (
+        res.ids, res.weights, q.ids, q.weights, emb)]
+    want_shapes = [(tuple(t.shape), t.dtype) for t in (
+        cell.args[0].ids, cell.args[0].weights, cell.args[1].ids,
+        cell.args[1].weights, cell.args[2])]
+    if shapes != want_shapes:
+        fail(f"cells {name}: inputs {shapes} are not the cell's {want_shapes}")
+    mean_h = float((res.weights > 0).sum(1).float().mean())
+    allpairs = cell.kind == "lcrwmd_allpairs"
+    spec = get_spec("lcrwmd")
+    bf16 = spec.model_cfg.bf16_matmul
+    if allpairs:
+        one = build_allpairs_d1(bf16_matmul=bf16, device=mesh.device)
+    else:
+        k = spec.shapes[name].params.get("k", spec.model_cfg.k)
+        one = build_serve_step(k=k, bf16_matmul=bf16, device=mesh.device)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    got = cell.step_fn(*args)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    _launched(f"cells {name}", launches, ("lc_rwmd_phase1", "spmm_ell"))
+    want = one(*args)
+    if not _same(got, want):
+        fail(f"cells {name}: the 1x1 mesh step differs from the mesh-less one")
+    del want
+    step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t_part["calls"] = time.perf_counter()
+    emax2 = float((emb * emb).sum(1).max())
+    floor = math.sqrt(BF16_EPS * 2.0 * emax2)
+    b = q.n_docs
+    self_ids = torch.arange(b, device=mesh.device)
+    if allpairs:
+        d_self = got[self_ids, self_ids]
+    else:
+        hit = got.topk.indices == self_ids[:, None].to(got.topk.indices.dtype)
+        if not bool(hit.any(1).all()):
+            fail(f"cells {name}: {int((~hit.any(1)).sum())} queries did not "
+                 "find their own row in their top-k")
+        d_self = torch.where(hit, got.topk.dists, 0.0).sum(1)
+    if not bool(torch.isfinite(d_self).all()) or float(d_self.max()) > floor:
+        fail(f"cells {name}: a self distance {float(d_self.max())} above the "
+             f"bf16 gram floor {floor}")
+    del got
+    b1_check = _b1_bf16_check(emb, q)
+    t_part["b1_check"] = time.perf_counter()
+    ms = time_ms(lambda: cell.step_fn(*args), CELL_REPS)
+    t_part["timed"] = time.perf_counter()
+    window = _cell_window(lambda: cell.step_fn(*args), f"cells {name}", ms)
+    t_part["profiled"] = time.perf_counter()
+    parts = _cell_parts(args, None if allpairs else k)
+    t_part["parts"] = time.perf_counter()
+    # the profiler's split where a trace kept B1's and B2's records, else
+    # the parts timed apart by CUDA events (both printed)
+    split = window["by_group"] if window else parts
+    out = dict(
+        kind=cell.kind, n=res.n_docs, h=res.h_max, b=b, v=emb.shape[0],
+        mean_h=mean_h, gen_ms=gen_ms, launches=launches, ms=ms,
+        model_flops=cell.model_flops,
+        tflops=cell.model_flops / ms / 1e9, device_ms=split,
+        split_from="torch.profiler" if window else "cuda events",
+        parts_ms=parts, profiled_device_ms=window and window["device_ms"],
+        self_max=float(d_self.max()), bf16_floor=floor, b1_bf16=b1_check,
+        notes=cell.notes)
+    if name == "serve_set1_1m":
+        out["b1_bf16_time"] = _b1_bf16_time(emb, q)
+    t_part["b1_timed"] = time.perf_counter()
+    marks = list(t_part.items())
+    out["seconds"] = {k: t - p for (_, p), (k, t) in zip(marks, marks[1:])}
+    out["peak_gb"] = step_peak_gb     # the two calls of the step
+    out["phase_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"cell {name} ({smi}): n {out['n']} h {out['h']} (mean h "
+        f"{mean_h:.2f}) B {b} v {out['v']}; {ms:.2f} ms a call, "
+        f"{out['tflops']:.2f} TFLOP/s of model_flops {cell.model_flops:.3e}; "
+        f"device ms ({out['split_from']}) "
+        + ", ".join(f"{x} {v:.2f}" for x, v in split.items())
+        + "; parts apart (cuda events) "
+        + ", ".join(f"{x} {v:.2f}" for x, v in parts.items())
+        + f"; launches {launches}; peak {out['peak_gb']:.2f} GB; seconds "
+        + ", ".join(f"{x} {v:.1f}" for x, v in out["seconds"].items())
+        + "; B1 bf16 vs "
+        f"plain {b1_check['max_abs_err']:.3e}; self <= {out['self_max']:.4f} "
+        f"(floor {floor:.4f}); inputs drawn in {gen_ms / 1e3:.2f} s")
+    if "b1_bf16_time" in out:
+        t = out["b1_bf16_time"]
+        log(f"cell {name}: B1 at its shape (v {t['v']}, {t['valid_words']} "
+            f"valid query words): bf16 {t['ms']:.2f} ms ({t['tflops']:.1f} "
+            f"TFLOP/s), f32 {t['f32_ms']:.2f} ms; bound {t['bound_ms']:.2f} "
+            f"ms ({t['bound_by']}, bf16 tensor cores; "
+            f"{t['bound_ms'] / t['ms']:.3f} of it), FP32 FMA bound "
+            f"{t['bound_fp32_ms']:.2f} ms")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=0.25,
@@ -4170,6 +4562,16 @@ def main() -> int:
     log(f"LC-RWMD phases freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         "still allocated")
 
+    # 6g. the paper's four cells at full size (their own counts)
+    cells = cells_phase(smi)
+    for name in ("lc_rwmd_phase1", "spmm_ell"):
+        report[name]["cells_launches"] = {
+            c: cells[c]["launches"].get(name, 0) for c in CELLS}
+    report["lc_rwmd_phase1"]["cells_b1_bf16"] = dict(
+        cells["serve_set1_1m"]["b1_bf16_time"],
+        max_abs_err=cells["serve_set1_1m"]["b1_bf16"]["max_abs_err"])
+    torch.cuda.empty_cache()
+
     # 7-9. attention (B8), gather-scale-scatter (B9), llama3.2-1b serving
     frac = min(1.0, args.scale / 0.25)
     dev = torch.device("cuda")
@@ -4189,7 +4591,8 @@ def main() -> int:
             library_ms=r["library_ms"],
             mesh_launches=r.get("mesh_launches", 0)))
         for key in ("workloads_launches", "entry_point_launches",
-                    "mesh_launches_by_phase"):
+                    "mesh_launches_by_phase", "cells_launches",
+                    "cells_b1_bf16"):
             if key in r:
                 kernels[-1][key] = r[key]
         if name in EXTRA:

@@ -6,10 +6,15 @@
 
 A synthetic corpus is loaded into a :class:`QueryServer` on one device and
 a stream of resident docs is served as queries; the self-recall@k says how
-many found themselves.  ``--full`` and ``--multi-pod`` (the reference's
-production serve step on its sharded mesh, over the paper's cells) raise:
-the port's launcher builds no production mesh and has no cells yet
-(ROADMAP A item 7's last part, 7d).
+many found themselves.
+
+``--full`` builds the production serve step, as the reference does: the
+production mesh (``make_production_mesh``: (16, 16) over (data, model), or
+(2, 16, 16) with ``--multi-pod``) and on it the paper's Fig. 12 cell
+``build_cell("lcrwmd", "serve_set1_1m", mesh)``.  Every rank of a world of
+256 (512) ranks runs it; it prints the reference's line and returns the
+cell.  In any other world the mesh raises its ``ValueError``.
+``--multi-pod`` without ``--full`` serves as without it.
 """
 
 from __future__ import annotations
@@ -34,11 +39,14 @@ def main(argv=None) -> dict:
                          "kernels' plain versions)")
     args = ap.parse_args(argv)
 
-    if args.full or args.multi_pod:
-        raise NotImplementedError(
-            "--full/--multi-pod serve the paper's cells on the production "
-            "mesh, which the port's launcher does not build yet (ROADMAP A "
-            "item 7's last part, 7d); without them it serves on one device")
+    if args.full:
+        from repro_torch.launch.cells import build_cell
+        from repro_torch.launch.mesh import make_production_mesh
+        mesh = make_production_mesh(multi_pod=args.multi_pod)
+        cell = build_cell("lcrwmd", "serve_set1_1m", mesh)
+        print(f"[serve] production serve step built on {mesh.shape}; "
+              "load the resident corpus on the fleet to start serving.")
+        return {"cell": cell}
 
     from repro_torch.data.synth import CorpusSpec, make_corpus
     from repro_torch.serving.query_server import QueryServer, ServerConfig

@@ -31,6 +31,7 @@ _EXPORTS = {
     # numpy-only (safe in spawn children):
     "DeadlineExceeded": "repro_torch.serving.errors",
     "IngestCrashed": "repro_torch.serving.errors",
+    "MeshDivergence": "repro_torch.serving.errors",
     "PoisonQuery": "repro_torch.serving.errors",
     "QueryRejected": "repro_torch.serving.errors",
     "ServerClosed": "repro_torch.serving.errors",

@@ -220,8 +220,9 @@ class CorpusManager:
         Deliberately does NOT take ``lock``: a producer validating a
         ``corpus_id`` must never serialize behind an in-progress dispatch
         (dict membership reads are atomic under the GIL, and corpora are
-        only ever added — a checkout may move an id between the resident
-        and evicted maps, but it exists in at least one throughout).
+        only ever added — a checkout or an eviction moves an id between the
+        resident and evicted maps, adding it to one before taking it out of
+        the other, so it exists in at least one throughout).
         """
         return corpus_id in self._states or corpus_id in self._evicted
 
@@ -283,7 +284,9 @@ class CorpusManager:
                     self._m_hits.inc()
                 self._states.move_to_end(corpus_id)
                 return st
-            snap = self._evicted.pop(corpus_id, None)
+            # The id leaves the evicted map only once it is resident again:
+            # the lock-free ``has_corpus`` must see it in one map throughout.
+            snap = self._evicted.get(corpus_id)
             if snap is None:
                 raise KeyError(f"unknown corpus {corpus_id!r}")
             self.stats["misses"] += 1
@@ -293,6 +296,7 @@ class CorpusManager:
                 self._m_readmit.inc()
             st = self._readmit(corpus_id, snap)
             self._states[corpus_id] = st
+            del self._evicted[corpus_id]
             if self.obs is not None:
                 from repro_torch.obs import CorpusReadmitted
                 self.obs.events.append(CorpusReadmitted(corpus_id=corpus_id))
@@ -342,13 +346,15 @@ class CorpusManager:
     def evict(self, corpus_id: str) -> None:
         """Spill one corpus to host memory and drop its device residency."""
         with self.lock:
-            st = self._states.pop(corpus_id)
+            st = self._states[corpus_id]
             eng = st.engine
             res = eng.resident
             nbytes = st.nbytes
+            # Spilled before it leaves the resident map (see ``checkout``).
             self._evicted[corpus_id] = _Evicted(
                 ids=res.ids.cpu().numpy(), weights=res.weights.cpu().numpy(),
                 live=eng.live_mask(), budget=st.budget)
+            del self._states[corpus_id]
             self.stats["evictions"] += 1
             if self._m_evict is not None:
                 self._m_evict.inc()

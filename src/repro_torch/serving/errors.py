@@ -18,6 +18,9 @@ The hierarchy::
     │                                deadline passed before delivery
     ├── ServerClosed                 (also a RuntimeError) the server shut
     │                                down before this query was answered
+    ├── MeshDivergence               the ranks of a mesh vectorized this
+    │                                query's batch differently; no rank
+    │                                served it
     └── WorkerCrashed                the serve worker died mid-batch; the
         │                            supervisor failed this future and
         │                            restarted the worker
@@ -69,6 +72,15 @@ class ServerClosed(ServingError, RuntimeError):
 
     Subclasses :class:`RuntimeError` for drop-in compatibility with the
     pre-typed ``submit() on a closed server`` behavior.
+    """
+
+
+class MeshDivergence(ServingError):
+    """The ranks of a mesh prepared different batches from the entries rank
+    0 named (a digest of the padded ids and weights differed from rank
+    0's), so the batch failed on every rank before any rank served it.
+
+    Port-only: the reference drives every device from one controller.
     """
 
 

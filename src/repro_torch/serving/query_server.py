@@ -81,9 +81,21 @@ of more than one rank the decisions that read the clock (which queries'
 deadlines lapsed, the queue depth the degradation tier is chosen from, and
 ``serve_stream``'s flushes) are rank 0's, shared by one small
 ``all_gather`` over the whole mesh before the step is called, so every
-rank serves the same queries at the same tier.  :class:`AsyncQueryServer`
-takes only a mesh of one rank (its clock-driven batching over more ranks
-is ROADMAP A item 7's last part).
+rank serves the same queries at the same tier.  ``AsyncQueryServer(...,
+mesh=)`` keeps that model: every rank runs the same server and gets the
+same submissions and corpus changes in the same order, and rank 0's
+worker decides each step of the pipeline (the entries that leave the
+queue head, the lapsed and rejected ones, the queue depth that picks the
+tier, the corpus changes applied first, a collect, the exit) and shares
+the decision by one fixed-length ``all_gather`` (the lapsed positions
+follow at the length it gives) before any rank acts on it.  A follower
+waits for the entries rank 0 named, prepares them, and serves the batch
+only if every rank's digest of the padded ids and weights is rank 0's;
+the answers' delivery-time deadline checks are rank 0's too.  Corpus
+changes queue for the worker, which applies them at the boundary rank 0
+names.  The async worker runs this one loop on any number of ranks: on
+one, the decision is its own and no collective is issued.  On a mesh of
+one rank both servers are the mesh-less ones bit for bit.
 
 Differences from the reference: ``mesh`` is a keyword;
 ``ServerConfig`` has ``device`` and no ``delta_pad`` /
@@ -100,7 +112,9 @@ from __future__ import annotations
 import asyncio
 import concurrent.futures
 import dataclasses
+import hashlib
 import re
+import struct
 import threading
 import time
 from collections import deque
@@ -135,6 +149,7 @@ from repro_torch.serving.corpus_manager import (
 )
 from repro_torch.serving.errors import (
     DeadlineExceeded,
+    MeshDivergence,
     PoisonQuery,
     QueryRejected,
     ServerClosed,
@@ -341,6 +356,38 @@ def _check_query(ids, weights) -> None:
         raise PoisonQuery(
             "query has no in-vocabulary mass (empty, all-zero, or "
             "non-finite weight vector)")
+
+
+def _batch_digest(padded: tuple[np.ndarray, np.ndarray] | None) -> int:
+    """An int64 digest of a batch's padded ids and weights (None: an empty
+    batch): what the ranks of a mesh compare before they serve it."""
+    h = hashlib.blake2b(digest_size=8)
+    if padded is not None:
+        ids, w = padded
+        h.update(struct.pack("<q", len(ids)))
+        h.update(ids.tobytes())
+        h.update(w.tobytes())
+    return struct.unpack("<q", h.digest())[0]
+
+
+def _f64_bits(x: float) -> int:
+    return struct.unpack("<q", struct.pack("<d", x))[0]
+
+
+def _bits_f64(b: int) -> float:
+    return struct.unpack("<d", struct.pack("<q", b))[0]
+
+
+# The steps of the worker's pipeline, as rank 0 (on one rank, the only one)
+# decides them.
+# A decision is [op, changes, drops, take, depth, need]: apply the first
+# `changes` queued corpus changes; drop `drops` queue entries (lapsed or
+# rejected; their positions follow); then `op`: serve the `take` entries
+# at the queue head at the tier `depth` picks, collect the oldest batch in
+# flight, exit, or nothing more.  A follower acts once its queue holds
+# `need` entries.
+_OP_IDLE, _OP_BATCH, _OP_COLLECT, _OP_EXIT = range(4)
+_MESH_IDLE_S = 1.0   # rank 0 sends an empty decision after this long idle
 
 
 def _as_serving_error(e: BaseException, context: str) -> ServingError:
@@ -575,17 +622,21 @@ class _ServeCore:
             rerank_budget=rerank_budget, wmd_kw=cfg.wmd_kw,
             streaming=True, obs=self.obs, index=self._active.index)
 
-    def agree(self, values: Sequence[int]) -> list[int]:
-        """Rank 0's ``values`` on every rank of a mesh of more than one rank
-        (one ``all_gather`` over the whole mesh, outside any serve step, so
-        no step's collective gauges count it); ``values`` otherwise.  Every
-        rank passes as many values."""
+    def gather(self, values: Sequence[int]) -> list[list[int]]:
+        """Every rank's ``values``, rank 0's first, by one ``all_gather``
+        over the whole mesh (outside any serve step, so no step's
+        collective gauges count it); ``[values]`` on a mesh of one rank or
+        none.  Every rank passes as many values (none: no collective)."""
         mesh = self.mesh
         if mesh is None or mesh.size == 1:
-            return [int(v) for v in values]
+            return [[int(v) for v in values]]
         x = torch.tensor([[int(v) for v in values]], dtype=torch.int64,
                          device=mesh.device)
-        return mesh.all_gather(x, mesh.axis_names)[0].tolist()
+        return mesh.all_gather(x, mesh.axis_names).tolist()
+
+    def agree(self, values: Sequence[int]) -> list[int]:
+        """Rank 0's ``values`` on every rank (see :meth:`gather`)."""
+        return self.gather(values)[0]
 
     def _activate(self, corpus_id: str | None) -> CorpusState:
         """Check out (readmitting if evicted) and make a corpus active."""
@@ -611,18 +662,21 @@ class _ServeCore:
     def compact(self, corpus_id: str | None = None) -> None:
         self.manager.compact(corpus_id or DEFAULT_CORPUS)
 
-    def pad_batch(self, qs: Sequence[tuple[np.ndarray, np.ndarray]]) -> DocSet:
+    def pad_batch(self, qs: Sequence[tuple[np.ndarray, np.ndarray]],
+                  padded: tuple[np.ndarray, np.ndarray] | None = None
+                  ) -> DocSet:
         """Host prep: the batch's histograms padded (or truncated) to
         ``h_max`` words by :func:`repro_torch.serving.staging.pad_batch`
         (the reference's rows bit for bit; idempotent), one row per real
-        query, as a DocSet on the serving device.
+        query, as a DocSet on the serving device.  ``padded``: those
+        arrays, when the caller has padded them already.
 
         On the card the arrays go through pinned host memory with
         non-blocking copies, so the dispatch does not wait for the device;
         the pinned blocks are not reused before their copies complete (the
         caching host allocator records an event on each).
         """
-        ids, w = pad_batch(qs, len(qs), self.cfg.h_max)
+        ids, w = padded or pad_batch(qs, len(qs), self.cfg.h_max)
         ids_t, w_t = torch.from_numpy(ids), torch.from_numpy(w)
         if self.device.type == "cuda":
             ids_t = ids_t.pin_memory().to(self.device, non_blocking=True)
@@ -659,7 +713,8 @@ class _ServeCore:
 
     def _raw_serve(self, qs: Sequence[tuple[np.ndarray, np.ndarray]],
                    tier: int, batch_seq: int | None,
-                   btrace=None, t_prep0: float | None = None) -> ServeResult:
+                   btrace=None, t_prep0: float | None = None,
+                   padded=None) -> ServeResult:
         """Pad + serve one chunk at `tier`, with fault hooks applied.
 
         The result stays on the device (kernels queued, not awaited).
@@ -669,7 +724,7 @@ class _ServeCore:
         query-keyed poison re-applies — so bisection converges.
         """
         t_pad0 = time.perf_counter()
-        queries = self.pad_batch(qs)
+        queries = self.pad_batch(qs, padded)
         if btrace is not None:
             # batch_formation covers ALL host prep of this batch: the
             # pipeline's vectorize/collect stage (from ``t_prep0``, when
@@ -699,7 +754,9 @@ class _ServeCore:
                  corpus_id: str | None = None,
                  traces: Sequence = (),
                  t_dequeue: float | None = None,
-                 t_prep0: float | None = None) -> _InFlight:
+                 t_prep0: float | None = None,
+                 padded: tuple[np.ndarray, np.ndarray] | None = None
+                 ) -> _InFlight:
         """Host-prep one ≤max_batch chunk and launch it on the device.
 
         Returns once the serve step's kernels and the copies of its
@@ -720,6 +777,8 @@ class _ServeCore:
         batch_formation starts at ``t_prep0``, so preprocess time lands in
         batch_formation, not queue_wait.  Defaults (None) keep the
         lock-step behavior: both stamped here, at dispatch entry.
+        ``padded``: the batch's arrays as :meth:`pad_batch` makes them, when
+        the caller padded it already.
         """
         tier = 0
         if self.controller is not None:
@@ -738,7 +797,8 @@ class _ServeCore:
         t0 = time.perf_counter()
         with self.manager.lock:
             state = self._activate(corpus_id)
-            res = self._raw_serve(qs, tier, seq, btrace=bt, t_prep0=t_prep0)
+            res = self._raw_serve(qs, tier, seq, btrace=bt, t_prep0=t_prep0,
+                                  padded=padded)
             host, event = self._readback(res)
         if bt is not None:
             # Device span: opens when the queued step returns, closes when
@@ -1211,11 +1271,49 @@ class AsyncQueryServer:
     force-fails whatever a wedged worker never answered.  ``drain`` blocks
     until every accepted query has been answered.
 
-    ``mesh``: a mesh of one rank (the mesh program on its device); over
-    more ranks this raises ``NotImplementedError``: the worker forms
-    batches and commits ingests by the clock, which over several ranks
-    needs rank 0 to order them for the others (ROADMAP A item 7's last
-    part).
+    ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`): serve through the
+    mesh program on the mesh's device.  On a mesh of one rank the server is
+    the mesh-less one bit for bit (the worker's loop is the same on every
+    rank count; on one rank it issues no collective).  Over more ranks,
+    every rank builds the server alike and makes the same ``submit`` and corpus-change calls in
+    the same order; each rank's worker then runs the same pipeline steps:
+
+    * Rank 0's worker decides each step by its own clock and queue, as the
+      mesh-less worker does, and one fixed-length ``all_gather`` shares
+      the decision before any rank acts on it: the corpus changes to apply
+      first, the queued entries that lapsed or that rank 0's admission
+      check rejected (their positions follow in a second ``all_gather`` at
+      the length the first gives), how many entries leave the queue head
+      as the next batch and the queue depth that picks its tier, or a
+      collect of the oldest batch in flight, or the exit.  A follower's
+      clock decides nothing: it waits until its own queue holds the
+      entries named, then takes exactly those.
+    * Each rank prepares the batch (its own ingest pool or thread
+      vectorizes its own raw payloads; no row crosses ranks) and one more
+      ``all_gather`` compares the ranks' digests of the padded ids and
+      weights with rank 0's: a batch that differs anywhere fails on every
+      rank with :class:`MeshDivergence`, and no rank serves it.
+    * At delivery, which answers arrived past their deadline (and the
+      latency average the next decisions read) are rank 0's, shared the
+      same way, so tiers, errors and ``stats`` are the same on every rank.
+    * A ``submit`` whose deadline runs out at admission (already expired,
+      or the queue still full at its deadline) is queued anyway; it fails
+      through its future with :class:`QueryRejected` if rank 0's decision
+      says rank 0 rejected it.
+    * ``add_corpus``, ``ingest``, ``delete_docs`` and ``compact`` queue a
+      numbered change and block until the worker has applied it at the
+      batch boundary rank 0 named; they return what they return on one
+      rank.
+    * While the server runs it owns the mesh's groups: only its worker
+      thread issues collectives (the steps', the decisions', any under a
+      dedup ingest), so the caller must issue none until ``close``
+      returns.  Rank 0 sends an empty decision after a second idle.
+    * Planned faults keep the ranks in step: a ``FaultPlan``'s batch
+      numbers name agreed batches, so a planned crash hits every rank at
+      the same batch and every supervisor restarts alike.  A crash on one
+      rank alone (a process, a card or a vectorizer that fails on one
+      rank) is not handled: the other ranks wait in a collective until
+      the group's timeout.
     """
 
     def __init__(self, resident: DocSet, emb, cfg: ServerConfig,
@@ -1223,13 +1321,10 @@ class AsyncQueryServer:
                  preprocess: Callable[[QueryLike],
                                       tuple[np.ndarray, np.ndarray]] | None = None,
                  faults=None):
-        if mesh is not None and mesh.size > 1:
-            raise NotImplementedError(
-                "AsyncQueryServer serves on a mesh of one rank; over "
-                f"{mesh.size} ranks its clock-driven batching needs rank 0 "
-                "to order batches and corpus changes for the others "
-                "(ROADMAP A item 7's last part)")
         self._core = _ServeCore(resident, emb, cfg, faults=faults, mesh=mesh)
+        # Over more than one rank rank 0's worker decides for every rank.
+        self._ranks = 1 if mesh is None else mesh.size
+        self._lead = self._ranks == 1 or mesh.rank == 0
         self._preprocess = preprocess
         self._capacity = cfg.queue_capacity or 4 * cfg.max_batch
         self._depth = max(1, cfg.pipeline_depth)
@@ -1267,6 +1362,12 @@ class AsyncQueryServer:
         self._closed = False
         self._n_unanswered = 0  # accepted (queued or in flight), not resolved
         self._prep_idx = 0      # submission-order index fed to fault hooks
+        # Over more than one rank: corpus changes waiting for the worker
+        # (callable, its future), and the entries this rank's admission
+        # check rejected (read on rank 0 only).
+        self._changes: deque = deque()
+        self._rejects: dict = {}
+        self._starved = False   # a follower's worker waits for entries
         # Futures of the batch currently inside dispatch()/collect() on the
         # worker thread: a crash there escapes before they reach (or after
         # they left) `_inflight`, so the supervisor must fail them from
@@ -1325,7 +1426,8 @@ class AsyncQueryServer:
         worker process so raw payloads for this tenant vectorize against
         the right vocabulary.
         """
-        self._core.add_corpus(corpus_id, docs, vectorizer=vectorizer)
+        self._change(lambda: self._core.add_corpus(corpus_id, docs,
+                                                   vectorizer=vectorizer))
         if self._pool is not None and vectorizer is not None:
             self._pool.add_vectorizer(corpus_id, vectorizer)
 
@@ -1337,18 +1439,33 @@ class AsyncQueryServer:
         serializes it against dispatch, so it lands BETWEEN batches, and
         the serve step picks the new segment up on its next call (no
         rebuild).  Its CUDA work is issued on this thread's current stream,
-        the default stream the serve loop uses too.
+        the default stream the serve loop uses too.  Over more than one
+        rank the worker applies it, at the boundary rank 0 names.
         """
-        return self._core.ingest(docs, corpus_id=corpus_id,
-                                 dedup_threshold=dedup_threshold)
+        return self._change(lambda: self._core.ingest(
+            docs, corpus_id=corpus_id, dedup_threshold=dedup_threshold))
 
     def delete_docs(self, doc_ids, *, corpus_id: str | None = None) -> int:
         """Tombstone global doc ids; dead docs never appear in answers."""
-        return self._core.delete_docs(doc_ids, corpus_id=corpus_id)
+        return self._change(lambda: self._core.delete_docs(
+            doc_ids, corpus_id=corpus_id))
 
     def compact(self, corpus_id: str | None = None) -> None:
         """Merge delta segments into one base segment (stable ids)."""
-        self._core.compact(corpus_id)
+        self._change(lambda: self._core.compact(corpus_id))
+
+    def _change(self, fn: Callable):
+        """Run a corpus change here, or over more than one rank queue it for
+        the worker and wait until it is applied; returns its result."""
+        if self._ranks == 1:
+            return fn()
+        done: concurrent.futures.Future = concurrent.futures.Future()
+        with self._lock:
+            if self._closed:
+                raise ServerClosed("corpus change on a closed AsyncQueryServer")
+            self._changes.append((fn, done))
+            self._work.notify_all()
+        return done.result()
 
     # -- producer API ------------------------------------------------------
     def submit(self, ids, weights=None, *, deadline: float | None = None,
@@ -1388,17 +1505,25 @@ class AsyncQueryServer:
                 raise ServerClosed("submit() on a closed AsyncQueryServer")
             if self._preprocess is None:
                 _check_query(ids, weights)
+            # Over more than one rank an admission check that reads the
+            # clock queues the entry anyway: rank 0's decision rejects it
+            # on every rank, or on none.
+            reject = None
             if (abs_deadline is not None and self.cfg.admission_control
                     and abs_deadline <= time.monotonic()):
-                raise QueryRejected(
-                    f"deadline {deadline!r}s already expired at submit")
-            while len(self._queue) >= self._capacity and not self._closed:
+                reject = f"deadline {deadline!r}s already expired at submit"
+                if self._ranks == 1:
+                    raise QueryRejected(reject)
+            while (reject is None and len(self._queue) >= self._capacity
+                   and not self._closed and not self._starved):
                 if abs_deadline is not None and self.cfg.admission_control:
                     slack = abs_deadline - time.monotonic()
                     if slack <= 0:
-                        raise QueryRejected(
-                            "pending queue still at capacity when the "
-                            "query's deadline arrived")
+                        reject = ("pending queue still at capacity when the "
+                                  "query's deadline arrived")
+                        if self._ranks == 1:
+                            raise QueryRejected(reject)
+                        break
                     self._not_full.wait(slack)
                 else:
                     self._not_full.wait()
@@ -1413,6 +1538,8 @@ class AsyncQueryServer:
                 payload = _Staged(self._pool.submit(ids, cid))
             if not self._queue:
                 self._batch_t0 = time.perf_counter()
+            if reject is not None:
+                self._rejects[fut] = reject
             self._queue.append((payload, fut, abs_deadline, cid, tr))
             self._n_unanswered += 1
             self._work.notify_all()
@@ -1533,101 +1660,49 @@ class AsyncQueryServer:
             return max(0.001, float(self._core.cfg.max_wait_s))
         return max(0.001, float(ewma))
 
-    def _sweep_expired_locked(self) -> list[ServeFuture]:
-        """Drop queued entries whose deadline already passed; lock held."""
-        if not self._queue:
-            return []
-        now = time.monotonic()
-        if not any(d is not None and d <= now
-                   for _p, _f, d, _c, _t in self._queue):
-            return []
-        keep: deque = deque()
-        expired = []
-        for entry in self._queue:
-            _p, fut, dl, _c, tr = entry
-            if dl is not None and dl <= now:
-                if isinstance(_p, _Staged):
-                    # Never collected: the pool discards the ticket's slot
-                    # in order so strictly-FIFO ring consumption survives.
-                    self._pool.skip(_p.ticket)
-                if tr is not None:
-                    tr.finish()
-                    fut.trace = tr
-                expired.append(fut)
-            else:
-                keep.append(entry)
-        self._queue = keep
-        if not keep:
-            self._batch_t0 = None
-        self._not_full.notify_all()
-        return expired
-
-    def _next_batch(self, have_inflight: bool, inflight_ready=None):
-        """Returns ``(items, expired)``.
-
-        ``items`` is up to max_batch queued entries to dispatch, or None
-        when the caller should instead fail ``expired`` (deadline sweep),
-        collect (work in flight whose device result is ready, or nothing
-        pending), or exit (closed).
-        """
+    def _batch_due_locked(self, now: float) -> float | None:
+        """None when the queued entries make a batch now (``max_batch``
+        queued, the oldest past ``max_wait_s``, the earliest deadline one
+        serve latency away, a flush, or closing); else how long to wait
+        for that.  Lock held, queue non-empty."""
         cfg = self._core.cfg
-        with self._lock:
-            while True:
-                expired = self._sweep_expired_locked()
-                if expired:
-                    return None, expired
-                if self._queue:
-                    now = time.perf_counter()
-                    mono = time.monotonic()
-                    stale = (self._batch_t0 is not None
-                             and now - self._batch_t0 >= cfg.max_wait_s)
-                    dls = [d for _p, _f, d, _c, _t in self._queue
-                           if d is not None]
-                    # Rush: dispatch the partial batch early when the
-                    # earliest deadline is one serve-latency away.
-                    rush = bool(dls) and (
-                        min(dls) - mono <= self._rush_margin())
-                    if (len(self._queue) >= cfg.max_batch or stale or rush
-                            or self._flush_requested or self._closed):
-                        # A batch never mixes corpora: take the longest
-                        # same-corpus prefix (FIFO order preserved).
-                        take = min(len(self._queue), cfg.max_batch)
-                        cid = self._queue[0][3]
-                        n = 1
-                        while n < take and self._queue[n][3] == cid:
-                            n += 1
-                        items = [self._queue.popleft() for _ in range(n)]
-                        if self._queue:
-                            # Remaining queries start a fresh staleness clock.
-                            self._batch_t0 = now
-                        else:
-                            self._batch_t0 = None
-                            self._flush_requested = False
-                        self._not_full.notify_all()
-                        return items, []
-                    # Partial batch: wait for fill, staleness, a flush, or
-                    # the next deadline event — but never sit on a COMPLETED
-                    # in-flight batch: if the oldest dispatched batch's
-                    # device result is ready, hand control back so its
-                    # futures resolve now instead of after up to max_wait_s.
-                    timeout = max(0.0, self._batch_t0 + cfg.max_wait_s - now)
-                    if dls:
-                        timeout = min(timeout, max(
-                            0.0, min(dls) - mono - self._rush_margin()))
-                    if inflight_ready is not None and have_inflight:
-                        self._work.wait(min(timeout, 0.005))
-                        if inflight_ready():
-                            return None, []
-                    else:
-                        self._work.wait(timeout)
-                    continue
-                # Empty queue: a pending flush request has nothing left to
-                # flush — clear it so it cannot leak onto the NEXT submitted
-                # query (which must get normal max_batch/max_wait batching).
-                self._flush_requested = False
-                if have_inflight or self._closed:
-                    return None, []
-                self._work.wait(0.1)
+        mono = time.monotonic()
+        stale = (self._batch_t0 is not None
+                 and now - self._batch_t0 >= cfg.max_wait_s)
+        dls = [d for _p, _f, d, _c, _t in self._queue if d is not None]
+        # Rush: dispatch the partial batch early when the earliest
+        # deadline is one serve-latency away.
+        rush = bool(dls) and (min(dls) - mono <= self._rush_margin())
+        if (len(self._queue) >= cfg.max_batch or stale or rush
+                or self._flush_requested or self._closed):
+            return None
+        timeout = max(0.0, self._batch_t0 + cfg.max_wait_s - now)
+        if dls:
+            timeout = min(timeout, max(
+                0.0, min(dls) - mono - self._rush_margin()))
+        return timeout
+
+    def _head_run_locked(self) -> int:
+        """Entries in the next batch: the longest same-corpus run at the
+        queue head, at most ``max_batch``.  Lock held."""
+        take = min(len(self._queue), self._core.cfg.max_batch)
+        cid = self._queue[0][3]
+        n = 1
+        while n < take and self._queue[n][3] == cid:
+            n += 1
+        return n
+
+    def _pop_batch_locked(self, n: int, now: float) -> list:
+        """Take the ``n`` entries at the queue head.  Lock held."""
+        items = [self._queue.popleft() for _ in range(n)]
+        if self._queue:
+            # Remaining queries start a fresh staleness clock.
+            self._batch_t0 = now
+        else:
+            self._batch_t0 = None
+            self._flush_requested = False
+        self._not_full.notify_all()
+        return items
 
     def _resolve(self, futures: Sequence[ServeFuture],
                  answers: Sequence) -> None:
@@ -1727,14 +1802,18 @@ class AsyncQueryServer:
         # Strict delivery-time deadline check: an answer that arrives past
         # its deadline is a miss, delivered as DeadlineExceeded.
         now = time.monotonic()
+        late = [dl is not None and now > dl for dl in deadlines]
+        if self._ranks > 1:
+            late = self._agree_delivery(late)
         out = []
-        for a, dl in zip(answers, deadlines):
-            if dl is not None and now > dl:
+        for a, dl, miss in zip(answers, deadlines, late):
+            if miss:
                 self._core.bump("deadline_misses")
                 if self._core.controller is not None:
                     self._core.controller.note_deadline_miss()
                 err = DeadlineExceeded(
-                    f"answer ready {now - dl:.3f}s past the deadline")
+                    "answer ready past rank 0's deadline" if dl is None
+                    else f"answer ready {now - dl:.3f}s past the deadline")
                 tr = getattr(a, "trace", None)
                 if tr is not None:
                     err.trace = tr
@@ -1744,6 +1823,40 @@ class AsyncQueryServer:
         self._crash_victims = []
         self._resolve(futures, out)
 
+    def _agree_delivery(self, late: list) -> list:
+        """Rank 0's late flags for a collected batch, and its latency
+        average (the rush margin's input and ``stats["ewma_latency_s"]``),
+        on every rank."""
+        ewma = self._core._ewma
+        got = self._core.agree([*late, ewma is not None,
+                                _f64_bits(ewma or 0.0)])
+        if not self._lead and got[-2]:
+            self._core._ewma = _bits_f64(got[-1])
+            with self._core._stats_lock:
+                self._core.stats["ewma_latency_s"] = self._core._ewma
+        return [bool(x) for x in got[:-2]]
+
+    def _dispatch_batch(self, qs, futures, deadlines, traces,
+                        corpus_id: str, depth: int, t_pop: float,
+                        padded) -> None:
+        """Dispatch a prepared batch and put it in flight; a failure that is
+        not a crash resolves its futures with a typed error."""
+        self._crash_victims = futures
+        try:
+            handle = self._core.dispatch(
+                qs, queue_depth=depth, corpus_id=corpus_id, traces=traces,
+                t_dequeue=t_pop, t_prep0=t_pop, padded=padded)
+        except Exception as e:  # typed forwarding; crashes escape
+            if _is_device_fault(e):
+                raise _DeviceFault(str(e)) from e
+            err = _as_serving_error(e, "batch dispatch failed")
+            self._crash_victims = []
+            self._resolve(futures, [err] * len(futures))
+        else:
+            with self._lock:
+                self._inflight.append((handle, futures, deadlines))
+            self._crash_victims = []
+
     def _oldest_ready(self) -> bool:
         if not self._inflight:
             return False
@@ -1752,54 +1865,161 @@ class AsyncQueryServer:
         return event is None or bool(event.query())
 
     def _run(self) -> None:
+        """The worker's loop on every rank: rank 0's decision, shared, then
+        acted on.  On one rank (or none) ``agree`` is the identity and
+        issues no collective."""
         if self._core.device.type == "cuda":
             # Kernels launch on the current stream of THIS thread's device.
             torch.cuda.set_device(self._core.device)
         while True:
-            batch, expired = self._next_batch(
-                have_inflight=bool(self._inflight),
-                inflight_ready=self._oldest_ready)
-            if expired:
-                self._expire(expired)
-                continue
-            if batch is not None:
-                # The batch leaves the queue HERE: queue_wait ends and
-                # host prep (batch_formation) starts now, not after
-                # _prep_entries — otherwise vectorize time (the very cost
-                # the ingest pool removes) hides inside queue_wait.
-                t_pop = time.perf_counter()
-                qs, futures, deadlines, traces = self._prep_entries(batch)
-                if qs:
-                    with self._lock:
-                        depth = len(self._queue)
-                    self._crash_victims = futures
-                    try:
-                        handle = self._core.dispatch(
-                            qs, queue_depth=depth, corpus_id=batch[0][3],
-                            traces=traces, t_dequeue=t_pop, t_prep0=t_pop)
-                    except Exception as e:  # typed forwarding; crashes escape
-                        if _is_device_fault(e):
-                            raise _DeviceFault(str(e)) from e
-                        err = _as_serving_error(e, "batch dispatch failed")
-                        self._crash_victims = []
-                        self._resolve(futures, [err] * len(futures))
+            head, drops = self._decide() if self._lead else ([0] * 6, [])
+            head = self._core.agree(head)
+            if head[2]:
+                drops = self._core.agree(drops if self._lead
+                                         else [0] * head[2])
+            if self._act(head, drops):
+                return
+
+    def _decide(self) -> tuple[list[int], list[int]]:
+        """Rank 0: the next decision on its clock and queue: drop lapsed
+        (or rejected) entries first; then a batch once it is due (fill,
+        staleness, rush, flush, close), else collect the oldest batch in
+        flight once its result is ready, else wait; plus the corpus changes
+        waiting.  Nothing leaves the queue here: every rank does that in
+        :meth:`_act`."""
+        have_inflight = bool(self._inflight)
+        t_idle = time.perf_counter()
+        with self._lock:
+            while True:
+                n_chg = len(self._changes)
+                mono = time.monotonic()
+                drops = [2 * j + (fut in self._rejects)
+                         for j, (_p, fut, dl, _c, _t) in enumerate(self._queue)
+                         if fut in self._rejects
+                         or (dl is not None and dl <= mono)]
+                if drops:
+                    return [_OP_IDLE, n_chg, len(drops), 0, 0,
+                            drops[-1] // 2 + 1], drops
+                if self._queue:
+                    timeout = self._batch_due_locked(time.perf_counter())
+                    if timeout is None:
+                        n = self._head_run_locked()
+                        return [_OP_BATCH, n_chg, 0, n,
+                                len(self._queue) - n, n], []
+                    if n_chg:
+                        return [_OP_IDLE, n_chg, 0, 0, 0, 0], []
+                    if have_inflight:
+                        self._work.wait(min(timeout, 0.005))
+                        if self._oldest_ready():
+                            return [_OP_COLLECT, len(self._changes), 0, 0,
+                                    0, 0], []
                     else:
-                        with self._lock:
-                            self._inflight.append(
-                                (handle, futures, deadlines))
-                        self._crash_victims = []
-                # Two-slot window: only once `pipeline_depth` batches are in
-                # flight does the worker block on the oldest — i.e. batch
-                # i+1 was host-prepped AND dispatched while batch i ran.
-                if len(self._inflight) >= self._depth:
-                    self._collect_one()
-                continue
-            if self._inflight:
-                self._collect_one()
-                continue
+                        self._work.wait(timeout)
+                    continue
+                self._flush_requested = False
+                if have_inflight:
+                    return [_OP_COLLECT, n_chg, 0, 0, 0, 0], []
+                if n_chg:
+                    return [_OP_IDLE, n_chg, 0, 0, 0, 0], []
+                if self._closed:
+                    return [_OP_EXIT, 0, 0, 0, 0, 0], []
+                if time.perf_counter() - t_idle >= _MESH_IDLE_S:
+                    return [_OP_IDLE, 0, 0, 0, 0, 0], []
+                self._work.wait(0.1)
+
+    def _act(self, head: list[int], drops: list[int]) -> bool:
+        """Apply one shared decision on this rank; True to exit."""
+        op, n_chg, _n_drop, take, depth, need = head
+        with self._lock:
+            # A follower's clock decides nothing: wait for what rank 0 saw
+            # (past the queue's capacity, if rank 0 queued entries that its
+            # admission check rejected).
+            while len(self._changes) < n_chg or len(self._queue) < need:
+                if self._lead:
+                    # Rank 0 decided on what it held: only a close that
+                    # failed everything unresolved took it away since.
+                    return True
+                self._starved = len(self._queue) < need
+                self._not_full.notify_all()
+                self._work.wait(0.1)
+            self._starved = False
+            changes = [self._changes.popleft() for _ in range(n_chg)]
+        for fn, done in changes:
+            try:
+                done.set_result(fn())
+            except Exception as e:  # the caller's, as on one rank
+                done.set_exception(e)
+        if drops:
+            self._drop(drops)
+        if op == _OP_BATCH:
+            self._serve_agreed(take, depth)
+        elif op == _OP_COLLECT:
+            self._collect_one()
+        elif op == _OP_EXIT:
             with self._lock:
-                if self._closed and not self._queue:
-                    return
+                self._closed = True
+            return True
+        return False
+
+    def _drop(self, drops: list[int]) -> None:
+        """Fail the queue entries at rank 0's positions: lapsed ones with
+        DeadlineExceeded (as the sweep does), rejected ones with
+        QueryRejected (as the mesh-less ``submit`` raises)."""
+        kinds = {d // 2: d % 2 for d in drops}
+        expired, rejected = [], []
+        with self._lock:
+            entries = list(self._queue)
+            self._queue = deque(e for j, e in enumerate(entries)
+                                if j not in kinds)
+            for j in sorted(kinds):
+                payload, fut, _dl, _c, tr = entries[j]
+                self._rejects.pop(fut, None)
+                if isinstance(payload, _Staged):
+                    self._pool.skip(payload.ticket)
+                if tr is not None:
+                    tr.finish()
+                    fut.trace = tr
+                (rejected if kinds[j] else expired).append(fut)
+            if not self._queue:
+                self._batch_t0 = None
+            self._not_full.notify_all()
+        if expired:
+            self._expire(expired)
+        if rejected:
+            self._resolve(rejected, [QueryRejected(
+                "rank 0's admission check rejected the query (its deadline "
+                "ran out at submit)") for _ in rejected])
+
+    def _serve_agreed(self, take: int, depth: int) -> None:
+        """Take the ``take`` entries at the queue head, prepare them, and
+        serve them if every rank's batch digest is rank 0's."""
+        with self._lock:
+            batch = self._pop_batch_locked(take, time.perf_counter())
+            for entry in batch:
+                self._rejects.pop(entry[1], None)
+        # The batch leaves the queue HERE: queue_wait ends and host prep
+        # (batch_formation) starts now, not after _prep_entries, so the
+        # vectorize time the ingest pool removes is not hidden in
+        # queue_wait.
+        t_pop = time.perf_counter()
+        qs, futures, deadlines, traces = self._prep_entries(batch)
+        padded = pad_batch(qs, len(qs), self._core.cfg.h_max) if qs else None
+        if self._ranks == 1:
+            # The depth after prep, as the mesh-less reference reads it.
+            with self._lock:
+                depth = len(self._queue)
+        else:
+            digests = self._core.gather([_batch_digest(padded)])
+            if len({d for (d,) in digests}) > 1:
+                self._resolve(futures, [MeshDivergence(
+                    "the ranks prepared different batches from the entries "
+                    "rank 0 named; no rank served it") for _ in futures])
+                qs = []
+        if qs:
+            self._dispatch_batch(qs, futures, deadlines, traces,
+                                 batch[0][3], depth, t_pop, padded)
+        if len(self._inflight) >= self._depth:
+            self._collect_one()
 
     # -- supervisor --------------------------------------------------------
     def _supervised_run(self) -> None:
@@ -1881,3 +2101,7 @@ class AsyncQueryServer:
                     self._pool.skip(_p.ticket)
         if futs:
             self._resolve(futs, [exc] * len(futs))
+        with self._lock:
+            changes, self._changes = self._changes, deque()
+        for _fn, done in changes:
+            done.set_exception(exc)

@@ -94,6 +94,32 @@ def test_lru_eviction_and_readmission_bit_equal(corpus):
             "corpus_resident_bytes"} <= names
 
 
+def test_has_corpus_holds_through_eviction_and_readmission(corpus):
+    """The lock-free ``has_corpus`` (the submit path's check) finds a
+    corpus at every point of its eviction and of its readmission, so a
+    submit that races them is never refused as an unknown corpus."""
+    _, docs, emb = corpus
+    mgr = CorpusManager(emb, device="cpu")
+    mgr.add_corpus("a", docs[:64])
+    mgr.add_corpus("b", docs[64:128])
+    seen = []
+    eng = mgr.checkout("a").engine
+    live_mask = eng.live_mask
+    eng.live_mask = lambda: (seen.append(mgr.has_corpus("a")), live_mask())[1]
+    mgr.evict("a")                                # spills mid-eviction
+    readmit = mgr._readmit
+
+    def spy(cid, snap):
+        seen.append(mgr.has_corpus(cid))
+        return readmit(cid, snap)
+
+    mgr._readmit = spy
+    mgr.checkout("a")
+    assert seen == [True, True]
+    assert mgr.is_resident("a") and "a" not in mgr.snapshot()["evicted"]
+    assert mgr.corpus_ids == ["b", "a"]
+
+
 def test_dedup_gate_refuses_what_the_reference_refuses(corpus):
     """Exact copies of live docs and a copy inside the batch are refused;
     a copy of a tombstoned doc is admitted — mask for mask the reference's."""

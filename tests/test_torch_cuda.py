@@ -1560,3 +1560,65 @@ def test_mesh_of_one_segmented_and_routed_steps_on_the_card(cuda):
                 assert torch.equal(x.topk.dists, y.topk.dists)
                 assert torch.equal(x.topk.indices, y.topk.indices)
                 assert not bool((x.topk.indices == ids[:, None]).any())
+
+
+def test_mesh_of_one_async_server_on_the_card(cuda):
+    """On a mesh of one rank (no process group) the async server, fed raw
+    payloads that its worker vectorizes, with an ingest and a delete
+    between two parts, answers as the mesh-less async server bit for bit
+    (tier 0: refine and rerank), B1, B3 and B4 launched."""
+    from _ingest_vectorizers import SeededHistogramVectorizer
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving.query_server import AsyncQueryServer, ServerConfig
+
+    c, _ = _mesh_pair(cuda)
+    vec = SeededHistogramVectorizer(vocab=4000, h_max=32)
+    cfg = ServerConfig(k=16, max_batch=64, h_max=32, rerank_wmd=True,
+                       wmd_kw=dict(eps=0.05, eps_scaling=2, max_iters=100))
+
+    def serve(mesh):
+        with AsyncQueryServer(c.docs[:5000], c.emb, cfg, mesh=mesh,
+                              preprocess=vec) as srv:
+            first = [srv.submit(j) for j in range(128)]
+            srv.drain()
+            srv.ingest(c.docs[5000:])
+            srv.delete_docs([1, 5001])
+            rest = [srv.submit(j) for j in range(128)]
+            srv.drain()
+        return [f.result(timeout=300) for f in first + rest]
+
+    _build.reset_launches()
+    got = serve(make_host_mesh())
+    for name in ("lc_rwmd_phase1", "fused_topk", "sinkhorn_wmd"):
+        assert _build.LAUNCHES[name] >= 1, name
+    want = serve(None)
+    for a, b in zip(got, want):
+        assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+        assert a.tier == b.tier == 0
+    assert not np.isin(np.stack([a[0] for a in got[128:]]), [1, 5001]).any()
+
+
+def test_mesh_cell_on_the_card_is_the_meshless_step(cuda):
+    """``serve_set2_2p8m`` cut to 20,000 of its rows (its h, B and
+    vocabulary; inputs drawn on the card): the cell's step on a 1x1 mesh
+    equals the mesh-less engine-less step bit for bit under
+    ``bf16_matmul``, B1 and B2 launched, and each query finds its row."""
+    from repro_torch.distributed.lcrwmd_dist import build_serve_step
+    from repro_torch.launch.cells import build_cell, make_args
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cell = build_cell("lcrwmd", "serve_set2_2p8m", make_host_mesh())
+    args = make_args(cell, seed=0, device=cuda, rows=20_000)
+    _build.reset_launches()
+    got = cell.step_fn(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["lc_rwmd_phase1"] >= 1
+    assert _build.LAUNCHES["spmm_ell"] >= 1
+    want = build_serve_step(k=16, bf16_matmul=True)(*args)
+    assert torch.equal(got.topk.dists, want.topk.dists)
+    assert torch.equal(got.topk.indices, want.topk.indices)
+    assert torch.equal(got.d_local, want.d_local)
+    b = args[1].n_docs
+    assert bool((got.topk.indices
+                 == torch.arange(b, device=cuda)[:, None]).any(1).all())

@@ -126,12 +126,14 @@ def test_serve_queries_holds_its_recall(argv):
 
 
 def test_launcher_serves_and_refuses_the_mesh_flags():
+    """``--multi-pod`` alone serves as without it; ``--full`` builds the
+    production mesh, whose ``ValueError`` refuses a world of one rank
+    (``tests/test_torch_cells.py`` holds the cell it builds)."""
     out = launcher.main(CPU + ["--n-docs", "512", "--n-queries", "16",
-                               "--k", "5"])
+                               "--k", "5", "--multi-pod"])
     assert out["n_served"] == 16 and out["self_recall"] == 1.0
-    for flag in ("--full", "--multi-pod"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            launcher.main(CPU + [flag])
+    with pytest.raises(ValueError, match="16x16 > 1 ranks"):
+        launcher.main(CPU + ["--full"])
 
 
 # ---------------------------------------------------------------------------

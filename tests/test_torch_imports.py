@@ -26,7 +26,8 @@ MODULES = [
     "repro_torch.examples.quickstart", "repro_torch.examples.knn_classify",
     "repro_torch.examples.cluster_corpus", "repro_torch.examples.serve_queries",
     "repro_torch.launch", "repro_torch.launch.serve",
-    "repro_torch.launch.mesh",
+    "repro_torch.launch.mesh", "repro_torch.launch.cells",
+    "repro_torch.configs.lcrwmd",
 ]
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|from\s+repro(\.|\s))",

@@ -22,7 +22,10 @@ segmented and routed steps over a three-segment engine with tombstones and
 a 16-cell index, self-excluding, through a delete, an append and a
 compact (``torch_mesh_ranks.VERSIONS``); the reference's single-device
 steps after the same changes, and its ``QueryServer`` on the same stream
-with the same lapsed deadline, are computed here while the ranks run.
+with the same lapsed deadline, are computed here while the ranks run.  So
+is the reference's ``AsyncQueryServer`` on the raw payloads and corpus
+changes that the ranks' ``AsyncQueryServer`` serves through an ingest pool
+(``torch_mesh_ranks.async_stream``).
 """
 
 import time
@@ -42,6 +45,7 @@ from repro.distributed import lcrwmd_dist as jd
 from repro.index import ClusterIndex as JIndex
 from repro.launch.mesh import make_host_mesh as jmesh
 from repro.serving import query_server as jqs
+from _ingest_vectorizers import SeededHistogramVectorizer
 from repro_torch.convert import from_numpy
 from repro_torch.core import lc_rwmd as tlc
 from repro_torch.core import topk as ttk
@@ -51,9 +55,12 @@ from repro_torch.launch import mesh as tmesh
 from repro_torch.serving import query_server as tqs
 from repro_torch.workloads import corpus_distance as tcd
 import torch_mesh_ranks
-from torch_mesh_ranks import (APPEND, CELLS, DEAD, LAPSE_S, LAPSED,
-                              RECOVER_AFTER, ROUTED_RUNS, SEG_RUNS, SEGMENTS,
-                              SERVER_BATCH, SERVER_PICKS, VERSIONS)
+from torch_mesh_ranks import (APPEND, ASYNC_BASE, ASYNC_BATCH,
+                              ASYNC_DEAD, ASYNC_LAPSED, ASYNC_ODD, ASYNC_PART,
+                              ASYNC_REJECTED, ASYNC_STATS, CELLS, DEAD,
+                              LAPSE_S, LAPSED, RECOVER_AFTER, ROUTED_RUNS,
+                              SEG_RUNS, SEGMENTS, SERVER_BATCH, SERVER_PICKS,
+                              VERSIONS, async_config, async_stream)
 from test_torch_engine import _np, assert_topk_close
 from test_torch_segments import RERANK_KW
 
@@ -264,25 +271,58 @@ def _served(server, stream):
 
 
 def test_servers_on_a_mesh_device_and_rank_count(one, small):
-    """A ``cfg.device`` that is not the mesh's raises; the async server
-    takes a mesh of one (the mesh program, its answers the sync server's)
-    and refuses more ranks, naming ROADMAP A item 7."""
+    """A ``cfg.device`` that is not the mesh's raises; on a mesh of one rank
+    the async server is its own leader and makes corpus changes on the
+    caller's thread (over more ranks the eight-rank spawn serves it, see
+    ``test_eight_ranks_async_server``), and its answers are the sync
+    server's."""
     _, docs, emb = small
     with pytest.raises(ValueError, match="mesh's"):
         tqs.QueryServer(docs, emb, tqs.ServerConfig(device="meta"), mesh=one)
-    eight = types.SimpleNamespace(size=8, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tqs.AsyncQueryServer(docs, emb, tqs.ServerConfig(device="cpu"),
-                             mesh=eight)
+    with pytest.raises(ValueError, match="mesh's"):
+        tqs.AsyncQueryServer(docs, emb, tqs.ServerConfig(device="meta"),
+                             mesh=one)
     ids, w = docs.ids.numpy(), docs.weights.numpy()
     cfg = tqs.ServerConfig(device="cpu", **SERVE_KW)
     with tqs.AsyncQueryServer(docs, emb, cfg, mesh=one) as srv:
+        assert srv._ranks == 1 and srv._lead
         futures = [srv.submit(ids[p], w[p]) for p in SERVE_PICKS[:6]]
         got = [f.result(timeout=120) for f in futures]
+        srv.delete_docs([95])
+        assert not srv._changes and not srv.engine.live_mask()[95]
     want = _served(tqs.QueryServer(docs, emb, cfg),
                    [(ids[p], w[p]) for p in SERVE_PICKS[:6]])
     for a, b in zip(got, want):
         assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+
+def test_async_server_on_a_mesh_of_one_is_the_meshless_one(one, small):
+    """Raw payloads vectorized in the worker, an ingest and a delete
+    between parts: on a mesh of one rank the async server's answers,
+    tiers and stats are the mesh-less async server's bit for bit."""
+    _, docs, emb = small
+    vec = SeededHistogramVectorizer(vocab=emb.shape[0], h_max=docs.h_max)
+    cfg = tqs.ServerConfig(device="cpu", **SERVE_KW)
+
+    def serve(mesh):
+        with tqs.AsyncQueryServer(docs[:80], emb, cfg, mesh=mesh,
+                                  preprocess=vec) as srv:
+            first = [srv.submit(7 + j) for j in range(8)]
+            srv.drain()
+            srv.ingest(docs[80:])
+            srv.delete_docs([3, 85])
+            rest = [srv.submit(7 + j) for j in range(8)]
+            srv.drain()
+            stats = srv.stats_snapshot()
+        return [f.result(timeout=120) for f in first + rest], stats
+
+    (got, got_stats), (want, want_stats) = serve(one), serve(None)
+    for a, b in zip(got, want):
+        assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+        assert a.tier == b.tier == 0
+    assert not np.isin(np.stack([a[0] for a in got[8:]]), [3, 85]).any()
+    for key in ("queries", "tier_counts", "deadline_misses"):
+        assert got_stats[key] == want_stats[key]
 
 
 def test_mesh_device_must_be_the_engines(one, small):
@@ -332,6 +372,7 @@ def _ranks(tmp_path_factory) -> dict:
                 ds[:QB], query_ids=jnp.arange(QB))
         life_ref = _reference_lifecycle(ds, corpus.emb)
         server_ref = _reference_server(ds, corpus.emb)
+        async_ref = _reference_async(ds, corpus.emb)
         deadline = time.monotonic() + 270
         while not ctx.join(timeout=1):      # raises if a rank failed
             assert time.monotonic() < deadline, "the ranks did not finish"
@@ -341,7 +382,8 @@ def _ranks(tmp_path_factory) -> dict:
                 p.kill()
     ranks = [dict(np.load(out / f"rank{i}.npz")) for i in range(8)]
     _RUN.update(ranks=ranks, d_ref=d_ref, mono_ref=mono_ref,
-                life_ref=life_ref, server_ref=server_ref, inputs=inputs)
+                life_ref=life_ref, server_ref=server_ref,
+                async_ref=async_ref, inputs=inputs)
     return _RUN
 
 
@@ -399,6 +441,25 @@ def _reference_server(ds, emb) -> list:
                       deadline=LAPSE_S if j == LAPSED else None)
     time.sleep(20 * LAPSE_S)
     return server.flush()
+
+
+def _reference_async(ds, emb) -> list:
+    """The reference's AsyncQueryServer (in-thread vectorizing, no deadline
+    and no fault) on the ranks' payloads, the ingest and the delete made
+    between parts B and C."""
+    cut = JDocSet(ids=ds.ids[:ASYNC_BASE], weights=ds.weights[:ASYNC_BASE])
+    cfg = jqs.ServerConfig(**async_config(ds, k=KK))
+    vec = SeededHistogramVectorizer(vocab=emb.shape[0], h_max=ds.h_max)
+    futures = []
+    with jqs.AsyncQueryServer(cut, emb, jmesh(), cfg, preprocess=vec) as srv:
+        for p, part in enumerate(async_stream()):
+            if p == 2:
+                srv.ingest(JDocSet(ids=ds.ids[ASYNC_BASE:],
+                                   weights=ds.weights[ASYNC_BASE:]))
+                srv.delete_docs(list(ASYNC_DEAD))
+            futures += [srv.submit(x) for x, _ in part]
+            srv.drain()
+    return [f.result() for f in futures]
 
 
 def _check_topk(dists, idx, d_ref, want_dists, what):
@@ -477,9 +538,11 @@ def test_eight_ranks_monolithic_step(tmp_path_factory, name, full_mesh):
 def test_eight_ranks_hold_one_topk(tmp_path_factory):
     ranks = _ranks(tmp_path_factory)["ranks"]
     keys = [k for k in ranks[0] if k.endswith(("/d", "/i", "/tier", "/err",
-                                               "/cells", "/keep"))]
+                                               "/cells", "/keep"))
+            or k.startswith("async/")]
     steps = len(SEG_RUNS) + len(ROUTED_RUNS) + 2     # and the one-device two
-    assert len(keys) == 2 * (8 + 4 * 3) + len(VERSIONS) * (2 * steps + 2) + 8
+    assert len(keys) == (2 * (8 + 4 * 3) + len(VERSIONS) * (2 * steps + 2) + 8
+                         + 7)
     for r in ranks[1:]:
         for key in keys:
             assert np.array_equal(r[key], ranks[0][key]), key
@@ -508,12 +571,11 @@ def test_eight_ranks_collective_counts(tmp_path_factory, name, full_mesh):
 def test_eight_ranks_refusals_and_layout(tmp_path_factory):
     ranks = _ranks(tmp_path_factory)["ranks"]
     for r in ranks:
-        # the segmented and routed steps build over 8 ranks; the async
-        # server refuses them, naming ROADMAP A item 7's last part
+        # the segmented and routed steps and the async server build over
+        # 8 ranks
         for name in ("segmented", "routed"):
             assert str(r[f"raise/{name}"]) == "nothing"
-        msg = str(r["raise/async"])
-        assert msg.startswith("NotImplementedError") and "item 7" in msg
+        assert str(r["raise/async"]) == "nothing"
         assert str(r["raise/smaller"]).startswith("ValueError")
         assert str(r["raise/larger"]).startswith("ValueError")
     for name, (data, model, pod) in MESHES.items():
@@ -722,3 +784,47 @@ def test_query_server_on_a_mesh_of_one(tmp_path_factory, one):
     for key in got:
         assert np.array_equal(got[key], same[key]), key
     _check_server(got, run["server_ref"])
+
+
+@pytest.mark.timeout(300)
+def test_eight_ranks_async_server(tmp_path_factory):
+    """The AsyncQueryServer on (4, 2), raw payloads through an ingest pool
+    of one worker a rank (the hold-one test compares every rank's answers,
+    tiers, errors and stats): the deadline that lapsed on rank 0 alone and
+    the submission that rank 0 alone rejected failed on every rank; the
+    planned crash failed its batch and the one in flight before it; the
+    batch that one rank vectorized differently failed with
+    ``MeshDivergence`` and was served nowhere (the dispatch count leaves it
+    out); the ingest and the delete took effect; and every tier-0 answer of
+    parts A and C is the reference server's within tolerance."""
+    run = _ranks(tmp_path_factory)
+    r0 = run["ranks"][0]
+    err = [str(e) for e in r0["async/err"]]
+    n = 3 * ASYNC_PART
+    assert err[ASYNC_LAPSED] == "DeadlineExceeded"
+    assert err[ASYNC_REJECTED] == "QueryRejected"
+    crashed = [j for j in range(n) if err[j] == "WorkerCrashed"]
+    assert 0 < len(crashed) <= 2 * ASYNC_BATCH  # the batch, the one before
+    odd = [j for j in range(n) if err[j] == "MeshDivergence"]
+    assert ASYNC_ODD in odd and len(odd) <= ASYNC_BATCH
+    assert err.count("") == n - 2 - len(crashed) - len(odd)
+    stats = dict(zip(ASYNC_STATS, r0["async/stats"]))
+    assert stats["worker_restarts"] == 1 and stats["deadline_misses"] == 1
+    # dispatched: the answered, the batch in flight at the crash; not the
+    # crashed batch, not the divergent one
+    answered = err.count("")
+    assert answered < stats["queries"] < answered + len(crashed)
+    assert list(r0["async/ingested"]) == list(range(ASYNC_BASE, 64))
+    assert int(r0["async/deleted"]) == len(ASYNC_DEAD)
+    ids = r0["async/i"][2 * ASYNC_PART:]
+    assert not np.isin(ids, ASYNC_DEAD).any()
+    assert np.isin(ids, range(ASYNC_BASE, 64)).any()
+    want = run["async_ref"]
+    ok = [j for j in [*range(ASYNC_PART), *range(2 * ASYNC_PART, n)]
+          if r0["async/tier"][j] == 0 == want[j].tier]
+    assert len(ok) >= ASYNC_PART
+    assert_topk_close(
+        ttk.TopK(torch.as_tensor(r0["async/d"][ok]),
+                 torch.as_tensor(r0["async/i"][ok])),
+        ttk.TopK(torch.as_tensor(np.stack([want[j][1] for j in ok])),
+                 torch.as_tensor(np.stack([want[j][0] for j in ok]))))

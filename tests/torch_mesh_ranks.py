@@ -16,8 +16,13 @@ three segments with tombstones, a cluster index over it, and the
 segmented and routed steps (self-excluding) of ``SEG_RUNS`` and
 ``ROUTED_RUNS`` with the one-device steps beside them, each called at
 every one of ``VERSIONS`` (a delete, an append and a compact made alike on
-every rank between them); their gauges; and a ``QueryServer`` on (8, 1)
-whose deadline ``LAPSED`` lapses on rank 0 only.
+every rank between them); their gauges; a ``QueryServer`` on (8, 1)
+whose deadline ``LAPSED`` lapses on rank 0 only; and an
+``AsyncQueryServer`` on ``ASYNC_MESH`` fed raw payloads through an ingest
+pool of one worker a rank (``ASYNC_STREAM``: a deadline that lapses on
+rank 0 only, one that rank 0's admission check rejects, a mid-stream
+ingest and delete, a planned worker crash and a payload that one rank
+vectorizes differently).
 
 :class:`RankAlone` runs one rank of a (data, model) mesh by itself, for
 the card's checks of each shard's kernel work.
@@ -64,6 +69,34 @@ SERVER_BATCH = 4
 LAPSED = 1
 LAPSE_S = 1e-3
 RECOVER_AFTER = 2
+# The async server on ASYNC_MESH: its corpus is docs [0, ASYNC_BASE), the
+# rest ingested and ASYNC_DEAD deleted mid-stream (while part B is
+# queued); parts A, B and C of ASYNC_PART payloads each (seeds of
+# _ingest_vectorizers.SeededHistogramVectorizer), each part drained.
+# Batch 0 sleeps ASYNC_SLEEP_S, so the deadline of payload ASYNC_LAPSED
+# (ASYNC_LAPSE_S, rank 0 only) lapses while it is queued; rank 0 submits
+# payload ASYNC_REJECTED with an expired deadline; batch ASYNC_CRASH
+# crashes the worker; rank ASYNC_ODD_RANK submits another payload at
+# ASYNC_ODD.  No part fills the queue to the shed depth, so only the lapse
+# and the crash step the tier down.
+ASYNC_MESH = "d4m2"
+ASYNC_BASE = 56
+ASYNC_DEAD = (3, 40, 57)
+ASYNC_BATCH = 4
+ASYNC_WAIT_S = 0.005
+ASYNC_PART = 16
+ASYNC_SEED = 1000
+ASYNC_SLEEP_S = 0.3
+ASYNC_LAPSED = 4
+ASYNC_LAPSE_S = 0.05
+ASYNC_REJECTED = 9
+ASYNC_CRASH = 6
+ASYNC_ODD = 2 * ASYNC_PART + 5
+ASYNC_ODD_RANK = 5
+# the stats every rank must hold alike
+ASYNC_STATS = ("queries", "batches", "degraded_batches", "deadline_misses",
+               "worker_restarts", "validation_failures", "corpus_switches",
+               "ewma_latency_s")
 
 
 class RankAlone:
@@ -141,11 +174,12 @@ def _refusals(mesh, docs, emb, out):
             out[f"raise/{name}"] = np.array("nothing")
         except NotImplementedError as e:
             out[f"raise/{name}"] = np.array(f"NotImplementedError: {e}")
-    try:
-        AsyncQueryServer(docs, emb, ServerConfig(device="cpu"), mesh=mesh)
+    try:   # builds over more than one rank, and closes alike
+        AsyncQueryServer(docs, emb, ServerConfig(device="cpu"),
+                         mesh=mesh).close()
         out["raise/async"] = np.array("nothing")
-    except NotImplementedError as e:
-        out["raise/async"] = np.array(f"NotImplementedError: {e}")
+    except Exception as e:
+        out["raise/async"] = np.array(f"{type(e).__name__}: {e}")
     for name, shape in (("smaller", (2, 2)), ("larger", (4, 4))):
         try:
             make_host_mesh(*shape, device="cpu")
@@ -255,6 +289,69 @@ def _server(mesh, docs, emb, k, rank, out):
             out[f"server/{name}/{key}"] = x
 
 
+def async_stream(rank: int | None = None):
+    """The async server's payloads and deadlines, part by part, as rank
+    ``rank`` submits them (None: as the reference is fed, no deadline)."""
+    parts = []
+    for p in range(3):
+        part = []
+        for j in range(p * ASYNC_PART, (p + 1) * ASYNC_PART):
+            payload, deadline = ASYNC_SEED + j, None
+            if rank == 0 and j == ASYNC_LAPSED:
+                deadline = ASYNC_LAPSE_S
+            elif rank == 0 and j == ASYNC_REJECTED:
+                deadline = 0.0
+            elif rank == ASYNC_ODD_RANK and j == ASYNC_ODD:
+                payload += 10_000
+            part.append((payload, deadline))
+        parts.append(part)
+    return parts
+
+
+def async_config(docs, **kw):
+    """The async server's ``ServerConfig`` fields (``kw`` added)."""
+    return dict(k=kw.pop("k"), max_batch=ASYNC_BATCH, max_wait_s=ASYNC_WAIT_S,
+                h_max=docs.h_max, degradation=True,
+                shed_queue_depth=2 * ASYNC_PART, recover_after=RECOVER_AFTER,
+                **kw)
+
+
+def _async_server(mesh, docs, emb, k, rank, out):
+    """The AsyncQueryServer over the ranks, fed ``async_stream(rank)``
+    through an ingest pool of one worker: each part submitted, part B's
+    queue holding the ingest and the delete, each part drained."""
+    from _ingest_vectorizers import SeededHistogramVectorizer
+
+    from repro_torch.serving.faults import FaultPlan
+    from repro_torch.serving.query_server import AsyncQueryServer, ServerConfig
+
+    cfg = ServerConfig(**async_config(docs, k=k, ingest_workers=1,
+                                      device="cpu"))
+    vec = SeededHistogramVectorizer(vocab=emb.shape[0], h_max=docs.h_max)
+    plan = FaultPlan(latency_s={0: ASYNC_SLEEP_S},
+                     crash_batches=(ASYNC_CRASH,))
+    server = AsyncQueryServer(docs[:ASYNC_BASE], emb, cfg, mesh=mesh,
+                              preprocess=vec, faults=plan)
+    futures = []
+    try:
+        for p, part in enumerate(async_stream(rank)):
+            futures += [server.submit(x, deadline=dl) for x, dl in part]
+            if p == 1:
+                gids, _ = server.ingest(docs[ASYNC_BASE:])
+                out["async/ingested"] = np.asarray(gids)
+                out["async/deleted"] = np.array(
+                    server.delete_docs(list(ASYNC_DEAD)))
+            server.drain()
+        stats = server.stats_snapshot()
+    finally:
+        server.close()
+    answers = [f.exception() or f.result() for f in futures]
+    for key, x in zip(("i", "d", "tier", "err"), _answers(answers, k)):
+        out[f"async/{key}"] = x
+    out["async/stats"] = np.array([float(stats[s]) for s in ASYNC_STATS]
+                                  + stats["tier_counts"])
+
+
 def rank_main(rank: int, inputs: str, out_dir: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group(
@@ -300,6 +397,7 @@ def rank_main(rank: int, inputs: str, out_dir: str) -> None:
         _refusals(mesh, docs, emb, out)
         _lifecycle(meshes, docs, emb, queries, qids, k, row_block, out)
         _server(meshes["d8m1"], docs, emb, k, rank, out)
+        _async_server(meshes[ASYNC_MESH], docs, emb, k, rank, out)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     except BaseException:
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
