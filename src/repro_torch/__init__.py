@@ -2,9 +2,9 @@
 
 The PyTorch counterpart of the JAX package ``repro``: the same query cascade
 (phase 1, ELL SpMM, streaming top-k, Sinkhorn-WMD rerank), the paper's
-comparison path, the serving plane (``repro_torch.serving``), and the dense
-GQA transformer's prefill and decode (``repro_torch.models.transformer``) on
-an NVIDIA H100.
+comparison path, the serving plane (``repro_torch.serving``), and the
+transformers' prefill and decode (``repro_torch.models.transformer``: dense
+GQA, MLA, MoE, the int8 KV cache) on an NVIDIA H100.
 Entry points run on the card unless the caller passes ``device="cpu"``; the
 tensors' device then decides the route: CUDA tensors launch the kernels in
 ``csrc/``, CPU tensors take each kernel's plain PyTorch version.

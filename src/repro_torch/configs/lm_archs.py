@@ -1,7 +1,7 @@
 """The five assigned LM architectures (exact public configs) + smoke variants.
 
 A copy of the reference's ``configs/lm_archs.py`` as data; the port builds
-the dense GQA ones (qwen2.5-14b, llama3-405b, llama3.2-1b).
+all five (dense GQA, MLA + MoE, GQA + MoE).
 
 long_500k note (DESIGN.md §5): these are all pure full-attention archs, so a
 500k PREFILL is out of scope (quadratic); the assigned long_500k cell is

@@ -32,13 +32,12 @@ def transformer_params_from_numpy(tree, cfg, *, device=None) -> dict:
 
     ``tree`` is the reference's ``init_params`` pytree with numpy (or array)
     leaves: ``embed``, ``final_ln``, ``layers`` stacked ``(L, ...)`` by
-    ``jax.vmap``, and optionally ``unembed`` and the ``bq``/``bk``/``bv``
-    biases.  The port keeps the same nesting, so both packages compute on
-    the same weights.  bfloat16 leaves stay bfloat16.
+    ``jax.vmap``, optionally ``prefix_layers`` (a list of one layer's
+    dict each, deepseek-v2's leading dense layer), ``unembed`` and the
+    ``bq``/``bk``/``bv`` biases; MLA and MoE leaves as they come.  The port
+    keeps the same nesting, so both packages compute on the same weights.
+    bfloat16 leaves stay bfloat16.
     """
-    from repro_torch.models.transformer.model import require_dense_gqa
-
-    require_dense_gqa(cfg)
     dev = resolve_device(device)
 
     def leaf(x):
@@ -50,10 +49,14 @@ def transformer_params_from_numpy(tree, cfg, *, device=None) -> dict:
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
         return leaf(node)
 
     params = conv(tree)
-    n = params["layers"]["ln1"].shape[0]
+    n_pre = len(params.get("prefix_layers", []))
+    n = n_pre + params["layers"]["ln1"].shape[0]
     if n != cfg.n_layers:
-        raise ValueError(f"{n} stacked layers, the config has {cfg.n_layers}")
+        raise ValueError(f"{n_pre} prefix and {n - n_pre} stacked layers, the "
+                         f"config has {cfg.n_layers}")
     return params

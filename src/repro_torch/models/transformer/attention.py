@@ -11,8 +11,7 @@ from __future__ import annotations
 import torch
 
 import repro_torch.device  # noqa: F401  (the float32 backend flags)
-
-_NEG = -1e30
+from repro_torch.models.transformer.common import NEG
 
 
 def _scores_softmax_ctx(q, k, v, mask, scale):
@@ -47,7 +46,7 @@ def gqa_attention(
     def mask_for(q_pos):
         m = torch.zeros((b, 1, 1, q_pos.shape[0], t), dtype=torch.float32,
                         device=dev)
-        neg = torch.full_like(m, _NEG)
+        neg = torch.full_like(m, NEG)
         if causal:
             m = torch.where(k_pos[None, None, None, None, :]
                             <= q_pos[None, None, None, :, None], m, neg)

@@ -2,11 +2,10 @@
 
 One dataclass expresses dense GQA (qwen/llama), MLA (deepseek-v2) and MoE
 (deepseek-v2, grok-1) variants as data; per-arch instances live in
-``repro_torch/configs/``.  The port builds dense GQA models only: MLA and
-MoE configurations load, and building a model from one raises
-(ROADMAP A13).  The reference's mesh and compile knobs (activation and
-gradient sharding specs, the custom weight-gradient path, scanned layers)
-have no counterpart on one card; they return with multi-GPU (ROADMAP A12).
+``repro_torch/configs/``, and the port builds all of them.  The
+reference's mesh and compile knobs (activation and gradient sharding
+specs, the custom weight-gradient path, scanned layers) have no
+counterpart on one card; they return with multi-GPU (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -94,3 +93,16 @@ class TransformerConfig:
             ffn_total = nd * dense_ffn + (l - nd) * moe_ffn
         norms = l * 2 * d + d
         return emb + l * attn + ffn_total + norms
+
+    @property
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: only routed top-k + shared experts)."""
+        if self.moe is None:
+            return self.n_params
+        d, l = self.d_model, self.n_layers
+        moe_active = 3 * d * self.moe.d_expert_ff * (
+            self.moe.top_k + self.moe.n_shared) + d * self.moe.n_experts
+        moe_full = 3 * d * self.moe.d_expert_ff * (
+            self.moe.n_experts + self.moe.n_shared) + d * self.moe.n_experts
+        nd = self.moe.first_dense_layers
+        return self.n_params - (l - nd) * (moe_full - moe_active)

@@ -1,19 +1,22 @@
-"""Dense GQA transformer: init, forward, batched prefill and decode.
+"""Transformer: init, forward, batched prefill and decode (fp and int8).
 
-The port of ``repro.models.transformer.model`` for dense GQA
-configurations (no MLA, no MoE: building one raises, ROADMAP A13).
-Parameters are a plain dict shaped like the reference's pytree: the layer
-weights stacked along a leading ``n_layers`` axis, layer ``i`` read as a
-view.  The cast points are the reference's: each weight is cast to the
-activations' dtype at its product, ``rmsnorm`` computes in float32, and the
-logits are the float32 cast of ``x @ unembed.T``.
+The port of ``repro.models.transformer.model``'s serving path for every
+registered LM: dense GQA, MLA attention (``mla.py``) and MoE FFNs
+(``moe.py``), with the reference's ``prefix_layers`` (deepseek-v2's
+leading dense layer) before the stacked layers.  Parameters are a plain
+dict shaped like the reference's pytree: the stacked layers' weights along
+a leading axis, layer ``i`` read as a view, and ``prefix_layers`` a list
+of one dict a layer.  The cast points are the reference's: each weight is
+cast to the activations' dtype at its product, ``rmsnorm`` computes in
+float32, and the logits are the float32 cast of ``x @ unembed.T``.
 
-One change of implementation: the causal self-attention of the prefill
-and forward runs kernel B8 (``kernels/flash_attention.py``), which computes
-the same function as the reference's ``gqa_attention(causal=True)`` with
-the flash kernel's roundings; on CPU tensors that is B8's plain version.
-Decode attends with the plain ``gqa_attention`` (``causal=False``,
-``kv_len``), as the reference does outside any kernel.
+One change of implementation: the causal self-attention of a GQA prefill
+and forward runs kernel B8 (``kernels/flash_attention.py``), which
+computes the same function as the reference's ``gqa_attention(causal=True)``
+with the flash kernel's roundings; on CPU tensors that is B8's plain
+version.  Decode attends with the plain ``gqa_attention`` (``causal=False``,
+``kv_len``), and MLA and MoE in plain PyTorch, as the reference does
+outside any kernel.  Caches are updated in place.
 """
 
 from __future__ import annotations
@@ -25,23 +28,35 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.transformer.attention import gqa_attention
+from repro_torch.models.transformer.common import mm, rmsnorm
 from repro_torch.models.transformer.config import TransformerConfig
+from repro_torch.models.transformer.kv_quant import (
+    QuantKVCache,
+    quant_attention_decode,
+    quantize_kv,
+    store_at,
+)
+from repro_torch.models.transformer.mla import (
+    MLACache,
+    mla_attention_decode,
+    mla_attention_train,
+    mla_shapes,
+)
+from repro_torch.models.transformer.moe import moe_ffn, moe_shapes, swiglu
 from repro_torch.models.transformer.rope import apply_rope, rope_cos_sin
+
+# Elements of float32 a seeded draw makes at once: the transient of one
+# stacked expert tensor (grok-1's w_experts_gate is 12.9 GB in float32 for
+# two layers) stays under 1 GB.
+INIT_CHUNK = 1 << 28
 
 
 class KVCache(NamedTuple):
-    """Decode cache: k/v (L, B, T, Hkv, dh); lengths (B,) tokens in cache."""
+    """Decode cache.  GQA: k/v (L, B, T, Hkv, dh).  MLA: k = c_kv
+    (L, B, T, r), v = k_rope (L, B, T, dr).  lengths (B,) tokens in cache."""
     k: torch.Tensor
     v: torch.Tensor
     lengths: torch.Tensor
-
-
-def require_dense_gqa(cfg: TransformerConfig) -> None:
-    """Raise unless ``cfg`` is a dense GQA model, the only kind ported."""
-    if cfg.attention != "gqa" or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention and MoE layers are not ported yet "
-            "(ROADMAP A13); the port builds dense GQA models")
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -49,14 +64,9 @@ def dtype_of(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.to(torch.float32)
-    var = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
-
-
-def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return x @ w.to(x.dtype)
+def n_prefix(cfg: TransformerConfig) -> int:
+    """Leading dense layers kept apart from the stacked ones."""
+    return cfg.moe.first_dense_layers if cfg.moe else 0
 
 
 def _layer(layers: dict, i: int) -> dict:
@@ -65,91 +75,135 @@ def _layer(layers: dict, i: int) -> dict:
             for k, v in layers.items()}
 
 
+def _layers(params: dict, cfg: TransformerConfig):
+    """(cache index, layer params, dense) of every layer, prefix first."""
+    pre = params.get("prefix_layers", [])
+    for i, lp in enumerate(pre):
+        yield i, lp, True
+    for i in range(cfg.n_layers - len(pre)):
+        yield len(pre) + i, _layer(params["layers"], i), False
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+def _layer_shapes(cfg: TransformerConfig, dense: bool) -> dict:
+    """Leaf shapes and init scales (None: ones, 0.0: zeros) of one layer."""
+    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if cfg.attention == "gqa":
+        attn = {
+            "wq": ((d, hq * dh), d ** -0.5),
+            "wk": ((d, hkv * dh), d ** -0.5),
+            "wv": ((d, hkv * dh), d ** -0.5),
+            "wo": ((hq * dh, d), (hq * dh) ** -0.5),
+        }
+        if cfg.qkv_bias:
+            for name, width in (("bq", hq * dh), ("bk", hkv * dh),
+                                ("bv", hkv * dh)):
+                attn[name] = ((width,), 0.0)
+    else:
+        attn = mla_shapes(cfg)
+    if dense or cfg.moe is None:
+        ffn = {"w_gate": ((d, cfg.d_ff), d ** -0.5),
+               "w_in": ((d, cfg.d_ff), d ** -0.5),
+               "w_out": ((cfg.d_ff, d), cfg.d_ff ** -0.5)}
+    else:
+        ffn = moe_shapes(d, cfg.moe)
+    return {"ln1": ((d,), None), "attn": attn, "ln2": ((d,), None),
+            "ffn": ffn}
+
+
 def init_params(cfg: TransformerConfig, *, seed: int = 0,
                 device=None) -> dict:
     """Random parameters from a seeded ``torch.Generator``, shaped and scaled
     as the reference's ``init_params`` (its numbers differ: JAX's generator
     is not PyTorch's; carry the reference's weights with
-    ``convert.transformer_params_from_numpy`` to compare the two)."""
-    require_dense_gqa(cfg)
+    ``convert.transformer_params_from_numpy`` to compare the two).  Each
+    tensor is drawn ``INIT_CHUNK`` float32 values at a time, straight into
+    the parameter dtype.  On the ``"meta"`` device the tensors have shapes
+    and no values (a full-size configuration's layout, at no cost)."""
     dev = resolve_device(device)
     dtype = dtype_of(cfg.param_dtype)
-    g = torch.Generator(device=dev).manual_seed(seed)
-    d, l, hq, hkv, dh = (cfg.d_model, cfg.n_layers, cfg.n_heads,
-                         cfg.n_kv_heads, cfg.d_head)
+    meta = dev.type == "meta"
+    g = None if meta else torch.Generator(device=dev).manual_seed(seed)
+    d = cfg.d_model
 
-    def normal(shape, scale):
-        x = torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
-        return x.mul_(scale).to(dtype)
+    def make(shape, scale):
+        if scale is None:
+            return torch.ones(shape, device=dev, dtype=dtype)
+        out = torch.zeros(shape, device=dev, dtype=dtype)
+        if scale == 0.0 or meta:
+            return out
+        flat = out.view(-1)
+        for lo in range(0, flat.numel(), INIT_CHUNK):
+            hi = min(lo + INIT_CHUNK, flat.numel())
+            x = torch.randn(hi - lo, generator=g, device=dev,
+                            dtype=torch.float32)
+            flat[lo:hi] = x.mul_(scale)
+        return out
 
-    def ones(shape):
-        return torch.ones(shape, device=dev, dtype=dtype)
+    def build(tree, lead=()):
+        return {k: build(v, lead) if isinstance(v, dict)
+                else make(lead + v[0], v[1]) for k, v in tree.items()}
 
-    attn = {
-        "wq": normal((l, d, hq * dh), d ** -0.5),
-        "wk": normal((l, d, hkv * dh), d ** -0.5),
-        "wv": normal((l, d, hkv * dh), d ** -0.5),
-        "wo": normal((l, hq * dh, d), (hq * dh) ** -0.5),
-    }
-    if cfg.qkv_bias:
-        for name, width in (("bq", hq * dh), ("bk", hkv * dh), ("bv", hkv * dh)):
-            attn[name] = torch.zeros((l, width), device=dev, dtype=dtype)
-    params = {
-        "embed": normal((cfg.vocab_size, d), d ** -0.5),
-        "final_ln": ones((d,)),
-        "layers": {
-            "ln1": ones((l, d)),
-            "attn": attn,
-            "ln2": ones((l, d)),
-            "ffn": {
-                "w_gate": normal((l, d, cfg.d_ff), d ** -0.5),
-                "w_in": normal((l, d, cfg.d_ff), d ** -0.5),
-                "w_out": normal((l, cfg.d_ff, d), cfg.d_ff ** -0.5),
-            },
-        },
-    }
+    npre = n_prefix(cfg)
+    params = {"embed": make((cfg.vocab_size, d), d ** -0.5),
+              "final_ln": make((d,), None)}
+    if npre:
+        params["prefix_layers"] = [build(_layer_shapes(cfg, True))
+                                   for _ in range(npre)]
+    params["layers"] = build(_layer_shapes(cfg, False),
+                             (cfg.n_layers - npre,))
     if not cfg.tie_embeddings:
-        params["unembed"] = normal((cfg.vocab_size, d), d ** -0.5)
+        params["unembed"] = make((cfg.vocab_size, d), d ** -0.5)
     return params
 
 
 # ---------------------------------------------------------------------------
 # forward (scoring) and batched prefill
 # ---------------------------------------------------------------------------
+def _qkv(cfg, p, x, positions):
+    """Roped q (B,S,Hq,dh), roped k and v (B,S,Hkv,dh) of a GQA block."""
+    b, s, _ = x.shape
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q, k, v = mm(x, p["wq"]), mm(x, p["wk"]), mm(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    cos, sin = rope_cos_sin(positions, dh, cfg.rope_theta)
+    return (apply_rope(q.reshape(b, s, hq, dh), cos, sin),
+            apply_rope(k.reshape(b, s, hkv, dh), cos, sin),
+            v.reshape(b, s, hkv, dh))
+
+
 def _gqa_block_train(cfg, p, h, positions):
     """Causal self-attention of one block; returns (out, k, v), k roped."""
     b, s, _ = h.shape
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q, k, v = _mm(h, p["wq"]), _mm(h, p["wk"]), _mm(h, p["wv"])
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(h.dtype)
-        k = k + p["bk"].to(h.dtype)
-        v = v + p["bv"].to(h.dtype)
-    q = q.reshape(b, s, hq, dh)
-    k = k.reshape(b, s, hkv, dh)
-    v = v.reshape(b, s, hkv, dh)
-    cos, sin = rope_cos_sin(positions, dh, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    q, k, v = _qkv(cfg, p, h, positions)
     out = flash_attention(q, k, v, causal=True)
-    return _mm(out.reshape(b, s, hq * dh), p["wo"]), k, v
+    return mm(out.reshape(b, s, cfg.n_heads * cfg.d_head), p["wo"]), k, v
 
 
 def _dense_ffn(p, h):
-    gate = _mm(h, p["w_gate"])
-    return _mm(gate * torch.sigmoid(gate) * _mm(h, p["w_in"]), p["w_out"])
+    return swiglu(h, p["w_gate"], p["w_in"], p["w_out"])
 
 
-def _block_train(cfg, lp, x, positions):
-    """One block; returns (x, k, v) with the block's K/V for the cache."""
+def _block_train(cfg, lp, x, positions, *, dense: bool):
+    """One block: (x, aux, k, v), with the block's cache entries: GQA's
+    roped K and V, MLA's latent ``c_kv`` and roped ``k_rope``."""
     h = rmsnorm(x, lp["ln1"], cfg.rms_eps)
-    a, k, v = _gqa_block_train(cfg, lp["attn"], h, positions)
+    if cfg.attention == "gqa":
+        a, k, v = _gqa_block_train(cfg, lp["attn"], h, positions)
+    else:
+        a, k, v = mla_attention_train(lp["attn"], h, cfg, positions,
+                                      return_latent=True)
     x = x + a
     h = rmsnorm(x, lp["ln2"], cfg.rms_eps)
-    return x + _dense_ffn(lp["ffn"], h), k, v
+    if dense or cfg.moe is None:
+        return x + _dense_ffn(lp["ffn"], h), None, k, v
+    f, aux = moe_ffn(lp["ffn"], h, cfg.moe, dtype=h.dtype)
+    return x + f, aux, k, v
 
 
 def _logits(params, x, cfg):
@@ -159,31 +213,35 @@ def _logits(params, x, cfg):
 
 
 def _prefill(params, tokens, cfg, on_layer=None):
-    require_dense_gqa(cfg)
+    """(logits, aux summed over the layers); ``on_layer(i, k, v)`` gets
+    each layer's cache entries, prefix layers first."""
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device)[None, :].expand(b, s)
     x = params["embed"][tokens].to(dtype_of(cfg.dtype))
-    for i in range(cfg.n_layers):
-        x, k, v = _block_train(cfg, _layer(params["layers"], i), x, positions)
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for i, lp, dense in _layers(params, cfg):
+        x, aux, k, v = _block_train(cfg, lp, x, positions, dense=dense)
+        if aux is not None:
+            aux_total = aux_total + aux
         if on_layer is not None:
             on_layer(i, k, v)
-    return _logits(params, x, cfg)
+    return _logits(params, x, cfg), aux_total
 
 
 def forward(params, tokens: torch.Tensor, cfg: TransformerConfig
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B,S) -> (logits (B,S,V) f32, aux_loss 0 (no MoE))."""
-    logits = _prefill(params, tokens, cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    """tokens (B,S) -> (logits (B,S,V) f32, aux_loss scalar f32)."""
+    return _prefill(params, tokens, cfg)
 
 
 def forward_with_cache(params, tokens: torch.Tensor, cfg: TransformerConfig,
                        max_len: int) -> tuple[torch.Tensor, KVCache]:
-    """Batched prefill: the causal forward that also fills the KV cache.
+    """Batched prefill: the causal forward that also fills the cache.
 
     tokens (B,S) -> (logits (B,S,V) f32, cache of max_len positions, the
-    first S filled, the rest 0).  ``prefill`` is the sequential reference.
+    first S filled, the rest 0; MLA caches the latent).  ``prefill`` is the
+    sequential reference.
     """
     b, s = tokens.shape
     cache = init_cache(cfg, b, max_len, device=tokens.device)
@@ -192,7 +250,7 @@ def forward_with_cache(params, tokens: torch.Tensor, cfg: TransformerConfig,
         cache.k[i, :, :s] = k
         cache.v[i, :, :s] = v
 
-    logits = _prefill(params, tokens, cfg, store)
+    logits, _ = _prefill(params, tokens, cfg, store)
     cache.lengths.fill_(s)
     return logits, cache
 
@@ -202,58 +260,90 @@ def forward_with_cache(params, tokens: torch.Tensor, cfg: TransformerConfig,
 # ---------------------------------------------------------------------------
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None,
                device=None) -> KVCache:
-    require_dense_gqa(cfg)
     dev = resolve_device(device)
     dtype = dtype or dtype_of(cfg.dtype)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
-                   v=torch.zeros(shape, dtype=dtype, device=dev),
+    l = cfg.n_layers  # prefix layers included in the same stacked cache
+    if cfg.attention == "gqa":
+        shape_k = shape_v = (l, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    else:
+        shape_k = (l, batch, max_len, cfg.mla.kv_lora_rank)
+        shape_v = (l, batch, max_len, cfg.mla.qk_rope_head_dim)
+    return KVCache(k=torch.zeros(shape_k, dtype=dtype, device=dev),
+                   v=torch.zeros(shape_v, dtype=dtype, device=dev),
                    lengths=torch.zeros((batch,), dtype=torch.int32, device=dev))
 
 
 def _gqa_block_decode(cfg, p, x, k_cache, v_cache, lengths):
     """x (B,1,D); k/v_cache (B,T,Hkv,dh), written in place at ``lengths``."""
     b, s, _ = x.shape
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q, k, v = _mm(x, p["wq"]), _mm(x, p["wk"]), _mm(x, p["wv"])
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
-    q = q.reshape(b, s, hq, dh)
-    k = k.reshape(b, s, hkv, dh)
-    v = v.reshape(b, s, hkv, dh)
-    cos, sin = rope_cos_sin(lengths[:, None], dh, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    # The reference adds one_hot(lengths) * k to a cache that is 0 there;
-    # the indexed store gives the same values.
-    rows = torch.arange(b, device=x.device)
-    pos = lengths.long()
-    k_cache[rows, pos] = k[:, 0].to(k_cache.dtype)
-    v_cache[rows, pos] = v[:, 0].to(v_cache.dtype)
+    q, k, v = _qkv(cfg, p, x, lengths[:, None])
+    store_at(k_cache, k[:, 0], lengths)
+    store_at(v_cache, v[:, 0], lengths)
     out = gqa_attention(q, k_cache, v_cache, causal=False, kv_len=lengths + 1)
-    return _mm(out.reshape(b, s, hq * dh), p["wo"])
+    return mm(out.reshape(b, s, cfg.n_heads * cfg.d_head), p["wo"])
+
+
+def _ffn(cfg, lp, h, dense: bool):
+    if dense or cfg.moe is None:
+        return _dense_ffn(lp["ffn"], h)
+    return moe_ffn(lp["ffn"], h, cfg.moe, dtype=h.dtype)[0]
 
 
 def decode_step(params, cache: KVCache, tokens: torch.Tensor,
                 cfg: TransformerConfig) -> tuple[torch.Tensor, KVCache]:
     """One decode step: tokens (B,1) -> (logits (B,1,V) f32, cache).
 
-    The cache's K/V tensors are updated in place (the returned cache shares
-    them, with ``lengths + 1``): a caller that needs the old cache clones it.
+    The cache's tensors are updated in place (the returned cache shares
+    them, with ``lengths + 1``): a caller that needs the old cache clones
+    it.  MLA attends in the absorbed form against the latent cache.
     """
-    require_dense_gqa(cfg)
     x = params["embed"][tokens].to(dtype_of(cfg.dtype))
     lengths = cache.lengths
-    for i in range(cfg.n_layers):
+    for i, lp, dense in _layers(params, cfg):
+        h = rmsnorm(x, lp["ln1"], cfg.rms_eps)
+        if cfg.attention == "gqa":
+            a = _gqa_block_decode(cfg, lp["attn"], h, cache.k[i], cache.v[i],
+                                  lengths)
+        else:
+            a, _ = mla_attention_decode(lp["attn"], h, cfg,
+                                        MLACache(cache.k[i], cache.v[i]),
+                                        lengths)
+        x = x + a
+        h = rmsnorm(x, lp["ln2"], cfg.rms_eps)
+        x = x + _ffn(cfg, lp, h, dense)
+    return _logits(params, x, cfg), KVCache(cache.k, cache.v, lengths + 1)
+
+
+def decode_step_quant(params, cache: QuantKVCache, tokens: torch.Tensor,
+                      cfg: TransformerConfig
+                      ) -> tuple[torch.Tensor, QuantKVCache]:
+    """GQA decode against an int8 KV cache: the contract of
+    :func:`decode_step`, with a :class:`kv_quant.QuantKVCache` (updated in
+    place).  As the reference, it runs ``params["layers"]`` (no prefix
+    layers) and refuses MLA, whose latent cache is already compact."""
+    if cfg.attention != "gqa":
+        raise ValueError("int8 cache: GQA archs (MLA is compact)")
+    x = params["embed"][tokens].to(dtype_of(cfg.dtype))
+    lengths = cache.lengths
+    b = tokens.shape[0]
+    hq, dh = cfg.n_heads, cfg.d_head
+    n_stack = cache.k_q.shape[0]
+    for i in range(n_stack):
         lp = _layer(params["layers"], i)
         h = rmsnorm(x, lp["ln1"], cfg.rms_eps)
-        x = x + _gqa_block_decode(cfg, lp["attn"], h, cache.k[i], cache.v[i],
-                                  lengths)
-        h = rmsnorm(x, lp["ln2"], cfg.rms_eps)
-        x = x + _dense_ffn(lp["ffn"], h)
-    return _logits(params, x, cfg), KVCache(cache.k, cache.v, lengths + 1)
+        q, k, v = _qkv(cfg, lp["attn"], h, lengths[:, None])
+        # quantize the new token's K/V and insert at position ``lengths``
+        for payload, scales, new in ((cache.k_q, cache.k_scale, k),
+                                     (cache.v_q, cache.v_scale, v)):
+            nq, ns = quantize_kv(new[:, 0])        # (B,Hkv,dh), (B,Hkv)
+            store_at(payload[i], nq, lengths)
+            store_at(scales[i], ns, lengths)
+        a = quant_attention_decode(q, cache.k_q[i], cache.k_scale[i],
+                                   cache.v_q[i], cache.v_scale[i], lengths + 1)
+        x = x + mm(a.reshape(b, 1, hq * dh).to(h.dtype), lp["attn"]["wo"])
+        h2 = rmsnorm(x, lp["ln2"], cfg.rms_eps)
+        x = x + _ffn(cfg, lp, h2, False)
+    return _logits(params, x, cfg), cache._replace(lengths=lengths + 1)
 
 
 def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig,

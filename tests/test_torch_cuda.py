@@ -633,6 +633,9 @@ FLASH_SHAPES = [
     (2, 150, 201, 8, 2, 64, False),
     (1, 60, 131, 4, 1, 128, False),
     (1, 200, 137, 8, 2, 64, True),     # causal with fewer keys than rows
+    # grok-1's heads: group 6 at dh 128 (two heads a CTA), ragged S
+    (1, 333, 333, 48, 8, 128, True),
+    (1, 200, 333, 48, 8, 128, False),
 ]
 
 
@@ -942,6 +945,54 @@ def test_transformer_prefill_runs_b8_and_matches_plain_attention(cuda,
     assert lg.shape == (2, 1, 1000) and bool(torch.isfinite(lg).all())
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "grok-1-314b"])
+def test_moe_mla_models_on_the_card_match_the_cpu(cuda, arch):
+    """The smoke configs of the MoE/MLA models: forward_with_cache, four
+    decode steps and (grok) the int8-cache decode on the card against the
+    same on the CPU; grok's prefill runs B8 once a layer, deepseek's MLA
+    none.  grok's smoke heads are cut to 2 over 1 (dh 32: B8 takes dh 32,
+    64 and 128, the smoke config's 4 heads give 16)."""
+    import dataclasses
+
+    from repro_torch.configs import get_spec
+    from repro_torch.models.transformer import kv_quant as tkv
+
+    cfg = get_spec(arch).smoke_cfg
+    if cfg.attention == "gqa":
+        cfg = dataclasses.replace(cfg, n_heads=2, n_kv_heads=1, d_head=0)
+    cpu_p = TM.init_params(cfg, seed=0, device="cpu")
+    gpu_p = {k: ([{a: _to(b, cuda) for a, b in lp.items()} for lp in v]
+                 if k == "prefix_layers" else _to(v, cuda))
+             for k, v in cpu_p.items()}
+    tokens = torch.randint(0, cfg.vocab_size, (2, 20),
+                           generator=torch.Generator().manual_seed(3))
+    _build.reset_launches()
+    got, gc = TM.forward_with_cache(gpu_p, tokens[:, :16].to(cuda), cfg, 24)
+    assert _build.LAUNCHES["flash_attention"] == (
+        cfg.n_layers if cfg.attention == "gqa" else 0)
+    want, wc = TM.forward_with_cache(cpu_p, tokens[:, :16], cfg, 24)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(gc.k.cpu(), wc.k, rtol=1e-4, atol=1e-4)
+    for i in range(16, 20):
+        g, gc = TM.decode_step(gpu_p, gc, tokens[:, i:i + 1].to(cuda), cfg)
+        w, wc = TM.decode_step(cpu_p, wc, tokens[:, i:i + 1], cfg)
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+    if cfg.attention == "gqa":
+        gq = tkv.init_quant_cache(cfg, 2, 8, device=cuda)
+        wq = tkv.init_quant_cache(cfg, 2, 8, device="cpu")
+        for i in range(6):
+            g, gq = TM.decode_step_quant(gpu_p, gq, tokens[:, i:i + 1].to(cuda),
+                                         cfg)
+            w, wq = TM.decode_step_quant(cpu_p, wq, tokens[:, i:i + 1], cfg)
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 # ---------------------------------------------------------------------------
 # Segmented corpora and the serve step on the card
 # ---------------------------------------------------------------------------
@@ -1243,11 +1294,14 @@ def test_inflight_event_not_ready_then_ready(cuda):
         torch.cuda.synchronize()
         torch.cuda._sleep(2_000_000_000)            # ~1 s of spinning
         h = core.dispatch(qs)
-        server._inflight.append((h, [], []))
-        assert not server._oldest_ready()
-        torch.cuda.synchronize()
-        assert server._oldest_ready() and h.event.query()
-        server._inflight.clear()
+        # Held so that the idle worker, which collects the oldest batch in
+        # flight on its next look, leaves the planted one alone.
+        with server._lock:
+            server._inflight.append((h, [], []))
+            assert not server._oldest_ready()
+            torch.cuda.synchronize()
+            assert server._oldest_ready() and h.event.query()
+            server._inflight.clear()
         got = core.collect(h)
     finally:
         server.close()

@@ -27,7 +27,10 @@ MODULES = [
     "repro_torch.examples.cluster_corpus", "repro_torch.examples.serve_queries",
     "repro_torch.launch", "repro_torch.launch.serve",
     "repro_torch.launch.mesh", "repro_torch.launch.cells",
-    "repro_torch.configs.lcrwmd",
+    "repro_torch.configs.lcrwmd", "repro_torch.models.transformer.moe",
+    "repro_torch.models.transformer.mla",
+    "repro_torch.models.transformer.kv_quant",
+    "repro_torch.models.transformer.common",
 ]
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|from\s+repro(\.|\s))",

@@ -338,16 +338,6 @@ def test_transformer_params_keep_bf16_leaves_and_check_depth():
             device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "grok-1-314b"])
-def test_mla_and_moe_raise_naming_the_roadmap(arch):
-    cfg = tbase.get_spec(arch).smoke_cfg
-    for build in (lambda: TM.init_params(cfg, device="cpu"),
-                  lambda: TM.init_cache(cfg, 1, 8, device="cpu"),
-                  lambda: TM.forward({}, torch.zeros((1, 4), dtype=torch.int32), cfg)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            build()
-
-
 def _fields(cfg):
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
 
