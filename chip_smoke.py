@@ -2,7 +2,8 @@
 the paper's comparison path (streaming LC-RWMD, the SpMM formulations, the
 quadratic RWMD and the WMD baselines), flash attention and the GNN
 gather-scale-scatter, llama3.2-1b prefill and decode (fp and int8 cache),
-and grok-1 and deepseek-v2 (MoE, MLA) at full width.
+grok-1 and deepseek-v2 (MoE, MLA) at full width, and NequIP's energies and
+forces at full width on its four cells.
 
     python3 chip_smoke.py              # Table IV set 2 at scale 0.25: 700,000 docs
     python3 chip_smoke.py --scale 0.01 # a quick rehearsal at 28,000 docs
@@ -271,6 +272,33 @@ Phases, each of which exits non-zero on failure:
    beside SDPA and its bound at 4,096 and 8,192; deepseek's absorbed MLA
    decode on the int8 latent against the fp latent over 8 steps of one
    layer (rtol 0.08, atol 0.05).
+11. NequIP (``repro_torch.models.gnn.nequip``; the ``nequip`` config at
+   full width: 5 layers, 32 channels, l_max 2, 8 RBF, cutoff 5, seeded
+   weights) on the four cells of ``configs/gnn_archs.py`` at full size,
+   one after the other: ``full_graph_sm`` (2,708 nodes, 10,556 edges,
+   1,433 features), ``minibatch_lg`` (the port's sampler over a
+   232,965-node random graph of degree 25: 1,024 seeds, fanout (15, 10),
+   padded to 180,224 nodes and 184,320 edges; 602 features),
+   ``ogb_products`` (2,449,029 nodes, 61,859,140 edges drawn on the card
+   as phase 8 draws them, 100 features; energy only, in chunks of whole
+   destination rows of at most 2^20 edges) and ``molecule`` (128 graphs
+   of 30 atoms, 8,192 edges, species); positions in a cube of side 4
+   (``minibatch_lg``: the sampler's). With the counts reset just before
+   and read just after, the energies (``forward_energy``) must launch B9
+   2 + 2 x layers x chunks times (the position gathers, each block's
+   feature gather and aggregation) and the forces
+   (``forward_energy_forces``) 2 x layers + 1 more in the backward.
+   Printed: ms a forward and a forward with forces (CUDA events),
+   TFLOP/s by the reference's formula (``src/repro/launch/cells.py``
+   ``_nequip_flops``, ``train=False``), peak GB, and of one profiled call
+   the device busy share and B9's device ms against the rest.  Checks:
+   the same calls with B9 swapped for its plain version (energies within
+   1e-5 and forces within 1e-4 of their largest magnitude), whether the
+   forces repeat bit for bit, ``molecule`` against the port on the CPU,
+   and on ``molecule`` and ``minibatch_lg`` E(R x + t) = E(x) and F(R x) =
+   R F(x) within 1e-4.  Then B9 at NequIP's aggregation on
+   ``ogb_products`` (D 288, one layer's chunks) against its bytes bound,
+   beside ``segment_reduce(lengths=)`` and ``index_add_``.
 
 Before the last line come a JSON object with one entry per kernel and the
 card's name and power limit; the last line is
@@ -5105,6 +5133,403 @@ def _one_cell(name: str, mesh, smi: str) -> dict:
     return out
 
 
+# NequIP at full width (phase 11): the nequip config (5 layers, 32 channels,
+# l_max 2) on the four cells of src/repro/configs/gnn_archs.py at their
+# sizes.  ogb_products is energy-only (as the cell says), its edge work in
+# chunks of whole destination rows of at most NEQUIP_EDGE_CHUNK edges.
+NEQUIP_CELLS = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+NEQUIP_EDGE_CHUNK = 1 << 20
+NEQUIP_BOX = 4.0   # positions uniform in a cube of side 4 (the reference's
+                   # test batches): some edges reach past the 5.0 cutoff
+# minibatch_lg: the port's sampler over a random graph of Reddit's node
+# count at a degree where most seeds fill their fanout of 15.
+NEQUIP_REDDIT_NODES, NEQUIP_REDDIT_DEGREE = 232_965, 25
+# timed calls after the counted one (ogb_products: the counted call alone,
+# CUDA events around it; the cells before it ran the same code)
+NEQUIP_REPS = {"ogb_products": 0}
+NEQUIP_E_TOL = 1e-5   # energies, relative to the largest |E|: B9 against
+                      # its plain version, and the card against the CPU
+NEQUIP_F_TOL = 1e-4   # forces, relative to the largest |F| (the plain
+                      # version and the CPU add in other orders)
+NEQUIP_ROT_TOL = 1e-4  # E(R x + t) = E(x), F(R x) = R F(x), relative
+NEQUIP_ROT_CELLS = ("molecule", "minibatch_lg")
+NEQUIP_B9 = {"segment_spmm": ("segment_spmm_kernel",)}
+
+
+def nequip_flops(cfg, n_edges: int, n_nodes: int, *, train: bool,
+                 forces: bool) -> float:
+    """The reference's analytic FLOPs of a NequIP step
+    (``src/repro/launch/cells.py`` ``_nequip_flops``), copied."""
+    from repro_torch.models.gnn.nequip import _paths
+
+    c = cfg.d_hidden
+    per_edge = 0.0
+    for (l1, l2, l3) in _paths(cfg.l_max):
+        per_edge += 2.0 * c * (2 * l1 + 1) * (2 * l2 + 1) * (2 * l3 + 1)
+    per_edge += 2.0 * cfg.n_rbf * cfg.radial_hidden \
+        + 2.0 * cfg.radial_hidden * len(_paths(cfg.l_max)) * c
+    irr = sum(2 * l + 1 for l in range(cfg.l_max + 1))
+    per_node = 2.0 * 2 * c * c * irr  # lin_in + lin_out
+    fwd = cfg.n_layers * (n_edges * per_edge + n_nodes * per_node)
+    mult = 3.0 if train else 1.0          # fwd + bwd
+    if forces:
+        mult *= 2.0                        # grad-of-grad for the force term
+    return fwd * mult
+
+
+@contextlib.contextmanager
+def aggregation_swapped(NQ, fn):
+    """NequIP's B9 calls (``NQ.segment_spmm``) replaced by ``fn`` inside
+    the block."""
+    orig = NQ.segment_spmm
+    NQ.segment_spmm = fn
+    try:
+        yield
+    finally:
+        NQ.segment_spmm = orig
+
+
+def _nequip_batch(name: str, p: dict, frac: float, dev) -> tuple[dict, dict]:
+    """A cell's batch drawn from seed 0 (the graph on the card, but
+    ``minibatch_lg``'s, which the port's sampler draws on the host), and
+    what it holds."""
+    import numpy as np
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(29)
+    n, e, n_graphs = p["n_nodes"], p["n_edges"], p["n_graphs"]
+    t0 = time.perf_counter()
+    info = {}
+    if name == "minibatch_lg":
+        from repro_torch.models.gnn.sampler import (random_graph,
+                                                     sample_fanout_subgraph)
+
+        hg = random_graph(NEQUIP_REDDIT_NODES, NEQUIP_REDDIT_DEGREE,
+                          d_feat=p["d_feat"], seed=0)
+        rng = np.random.default_rng(0)
+        seeds = rng.choice(hg.n_nodes, size=p["batch_nodes"], replace=False)
+        sub = sample_fanout_subgraph(hg, seeds, fanout=tuple(p["fanout"]),
+                                     rng=rng, max_nodes=n, max_edges=e)
+        del hg
+        batch = {k: torch.tensor(sub[k], device=dev) for k in (
+            "positions", "edge_index", "edge_mask", "node_mask", "node_feat")}
+        info.update(real_nodes=int(sub["node_mask"].sum()),
+                    real_edges=int(sub["edge_mask"].sum()))
+    else:
+        if name == "ogb_products":
+            # as segment_phase draws the cell: dst sorted, a share of rows
+            # no edge reaches, padding edges (masked) to the sink row n - 1
+            n = max(int(n * frac), 4096)
+            e = max(int(e * frac), 4 * OGB_PAD_EDGES)
+            isolated = torch.rand(n - 1, generator=g, device=dev) < OGB_ISOLATED
+            cand = (~isolated).nonzero()[:, 0].to(torch.int32)
+            e_real = e - OGB_PAD_EDGES
+            dst = cand[torch.randint(0, cand.numel(), (e_real,), generator=g,
+                                     device=dev)]
+            del cand
+            dst = torch.cat([torch.sort(dst).values, torch.full(
+                (OGB_PAD_EDGES,), n - 1, dtype=torch.int32, device=dev)])
+            src = torch.randint(0, n, (e,), generator=g, device=dev,
+                                dtype=torch.int32)
+            mask = torch.ones(e, dtype=torch.bool, device=dev)
+            mask[e_real:] = False
+        else:
+            # edges within a graph (molecule: 64 of each 30-atom graph),
+            # no self-loop
+            per_n, per_e = n // n_graphs, e // n_graphs
+            base = torch.arange(n_graphs, device=dev).repeat_interleave(per_e)
+            src = torch.randint(0, per_n, (e,), generator=g, device=dev)
+            dst = torch.randint(0, per_n, (e,), generator=g, device=dev)
+            src = torch.where(src == dst, (src + 1) % per_n, src)
+            src, dst = ((base * per_n + x).to(torch.int32) for x in (src, dst))
+            mask = torch.ones(e, dtype=torch.bool, device=dev)
+        batch = {"edge_index": torch.stack([src, dst]), "edge_mask": mask,
+                 "positions": torch.rand((n, 3), generator=g, device=dev)
+                 * NEQUIP_BOX,
+                 "node_mask": torch.ones(n, dtype=torch.bool, device=dev)}
+        del src, dst
+        if p["d_feat"]:
+            batch["node_feat"] = torch.randn((n, p["d_feat"]), generator=g,
+                                             device=dev)
+        else:
+            batch["species"] = torch.randint(0, 16, (n,), generator=g,
+                                             device=dev, dtype=torch.int32)
+    n = batch["positions"].shape[0]
+    per_graph = max(n // n_graphs, 1)
+    batch["graph_ids"] = (torch.arange(n, device=dev) // per_graph).clamp_(
+        max=n_graphs - 1).to(torch.int32)
+    batch["n_graphs"] = n_graphs
+    torch.cuda.synchronize()
+    info.update(nodes=n, edges=batch["edge_index"].shape[1],
+                masked_edges=int((~batch["edge_mask"]).sum()),
+                seconds=time.perf_counter() - t0)
+    return batch, info
+
+
+def _rel_err(a, b) -> float:
+    """max |a - b| over the largest |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _rotation(dev):
+    import torch
+
+    q, r = torch.linalg.qr(torch.randn(3, 3, generator=torch.Generator(
+    ).manual_seed(7), dtype=torch.float64))
+    q = q * torch.sign(torch.diagonal(r))
+    if torch.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    return q.to(torch.float32).to(dev)
+
+
+def nequip_cell(name: str, cell, cfg0, frac: float, dev) -> dict:
+    """One cell's serving path: energies (and forces where the cell asks
+    for them) with the counts reset just before and read just after, then
+    times, TFLOP/s, peak memory, a profile and the checks."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import segment_spmm as sg
+    from repro_torch.models.gnn import nequip as NQ
+
+    p = cell.params
+    forces = bool(p["forces"])
+    cfg = dataclasses.replace(cfg0, d_feat=p["d_feat"],
+                              force_loss_weight=1.0 if forces else 0.0)
+    params = NQ.init_params(cfg, seed=0, device=dev)
+    batch, info = _nequip_batch(name, p, frac, dev)
+    n, e = info["nodes"], info["edges"]
+    chunk = NEQUIP_EDGE_CHUNK if name == "ogb_products" else None
+    if chunk is None:
+        n_chunks = 1
+    else:
+        dst = torch.sort(batch["edge_index"][1]).values.to(torch.int32)
+        off = sg.row_offsets(dst, n).cpu().numpy().astype(np.int64)
+        chunks = NQ._edge_chunks(off, chunk)
+        n_chunks = len(chunks)
+        info["largest_chunk_edges"] = max(c[3] - c[2] for c in chunks)
+    layers = cfg.n_layers
+    log(f"nequip {name}: {n} nodes, {e} edges, {n_chunks} edge chunk(s); "
+        f"batch {json.dumps(info)}")
+
+    def energy():
+        with torch.no_grad():
+            return NQ.forward_energy(params, batch, cfg, edge_chunk=chunk)
+
+    def energy_forces():
+        return NQ.forward_energy_forces(params, batch, cfg, edge_chunk=chunk)
+
+    # --- the main path, counts reset just before and read just after ---
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    start.record()
+    en = energy()
+    end.record()
+    torch.cuda.synchronize()
+    first_ms = start.elapsed_time(end)
+    fwd = _build.LAUNCHES["segment_spmm"]
+    want = 2 + 2 * layers * n_chunks
+    if fwd != want:
+        fail(f"nequip {name}: the forward launched segment_spmm {fwd} times, "
+             f"not {want} (2 position gathers, a feature gather and an "
+             f"aggregation per layer and chunk)")
+    bwd = 0
+    if forces:
+        _build.reset_launches()
+        en_f, fo = energy_forces()
+        torch.cuda.synchronize()
+        bwd = _build.LAUNCHES["segment_spmm"] - fwd
+        if bwd != 2 * layers + 1:
+            fail(f"nequip {name}: the backward launched segment_spmm {bwd} "
+                 f"times, not {2 * layers + 1}")
+        if tuple(fo.shape) != (n, 3) or not bool(torch.isfinite(fo).all()):
+            fail(f"nequip {name}: bad shape or non-finite forces")
+        if _rel_err(en_f, en) > NEQUIP_E_TOL:
+            fail(f"nequip {name}: the energies of the force call differ")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if tuple(en.shape) != (p["n_graphs"],) or not bool(torch.isfinite(en).all()):
+        fail(f"nequip {name}: bad shape or non-finite energies")
+    log(f"nequip {name}: B9 launches forward {fwd}, backward {bwd}; peak "
+        f"{peak_gb:.2f} GB; energies[:4] {en[:4].tolist()}")
+
+    # --- times (CUDA events), TFLOP/s by the reference's formula ---
+    reps = NEQUIP_REPS.get(name, 5)
+    r = dict(launches=dict(forward=fwd, backward=bwd), peak_gb=peak_gb,
+             chunks=n_chunks, nodes=n, edges=e, batch=info)
+    r["forward_ms"] = time_ms(energy, reps, warm=False) if reps else first_ms
+    r["first_forward_ms"] = first_ms
+    fl = nequip_flops(cfg, e, n, train=False, forces=False)
+    r["forward_tflops"] = fl / (r["forward_ms"] * 1e-3) / 1e12
+    if forces:
+        r["forces_ms"] = time_ms(energy_forces, max(reps, 1), warm=False)
+        r["forces_tflops"] = nequip_flops(cfg, e, n, train=False, forces=True) \
+            / (r["forces_ms"] * 1e-3) / 1e12
+
+    # --- device busy share, B9 against the rest (torch.profiler) ---
+    wall_us, dev_us, top, launched = profile_whole(
+        energy_forces if forces else energy, f"nequip {name}", NEQUIP_B9,
+        busy=name == "ogb_products")
+    b9_us = sum(us for us, k, _ in top if "segment_spmm_kernel" in k)
+    r["profile"] = dict(wall_ms=wall_us / 1e3, device_ms=dev_us / 1e3,
+                        busy=dev_us / wall_us, b9_ms=b9_us / 1e3,
+                        rest_ms=(dev_us - b9_us) / 1e3, top=[
+                            dict(name=k, device_ms=us / 1e3, count=c)
+                            for us, k, c in top[:6]])
+    log(f"nequip {name}: forward {r['forward_ms']:.3f} ms "
+        f"({r['forward_tflops']:.2f} TFLOP/s)" + (
+            f", with forces {r['forces_ms']:.3f} ms "
+            f"({r['forces_tflops']:.2f} TFLOP/s)" if forces else "") +
+        f"; profiled call: wall {wall_us / 1e3:.2f} ms, device busy "
+        f"{dev_us / wall_us:.3f}, B9 {b9_us / 1e3:.3f} ms of "
+        f"{dev_us / 1e3:.3f} device ms; by device time: " + ", ".join(
+            f"{k[:40]} {us / 1e3:.3f} ms x{c}" for us, k, c in top[:5]))
+
+    # --- checks ---
+    checks = {}
+    # the same forward with B9 swapped for its plain version (atomics)
+    _build.reset_launches()
+    with aggregation_swapped(NQ, sg.segment_spmm_plain):
+        if forces:
+            pe, pf = energy_forces()
+        else:
+            pe = energy()
+    torch.cuda.synchronize()
+    if _build.LAUNCHES["segment_spmm"]:
+        fail(f"nequip {name}: the swapped forward launched B9")
+    checks["b9_vs_plain"] = dict(energy=_rel_err(en, pe))
+    if forces:
+        checks["b9_vs_plain"]["forces"] = _rel_err(fo, pf)
+        del pf
+    del pe
+    if checks["b9_vs_plain"]["energy"] > NEQUIP_E_TOL or checks[
+            "b9_vs_plain"].get("forces", 0.0) > NEQUIP_F_TOL:
+        fail(f"nequip {name}: B9 against its plain version: "
+             f"{checks['b9_vs_plain']}")
+    if forces:
+        # the forces repeat bit for bit (no atomics in their backward)
+        _, again = energy_forces()
+        checks["forces_repeat_bitwise"] = bool(torch.equal(again, fo))
+        del again
+    if name == "molecule":
+        # the port on the CPU (its plain versions) on the same batch
+        cpu_p = _to_device(params, "cpu")
+        cpu_b = {k: v if k == "n_graphs" else v.cpu() for k, v in batch.items()}
+        ce, cf = NQ.forward_energy_forces(cpu_p, cpu_b, cfg)
+        checks["card_vs_cpu"] = dict(energy=_rel_err(en.cpu(), ce),
+                                     forces=_rel_err(fo.cpu(), cf))
+        if checks["card_vs_cpu"]["energy"] > NEQUIP_E_TOL or checks[
+                "card_vs_cpu"]["forces"] > NEQUIP_F_TOL:
+            fail(f"nequip {name}: the card against the CPU: "
+                 f"{checks['card_vs_cpu']}")
+    if name in NEQUIP_ROT_CELLS:
+        rot = _rotation(dev)
+        t = torch.tensor([1.3, -0.7, 2.1], device=dev)
+        pos = batch["positions"]
+        moved = dict(batch, positions=pos @ rot.T + t)
+        e_t = NQ.forward_energy(params, moved, cfg)
+        _, f_r = NQ.forward_energy_forces(params, dict(batch,
+                                                       positions=pos @ rot.T), cfg)
+        checks["rotation"] = dict(energy=_rel_err(e_t, en),
+                                  forces=_rel_err(f_r, fo @ rot.T))
+        if max(checks["rotation"].values()) > NEQUIP_ROT_TOL:
+            fail(f"nequip {name}: not invariant / equivariant under a "
+                 f"rotation: {checks['rotation']}")
+    log(f"nequip {name} checks: {json.dumps(checks)}")
+    r["checks"] = checks
+    if name == "ogb_products":
+        r["b9_d288"] = nequip_b9_shape(batch, n, chunks, cfg, dev)
+    return r
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def nequip_b9_shape(batch, n: int, chunks, cfg, dev) -> dict:
+    """B9 at NequIP's aggregation shape on ogb_products: one layer's
+    messages (E, C·9) in the model's chunks (one chunk's messages drawn
+    once, each chunk reading its own rows of them), against its bytes
+    bound and two PyTorch yardsticks over the same chunks:
+    ``segment_reduce(lengths=)`` and ``index_add_``."""
+    import torch
+
+    from repro_torch.kernels import segment_spmm as sg
+
+    d = cfg.d_hidden * (cfg.l_max + 1) ** 2
+    dst = torch.sort(batch["edge_index"][1]).values.to(torch.int32)
+    off = sg.row_offsets(dst, n)
+    deg = (off[1:] - off[:-1]).long()
+    ec_max = max(e1 - e0 for _, _, e0, e1 in chunks)
+    g = torch.Generator(device=dev).manual_seed(30)
+    msgs = torch.randn((ec_max, d), generator=g, device=dev)
+    ar = torch.arange(ec_max, dtype=torch.int32, device=dev)
+    one = torch.ones(ec_max, device=dev)
+    args = [(dst[e0:e1] - r0, deg[r0:r1], e1 - e0, r1 - r0)
+            for r0, r1, e0, e1 in chunks]
+
+    def b9():
+        for dc, _, ec, rows in args:
+            sg.segment_spmm_cuda(ar[:ec], dc, msgs[:ec], one[:ec], rows)
+
+    def seg_reduce():
+        for _, lc, ec, _ in args:
+            torch.segment_reduce(msgs[:ec], "sum", lengths=lc, axis=0)
+
+    def index_add():
+        for dc, _, ec, rows in args:
+            torch.zeros((rows, d), device=dev).index_add_(0, dc, msgs[:ec])
+
+    dc, lc, ec, rows = args[0]
+    got = sg.segment_spmm_cuda(ar[:ec], dc, msgs[:ec], one[:ec], rows)
+    err = dict(segment_reduce=float((torch.segment_reduce(
+        msgs[:ec], "sum", lengths=lc, axis=0) - got).abs().max()),
+               index_add=float((torch.zeros((rows, d), device=dev).index_add_(
+                   0, dc, msgs[:ec]) - got).abs().max()))
+    if max(err.values()) > SEG_TOL:
+        fail(f"B9 at D {d}: the yardsticks disagree with it: {err}")
+    e_all = sum(a[2] for a in args)
+    bnd, by = bound_ms(4.0 * e_all * (d + 3) + 4.0 * n * d, 2.0 * e_all * d)
+    out = dict(d=d, chunks=len(chunks), edges=e_all, ms=time_ms(b9, 3),
+               bound_ms=bnd, bound_by=by, segment_reduce_ms=time_ms(seg_reduce, 3),
+               index_add_ms=time_ms(index_add, 3), yardstick_err=err)
+    out["gbps"] = 4.0 * e_all * (d + 3) / 1e6 / out["ms"]
+    log(f"kernel segment_spmm at NequIP's aggregation (D {d}, {len(chunks)} "
+        f"chunks, {e_all} edges): {out['ms']:.3f} ms against a {bnd:.3f} ms "
+        f"bound ({by}; {out['gbps']:.0f} GB/s of messages and edges); "
+        f"segment_reduce {out['segment_reduce_ms']:.3f} ms, index_add_ "
+        f"{out['index_add_ms']:.3f} ms")
+    return out
+
+
+def nequip_phase(frac: float, dev) -> dict:
+    """NequIP at full width on its four cells, one after the other (each
+    freed before the next)."""
+    import torch
+
+    from repro_torch.configs import get_spec
+
+    spec = get_spec("nequip")
+    out = {}
+    t0 = time.perf_counter()
+    for name in NEQUIP_CELLS:
+        out[name] = nequip_cell(name, spec.shapes[name], spec.model_cfg, frac,
+                                dev)
+        torch.cuda.empty_cache()
+    log(f"nequip phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=0.25,
@@ -5167,6 +5592,13 @@ def main() -> int:
     report["flash_attention"]["grok_shape"] = dict(
         grok["checks"]["b8_times"], max_abs_err=grok["checks"]["b8_vs_plain"][
             "max_abs"], gap=grok["checks"]["b8_vs_plain"])
+    torch.cuda.empty_cache()
+
+    # 11. NequIP at full width on its four cells (B9 forward and backward)
+    gnn = nequip_phase(frac, dev)
+    report["segment_spmm"]["gnn_launches"] = {
+        c: r["launches"] for c, r in gnn.items()}
+    report["segment_spmm"]["nequip_d288"] = gnn["ogb_products"]["b9_d288"]
 
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
@@ -5180,7 +5612,8 @@ def main() -> int:
             mesh_launches=r.get("mesh_launches", 0)))
         for key in ("workloads_launches", "entry_point_launches",
                     "mesh_launches_by_phase", "cells_launches",
-                    "cells_b1_bf16", "moe_launches", "grok_shape"):
+                    "cells_b1_bf16", "moe_launches", "grok_shape",
+                    "gnn_launches", "nequip_d288"):
             if key in r:
                 kernels[-1][key] = r[key]
         if name in EXTRA:
@@ -5188,6 +5621,8 @@ def main() -> int:
     log("llama3.2-1b: " + json.dumps(lm))
     for arch, r in moe.items():
         log(f"{arch}: " + json.dumps(r))
+    for cell, r in gnn.items():
+        log(f"nequip {cell}: " + json.dumps(r))
     log("tolerances: " + json.dumps({k: r["tol"] for k, r in report.items()}))
     log(f"profiler: {PROFILE_STATS['calls']} traces judged whole or not, "
         f"{PROFILE_STATS['first_lost']} first traces and "

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.data.docs import DocSet
 from repro_torch.device import resolve_device
+from repro_torch.models.gnn import nequip
 
 
 def from_numpy(ids, weights, emb, *, device=None) -> tuple[DocSet, torch.Tensor]:
@@ -60,3 +61,44 @@ def transformer_params_from_numpy(tree, cfg, *, device=None) -> dict:
         raise ValueError(f"{n_pre} prefix and {n - n_pre} stacked layers, the "
                          f"config has {cfg.n_layers}")
     return params
+
+
+def nequip_params_from_numpy(tree, cfg, *, device=None) -> dict:
+    """The reference's NequIP parameters as the port's.
+
+    ``tree`` is the reference's ``init_params`` pytree with numpy (or
+    array) leaves: ``embed``, ``layers`` (a list of one block's dict each,
+    ``lin_in`` / ``lin_out`` / ``gate_w`` keyed by irrep order) and the
+    head.  The port keeps the same nesting; the layer count and every
+    shape are checked against ``cfg`` (``nequip.param_shapes``).
+    """
+    dev = resolve_device(device)
+
+    def conv(node, want, where):
+        if isinstance(want, dict):
+            if not isinstance(node, dict) or set(node) != set(want):
+                raise ValueError(f"{where}: keys {sorted(node)} != "
+                                 f"{sorted(want)}")
+            return {k: conv(node[k], want[k], f"{where}.{k}") for k in want}
+        if isinstance(want, list):
+            if len(node) != len(want):
+                raise ValueError(f"{where}: {len(node)} layers, the config "
+                                 f"has {len(want)}")
+            return [conv(v, w, f"{where}[{i}]")
+                    for i, (v, w) in enumerate(zip(node, want))]
+        a = np.asarray(node)
+        if a.shape != want[0]:
+            raise ValueError(f"{where}: shape {a.shape} != {want[0]}")
+        return torch.tensor(a, device=dev)
+
+    return conv(tree, nequip.param_shapes(cfg), "params")
+
+
+def nequip_batch_from_numpy(batch: dict, *, device=None) -> dict:
+    """A NequIP batch dict (positions, edge_index, masks, graph_ids,
+    species or node_feat, energies, forces) as tensors; ``n_graphs`` stays
+    an int."""
+    dev = resolve_device(device)
+    return {k: int(v) if k == "n_graphs" else torch.tensor(np.asarray(v),
+                                                           device=dev)
+            for k, v in batch.items()}

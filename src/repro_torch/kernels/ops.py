@@ -297,8 +297,10 @@ def segment_spmm(
 ) -> torch.Tensor:
     """Fused GNN gather-scale-scatter: out[n] = sum_{dst=n} rad*feat[src].
 
-    (n_out, D) f32; rows with no edge are 0.
+    (n_out, D) f32; rows with no edge are 0.  Differentiable in ``feat``
+    and ``rad`` (:class:`segment_spmm.SegmentSpmm`: the gradient for
+    ``feat`` is the kernel again, over the edges ordered by ``src``).
     """
-    return _seg.segment_spmm(src.to(torch.int32).contiguous(),
-                             dst.to(torch.int32).contiguous(), _f32(feat),
-                             _f32(rad), n_out)
+    return _seg.SegmentSpmm.apply(src.to(torch.int32).contiguous(),
+                                  dst.to(torch.int32).contiguous(),
+                                  _f32(feat), _f32(rad), n_out)

@@ -13,6 +13,16 @@ Contract, as in the reference's ``ops.segment_spmm``: ``dst`` is sorted
 ascending, padding edges carry ``rad = 0``, rows with no edge are 0, and
 the output is ``(n_out, D)`` float32 (the TPU's 128-lane padding of ``D``
 has no counterpart here).
+
+:class:`SegmentSpmm` differentiates the function (the reference's models
+reach it through ``jax.ops.segment_sum`` and autodiff).  The gradient for
+``feat`` is the same function with the roles of ``src`` and ``dst``
+swapped, ``grad_feat[s] = Σ_{src[e] = s} rad[e] · g[dst[e]]``: one more
+launch of the kernel over the edges ordered by ``src`` (a stable argsort
+only where ``src`` is not ascending), with no atomics.  The gradient for
+``rad`` (only when it is asked for) is ``Σ_d g[dst[e], d] · feat[src[e], d]``
+in plain PyTorch.  The backward is written through the Function itself,
+so a gradient of a gradient differentiates it again.
 """
 
 from __future__ import annotations
@@ -85,3 +95,35 @@ def segment_spmm(src: torch.Tensor, dst: torch.Tensor, feat: torch.Tensor,
     if feat.device.type == "cpu":
         return segment_spmm_plain(src, dst, feat, rad, n_out)
     raise ValueError(f"unsupported device {feat.device}")
+
+
+def _ascending(x: torch.Tensor) -> bool:
+    return bool((x[1:] >= x[:-1]).all())
+
+
+class SegmentSpmm(torch.autograd.Function):
+    """:func:`segment_spmm` under autograd: src/dst int32 (E,), dst sorted,
+    feat f32 (N, D), rad f32 (E,); ``apply(src, dst, feat, rad, n_out)``."""
+
+    @staticmethod
+    def forward(ctx, src, dst, feat, rad, n_out):
+        ctx.save_for_backward(src, dst, feat, rad)
+        return segment_spmm(src, dst, feat.contiguous(), rad.contiguous(),
+                            n_out)
+
+    @staticmethod
+    def backward(ctx, g):
+        src, dst, feat, rad = ctx.saved_tensors
+        grad_feat = grad_rad = None
+        if ctx.needs_input_grad[2]:
+            # the transposed problem: rows of feat gather g's rows by dst,
+            # summed over the edges in ascending (src, edge) order
+            if _ascending(src):
+                s, d, r = dst, src, rad
+            else:
+                order = torch.argsort(src, stable=True)
+                s, d, r = dst[order], src[order], rad[order]
+            grad_feat = SegmentSpmm.apply(s, d, g, r, feat.shape[0])
+        if ctx.needs_input_grad[3]:
+            grad_rad = (g[dst.long()] * feat[src.long()]).sum(1)
+        return None, None, grad_feat, grad_rad, None

@@ -20,9 +20,11 @@ its sharded arrays tile evenly.  The port's shards are ragged (ROADMAP,
 "No padding for trace reuse"), so ``n`` and ``v`` are the paper's own; on a
 1x1 mesh the reference's rounding is the identity and the cells are equal.
 
-Only the ``lcrwmd`` family is built here; any other arch (the reference's
-LM, GNN and recsys cells wait for ROADMAP A item 8) raises
-``NotImplementedError``.  The reference's ``donate_argnums`` is left out:
+Only the ``lcrwmd`` family is built here; any other arch raises
+``NotImplementedError``.  The reference's GNN cells are NequIP train steps
+and wait for the port's training (ROADMAP A item 8d; NequIP's serving path
+is ``repro_torch.models.gnn.nequip``); its LM and recsys cells wait for
+items 8c-8e.  The reference's ``donate_argnums`` is left out:
 buffer donation means nothing to these callables.
 """
 
@@ -157,8 +159,9 @@ def build_cell(arch_id: str, shape_id: str, mesh) -> Cell:
     ``axis_names`` and ``device``)."""
     if arch_id != "lcrwmd":
         raise NotImplementedError(
-            f"{arch_id}: the port builds the lcrwmd cells only; the LM, GNN "
-            "and recsys cells wait for ROADMAP A item 8")
+            f"{arch_id}: the port builds the lcrwmd cells only; the GNN "
+            "cells are train steps and wait for the port's training (ROADMAP "
+            "A item 8d), the LM and recsys cells for items 8c-8e")
     spec = get_spec(arch_id)
     cell = spec.shapes[shape_id]
     if cell.skip_reason:

@@ -1,1 +1,2 @@
-"""Models of the port: the transformer's dense GQA serving path."""
+"""Models of the port: the transformer's serving path (dense GQA, MLA,
+MoE) and NequIP's (energies and forces)."""

@@ -30,7 +30,9 @@ MODULES = [
     "repro_torch.configs.lcrwmd", "repro_torch.models.transformer.moe",
     "repro_torch.models.transformer.mla",
     "repro_torch.models.transformer.kv_quant",
-    "repro_torch.models.transformer.common",
+    "repro_torch.models.transformer.common", "repro_torch.models.gnn",
+    "repro_torch.models.gnn.nequip", "repro_torch.models.gnn.so3",
+    "repro_torch.models.gnn.sampler", "repro_torch.configs.gnn_archs",
 ]
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|from\s+repro(\.|\s))",
